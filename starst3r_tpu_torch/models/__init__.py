@@ -1,0 +1,3 @@
+from .mast3r import Mast3rModel, TwoViewNet, PairPrediction
+from .heads import DPTHead, DescriptorHead, postprocess_pointmap
+from .vit import DecoderBlock, EncoderBlock, patch_positions

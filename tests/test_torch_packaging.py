@@ -1,0 +1,88 @@
+"""Packaging guards for the PyTorch port `starst3r_tpu_torch`:
+
+  1. no module of the port imports jax, flax, optax or starst3r_tpu (AST
+     scan of every import, at any scope);
+  2. importing the port in a fresh interpreter loads none of them;
+  3. entry points default to the card: without a GPU they raise unless the
+     caller passes device="cpu".
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import starst3r_tpu_torch as stt
+from starst3r_tpu_torch.alignment.ga import run_global_alignment
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "starst3r_tpu_torch")
+FORBIDDEN = ("jax", "flax", "optax", "starst3r_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    # starst3r_tpu_torch itself starts with "starst3r_tpu": compare the
+    # top-level package name, not the prefix
+    return name.split(".")[0] in FORBIDDEN
+
+
+def _py_files():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def test_forbidden_name_check_is_exact():
+    assert _forbidden("starst3r_tpu.splat")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("starst3r_tpu_torch.splat")
+
+
+def test_port_has_no_jax_or_reference_imports():
+    files = list(_py_files())
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                    and node.module and _forbidden(node.module):
+                bad.append((path, node.module))
+    assert bad == [], bad
+
+
+def test_import_port_loads_no_jax():
+    code = ("import sys, starst3r_tpu_torch, starst3r_tpu_torch.splat; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'flax', 'optax', 'starst3r_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        stt.Scene()
+    with pytest.raises(RuntimeError, match="cuda"):
+        stt.Mast3rModel.init_random(stt.ModelConfig.tiny())
+    with pytest.raises(RuntimeError, match="cuda"):
+        stt.gs.init_gaussians(np.zeros((2, 3), np.float32),
+                              np.zeros((2, 3), np.float32),
+                              stt.SplatConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_global_alignment(None, (0, []), stt.GAConfig())
+    scene = stt.Scene(device="cpu")
+    assert scene.device.type == "cpu"
