@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`starst3r_tpu_torch`) end to end on one
-NVIDIA GPU and hold its CUDA kernel against the kernel's plain version.
+NVIDIA GPU and hold its CUDA kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
 
   1. prints the card's name and power limit (nvidia-smi) and builds every
      CUDA kernel from the sources in the checkout (into
-     starst3r_tpu_torch/_build/), printing the build seconds;
+     starst3r_tpu_torch/_build/, one nvcc per source, all started
+     together), printing the build seconds and registers;
   2. drives the reconstruct-and-render path at the full MASt3R-large width
      and depth (random weights from seed 0, bfloat16 trunk) on six 224 px
      views made from a numpy seed: Scene.add_images(4 views), then
@@ -17,16 +18,32 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      iterations), init_3dgs, render_3dgs_original and an 8-view
      render_3dgs along the path from the first to the last camera, with
      every kernel's launch count set to 0 just before and read just after;
-  3. holds each kernel against its plain PyTorch version on the card, on
-     the entries of the real render and on two small scenes (an opaque wall
-     that stops every tile early, a scene with several batches per tile),
-     and times both;
-  4. checks that every output is finite and shaped as expected.
+  3. holds the forward compositing kernel against its plain PyTorch version
+     on the card, on the entries of the real render and on two small scenes
+     (an opaque wall that stops every tile early, a scene with several
+     batches per tile), and times both;
+  4. drives the training path on the same scene: Scene.run_3dgs_optim for
+     TRAIN_STEPS steps with MCMC pruning (refines at steps 100, 150, 200),
+     the launch counts set to 0 just before and read just after, then the
+     6 original and 8 novel views again;
+  5. holds the backward compositing kernel against its plain version (the
+     autograd gradient of the plain forward) on the trained scene's entries
+     with the real loss's pixel gradients, and on the two small scenes; and
+     the entry-gather kernel against ``packed[gidx] * valid``; times each,
+     with the gather's library call ``packed[gidx]``;
+  6. checks that every output is finite and shaped as expected, that the
+     loss fell, that no non-finite gradient came out of the backward kernel
+     or the gather's backward and no trained parameter is non-finite, and
+     that the pool grew as gsplat's add_new_gs rule says; and times the
+     stages of five more training steps (CUDA events that splat.train
+     records around its stages) and the kernels of five more
+     (torch.profiler).
 
-It prints the per-stage seconds, the Gaussian and coverage counts, a line
-`{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`. Any failed
-check exits non-zero before that last line. Without a CUDA card, or outside
-a checkout of the repository, it exits non-zero and prints no result.
+It prints the per-stage seconds, the Gaussian and coverage counts, the
+training line, a line `{"kernels": [...]}` and, last,
+`{"ok": true, "device": {...}}`. Any failed check exits non-zero before that
+last line. Without a CUDA card, or outside a checkout of the repository, it
+exits non-zero and prints no result.
 """
 
 import json
@@ -39,16 +56,30 @@ import time
 import numpy as np
 
 ATOL = 1e-4          # the Pallas forward's own tolerance against its oracle
+# the Pallas backward's tolerance: each attribute's gradient over the largest
+# magnitude of the plain version's
+BWD_SCALED_TOL = 2e-3
 HW = 224
 N_VIEWS = 6
 N_NOVEL = 8
+TRAIN_STEPS = 200
+REFINE_START, REFINE_EVERY = 100, 50
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores operations/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# float32 operations per (pixel, entry) pair the compositing loop visits:
-# offset 2, quadratic form 9, exp 1, opacity 1, cull/clip 3, blend 9
-OPS_PER_PAIR = 25
+# float32 operations per (pixel, entry) pair, counted from the kernels' code
+# (csrc/composite_common.cuh, composite_fwd.cu, composite_bwd.cu). Both
+# kernels take the falloff and the culls for every pair of the batches they
+# walk: offset 2, quadratic form 9, exp and its clip 3, opacity 1, cull 1.
+FALLOFF_OPS = 16
+# the forward, per pair that passes the culls: clip, weight, 3 colour
+# multiply-adds, transmittance
+BLEND_OPS = 9
+# the backward, per pair that passes the culls: transmittance, colour prefix
+# and alpha gradient 20, the 9 gradient terms 24, the per-entry reduction's
+# adds 9
+BWD_PASS_OPS = 53
 
 
 class CheckFailed(RuntimeError):
@@ -215,6 +246,38 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def pair_counts(entries, counts, done, tile, tw, th):
+    """(pairs walked, pairs passing the culls): the (pixel, entry) pairs
+    of the batches the forward kernel processed (``done``), and those of
+    them whose falloff passes the culls (sigma >= 0, alpha > 1/255), by the
+    plain version's arithmetic. The work both kernels' bounds are counted
+    from."""
+    import torch
+    from starst3r_tpu_torch.splat import composite as comp
+
+    c, t, k, _ = entries.shape
+    e = entries.reshape(c * t, k, 9)
+    walked = torch.clamp(counts.reshape(-1).long(),
+                         max=done.long() * comp.BATCH)
+    pix_x, pix_y = comp._tile_pix(tw, th, tile, e.device)
+    pix_x, pix_y = pix_x.repeat(c, 1)[:, None], pix_y.repeat(c, 1)[:, None]
+    passing = 0
+    for s in range(0, int(walked.max()) if walked.numel() else 0,
+                   comp.BATCH):
+        act = torch.nonzero(walked > s).squeeze(1)
+        ch = e[act, s:s + comp.BATCH]                         # (A, b, 9)
+        slot = torch.arange(s, s + ch.shape[1], device=e.device)
+        inside = (slot[None] < walked[act][:, None])[..., None]
+        dx = pix_x[act] - ch[:, :, 0:1]                       # (A, b, P)
+        dy = pix_y[act] - ch[:, :, 1:2]
+        sigma = (0.5 * (ch[:, :, 2:3] * dx * dx + ch[:, :, 4:5] * dy * dy)
+                 + ch[:, :, 3:4] * dx * dy)
+        alpha = ch[:, :, 8:9] * torch.exp(-torch.clamp(sigma, 0.0, 50.0))
+        passing += int((inside & (sigma >= 0.0)
+                        & (alpha > 1.0 / 255.0)).sum())
+    return int(walked.sum()) * tile * tile, passing
+
+
 def composite_case(name, entries, counts, h, w, tile, tw, th, timed):
     """Kernel against the plain version on one input. Returns the errors
     and, when ``timed``, the two times and the work the data needs."""
@@ -241,9 +304,11 @@ def composite_case(name, entries, counts, h, w, tile, tw, th, timed):
         c, t = counts.shape
         p = tile * tile
         n_entries = int(needed.sum())
+        walked, passing = pair_counts(entries, counts, done, tile, tw, th)
         out["bytes"] = (n_entries * 36 + c * t * 4          # reads
                         + c * h * w * 16 + c * t * (p + 1) * 4)  # writes
-        out["ops"] = OPS_PER_PAIR * p * n_entries
+        out["ops"] = FALLOFF_OPS * walked + BLEND_OPS * passing
+        out["pairs"] = (walked, passing)
         out["ms"] = cuda_ms(lambda: comp.composite_tiles_cuda(
             entries, counts, h, w, tile, tw, th), reps=50)
         out["plain_ms"] = cuda_ms(lambda: comp.composite_tiles_plain(
@@ -293,6 +358,258 @@ def check_composite_kernel(stt, scene, dev):
     return cases
 
 
+def bound(n_bytes, n_ops):
+    """(bound ms, what bounds it): the larger of bytes over the card's
+    memory rate and float32 operations over its CUDA-core rate."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def set_launches(value=0):
+    """Set every kernel's launch count, and the counts of non-finite
+    gradient elements out of the backward kernel and the gather's
+    backward, to ``value``."""
+    from starst3r_tpu_torch.splat import composite as comp, gather as gat
+    comp.composite_tiles_cuda.launches = value
+    comp.composite_tiles_bwd_cuda.launches = value
+    gat.gather_entries_cuda.launches = value
+    comp.CompositeTiles.nonfinite = value
+    gat.GatherEntries.nonfinite = value
+
+
+def read_launches():
+    from starst3r_tpu_torch.splat import composite as comp, gather as gat
+    return {"composite_fwd": comp.composite_tiles_cuda.launches,
+            "composite_bwd": comp.composite_tiles_bwd_cuda.launches,
+            "gather_entries": gat.gather_entries_cuda.launches}
+
+
+def read_nonfinite():
+    from starst3r_tpu_torch.splat import composite as comp, gather as gat
+    return {"composite_bwd": int(comp.CompositeTiles.nonfinite),
+            "gather_backward": int(gat.GatherEntries.nonfinite)}
+
+
+def drive_training(stt, scene, n_novel):
+    """The training path: Scene.run_3dgs_optim with MCMC pruning, then the
+    original and novel views again. Returns the losses, the loop's host
+    seconds, the launch and non-finite counts of the loop, the launch
+    counts of the renders after it, and the renders."""
+    import dataclasses
+    import torch
+
+    cfg = scene.config
+    scene.config = dataclasses.replace(cfg, splat=dataclasses.replace(
+        cfg.splat, mcmc_refine_start=REFINE_START,
+        mcmc_refine_every=REFINE_EVERY))
+    h, w = scene.imgs[0].shape[:2]
+    set_launches(0)
+    t = time.perf_counter()
+    losses = scene.run_3dgs_optim(TRAIN_STEPS, enable_pruning=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    train_launches = read_launches()
+    nonfinite = read_nonfinite()
+    set_launches(0)
+    orig = scene.render_3dgs_original(w, h)
+    path = stt.interp_se3_path(scene.c2w[0], scene.c2w[-1], n_novel)
+    novel = scene.render_3dgs(torch.linalg.inv(path),
+                              np.repeat(scene.intrinsics[:1], n_novel, 0),
+                              w, h)
+    torch.cuda.synchronize()
+    return (losses, secs, train_launches, nonfinite, read_launches(), orig,
+            novel)
+
+
+def profile_train_steps(scene, steps=5):
+    """Where a training step's time goes, on the path itself
+    (Scene.run_3dgs_optim with pruning, as trained): ``steps`` steps with
+    splat.train's stage events on (stream milliseconds per stage, which
+    include any wait for the host's launches), then ``steps`` more under
+    torch.profiler (the device time of each kernel, summed by name; the
+    host time of each stage's ``3dgs/`` range; the loop's wall time).
+    Returns ({stage: ms per step}, wall ms, device busy ms, {stage: host ms
+    per step}, [(kernel name, ms), ...]); busy is 0 when the trace holds
+    no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from starst3r_tpu_torch.splat import train as tr
+
+    stages = {}
+    tr.stage_events = []
+    try:
+        scene.run_3dgs_optim(steps, enable_pruning=True)
+        torch.cuda.synchronize()
+        for name, start, end in tr.stage_events:
+            stages[name] = (stages.get(name, 0.0)
+                            + start.elapsed_time(end) / steps)
+    finally:
+        tr.stage_events = None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        scene.run_3dgs_optim(steps, enable_pruning=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels, host = [], {}
+    for ev in prof.key_averages():
+        on_card = str(ev.device_type).endswith("CUDA")
+        if ev.key.startswith("3dgs/"):
+            if not on_card:
+                host[ev.key[len("3dgs/"):]] = ev.cpu_time_total / 1e3 / steps
+        elif on_card:
+            kernels.append((ev.key, getattr(ev, "self_device_time_total",
+                                            0.0) / 1e3))
+    kernels.sort(key=lambda kv: -kv[1])
+    return (stages, wall * 1e3, sum(ms for _, ms in kernels), host,
+            kernels)
+
+
+def bwd_case(name, entries, counts, h, w, tile, tw, th, g_rgb, g_alpha,
+             timed):
+    """composite_bwd against composite_tiles_bwd_plain on one input, on
+    the forward kernel's outputs. Returns the scaled error and, when
+    ``timed``, the two times and the work the data needs."""
+    import torch
+    from starst3r_tpu_torch.splat import composite as comp
+
+    rgb, _, tfin, done = comp.composite_tiles_cuda(entries, counts, h, w,
+                                                   tile, tw, th)
+    got = comp.composite_tiles_bwd_cuda(entries, counts, rgb, tfin, done,
+                                        g_rgb, g_alpha, h, w, tile, tw, th)
+    torch.cuda.synchronize()
+    want = comp.composite_tiles_bwd_plain(entries, counts, done, g_rgb,
+                                          g_alpha, h, w, tile, tw, th)
+    check(bool(torch.isfinite(got).all()), f"{name}: gradient not finite")
+    errs = []
+    for a in range(9):
+        scale = max(float(want[..., a].abs().max()), 1e-12)
+        errs.append(float((got[..., a] - want[..., a]).abs().max()) / scale)
+    err = max(errs)
+    out = {"case": name, "scaled_err": err,
+           "max_abs_err": float((got - want).abs().max())}
+    if timed:
+        c, t = counts.shape
+        p = tile * tile
+        cnt = counts.reshape(-1).long()
+        n_walked = int(torch.clamp(cnt, max=done.long() * 128).sum())
+        walked, passing = pair_counts(entries, counts, done, tile, tw, th)
+        # reads: the entries walked, counts and done, T_fin, rgb and the
+        # two pixel gradients; writes: the walked entries' gradients (the
+        # rest of the output is the caller's zeros)
+        out["bytes"] = (n_walked * 36 + c * t * 8 + c * t * p * 4
+                        + c * h * w * (12 + 12 + 4) + n_walked * 36)
+        out["ops"] = FALLOFF_OPS * walked + BWD_PASS_OPS * passing
+        out["pairs"] = (walked, passing)
+        out["ms"] = cuda_ms(lambda: comp.composite_tiles_bwd_cuda(
+            entries, counts, rgb, tfin, done, g_rgb, g_alpha, h, w, tile,
+            tw, th), reps=20)
+        out["plain_ms"] = cuda_ms(lambda: comp.composite_tiles_bwd_plain(
+            entries, counts, done, g_rgb, g_alpha, h, w, tile, tw, th),
+            reps=3, warmup=1)
+    print(f"[kernel] composite_bwd {name}: max scaled |kernel - plain| = "
+          f"{err:.3e} (per attribute {[f'{e:.1e}' for e in errs]}), max "
+          f"abs {out['max_abs_err']:.3e}", flush=True)
+    check(err <= BWD_SCALED_TOL, f"{name}: backward kernel disagrees with "
+          f"the plain version ({err:.3e} > {BWD_SCALED_TOL})")
+    return out
+
+
+def trained_inputs(scene, dev):
+    """The trained scene at the tile budgets training picks: the gather's
+    table and bins, and the real loss's pixel gradients of its render."""
+    import torch
+    from starst3r_tpu_torch.ops.ssim import ssim_per_image
+    from starst3r_tpu_torch.splat import composite as comp
+    from starst3r_tpu_torch.splat import gather as gat
+    from starst3r_tpu_torch.splat import train as tr
+    from starst3r_tpu_torch.splat.rasterize import (pack_attributes,
+                                                    project_gaussians)
+
+    cfg = scene.config.splat
+    state = scene.gs_state
+    h, w = scene.imgs[0].shape[:2]
+    w2c = torch.as_tensor(scene.w2c, dtype=torch.float32, device=dev)
+    Ks = torch.as_tensor(scene.intrinsics, dtype=torch.float32, device=dev)
+    scfg = tr._autobudget_cfg(state, w2c, Ks, w, h, cfg)
+    bins = tr.compute_bins(state.params, w2c, Ks, w, h, scfg,
+                           n_alive=state.n_alive)
+    proj = project_gaussians(*tr.render_inputs(state.params, scfg,
+                                               state.n_alive), w2c, Ks,
+                             scfg.sh_degree)
+    packed = pack_attributes(proj)
+    entries = gat.gather_entries_plain(packed, bins.gidx, bins.ent_valid)
+    tile = scfg.tile_size
+    tw, th = -(-w // tile), -(-h // tile)
+    rgb, alpha, _, _ = comp.composite_tiles_cuda(entries, bins.counts, h, w,
+                                                 tile, tw, th)
+    gt = torch.as_tensor(np.stack(scene.imgs), dtype=torch.float32,
+                         device=dev)
+    x = rgb.detach().requires_grad_(True)
+    f = cfg.loss_ssim_fac
+    loss = torch.sum(torch.mean(torch.abs(gt - x), dim=(1, 2, 3)) * (1 - f)
+                     + (1.0 - ssim_per_image(gt, x)) * f)
+    (g_rgb,) = torch.autograd.grad(loss, x)
+    return dict(scfg=scfg, bins=bins, packed=packed, entries=entries,
+                h=h, w=w, tile=tile, tw=tw, th=th,
+                g_rgb=g_rgb.contiguous(), g_alpha=torch.zeros_like(alpha))
+
+
+def check_bwd_kernel(real, dev):
+    """composite_bwd on the trained scene and the two small scenes."""
+    import torch
+    from starst3r_tpu_torch.splat.rasterize import tile_entries
+
+    cases = [bwd_case("trained", real["entries"], real["bins"].counts,
+                      real["h"], real["w"], real["tile"], real["tw"],
+                      real["th"], real["g_rgb"], real["g_alpha"],
+                      timed=True)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for kind in ("wall", "multi"):
+        args, kw = small_scene(kind)
+        t_args = [torch.as_tensor(a, device=dev) for a in args]
+        ent_s, cnt_s, _ = tile_entries(
+            *t_args, kw["width"], kw["height"], 1, 16,
+            kw["max_tiles_per_gaussian"], kw["max_per_tile"])
+        c = cnt_s.shape[0]
+        g_rgb = torch.randn((c, kw["height"], kw["width"], 3),
+                            generator=gen, device=dev)
+        g_alpha = torch.randn((c, kw["height"], kw["width"]), generator=gen,
+                              device=dev)
+        cases.append(bwd_case(kind, ent_s, cnt_s, kw["height"], kw["width"],
+                              16, 2, 2, g_rgb, g_alpha, timed=False))
+    return cases
+
+
+def check_gather_kernel(real):
+    """gather_entries against packed[gidx] * valid on the trained scene;
+    times it, the plain version and the library's packed[gidx]."""
+    import torch
+    from starst3r_tpu_torch.splat import gather as gat
+
+    packed, gidx, valid = (real["packed"], real["bins"].gidx,
+                           real["bins"].ent_valid)
+    got = gat.gather_entries_cuda(packed, gidx, valid)
+    torch.cuda.synchronize()
+    want = gat.gather_entries_plain(packed, gidx, valid)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"gather_entries differs from indexing "
+          f"(max {err:.3e})")
+    n_rows = int(torch.unique(gidx[valid]).numel())
+    out = {"max_abs_err": err,
+           "bytes": n_rows * 36 + gidx.numel() * (4 + 1) + got.numel() * 4,
+           "ops": 0,
+           "ms": cuda_ms(lambda: gat.gather_entries_cuda(packed, gidx,
+                                                         valid), reps=50),
+           "plain_ms": cuda_ms(lambda: gat.gather_entries_plain(
+               packed, gidx, valid), reps=20),
+           "library_ms": cuda_ms(lambda: packed[gidx], reps=20)}
+    print(f"[kernel] gather_entries on the trained scene: {tuple(gidx.shape)}"
+          f" slots, {int(valid.sum())} valid, {n_rows} distinct rows; "
+          f"max|kernel - plain| = {err}", flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -302,7 +619,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import starst3r_tpu_torch as stt
-    from starst3r_tpu_torch.splat import composite as comp
+    from starst3r_tpu_torch.splat import kernels
+    from starst3r_tpu_torch.splat.mcmc import grow_target
+    from starst3r_tpu_torch.splat.train import mcmc_config_from
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -313,12 +632,14 @@ def main():
           f"cuda {torch.version.cuda}", flush=True)
 
     t = time.perf_counter()
-    log = comp.build_kernel()
-    print(f"[build] composite_fwd.cu {time.perf_counter() - t:.2f} s",
-          flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    built = kernels.build()
+    print(f"[build] {len(built)} kernels in {time.perf_counter() - t:.2f} s "
+          "(one nvcc each, in parallel)", flush=True)
+    for name, (secs, log) in built.items():
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"[build] {name}.cu {secs:.2f} s: {' | '.join(regs)}",
+              flush=True)
 
     views = make_views(N_VIEWS, HW)
     t = time.perf_counter()
@@ -330,11 +651,13 @@ def main():
           f"{model.cfg.dtype}, init {time.perf_counter() - t:.2f} s",
           flush=True)
 
+    # slice 1: reconstruct and render
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as cache_dir:
-        comp.composite_tiles_cuda.launches = 0
+        set_launches(0)
         scene, orig, novel, secs = drive_main_path(stt, model, views, dev,
                                                    N_NOVEL, cache_dir)
-        launches = comp.composite_tiles_cuda.launches
+        render_launches = read_launches()
+    del model
     print("[stages] " + " ".join(f"{k}={v:.3f}s" for k, v in secs.items()),
           flush=True)
     n_gauss = int(scene.gs_state.n_alive)
@@ -348,35 +671,101 @@ def main():
     print(f"[render] mean alpha: original views "
           f"{float(orig[1].mean()):.4f}, novel views "
           f"{float(novel[1].mean()):.4f}", flush=True)
-    print(f"[launches] composite_fwd {launches} during the renders",
-          flush=True)
-    check(launches > 0, "the renders did not launch the compositing kernel")
+    print(f"[launches] during the renders: {render_launches}", flush=True)
+    check(render_launches["composite_fwd"] > 0
+          and render_launches["gather_entries"] > 0,
+          "the renders did not launch the forward and gather kernels")
     check_outputs(scene, orig, novel, N_VIEWS, HW, N_NOVEL)
     print(f"[ga] second add_images: coarse / fine phase loss "
           f"{scene.reconstruction.losses}", flush=True)
+    fwd_cases = check_composite_kernel(stt, scene, dev)
 
-    cases = check_composite_kernel(stt, scene, dev)
-    real = cases[0]
-    bound_by = ("bytes" if real["bytes"] / PEAK_BYTES
-                >= real["ops"] / PEAK_F32 else "operations")
-    bound_ms = max(real["bytes"] / PEAK_BYTES, real["ops"] / PEAK_F32) * 1e3
-    kernels = [{
-        "name": "composite_fwd",
-        "route": "cuda",
-        "source": "starst3r_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "starst3r_tpu/splat/pallas_composite.py:107",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": real["ms"],
-        "plain_ms": real["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]
-    print(f"[kernel] composite_fwd on the render's entries: {real['ms']:.4f}"
-          f" ms, plain {real['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {real['bytes']} B, {real['ops']} ops)", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # slice 2: training on the same scene
+    n0 = scene.gs_state.n_alive
+    pool = scene.gs_state.params["means"].shape[0]
+    (losses, train_s, train_launches, nonfinite, after_launches, orig_t,
+     novel_t) = drive_training(stt, scene, N_NOVEL)
+    n1 = scene.gs_state.n_alive
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    params_bad = {k: int((~torch.isfinite(v)).sum())
+                  for k, v in scene.gs_state.params.items()}
+    print(f"[train] {TRAIN_STEPS} steps in {train_s:.3f} s: "
+          f"{1e3 * train_s / TRAIN_STEPS:.3f} ms/step (host clock, one "
+          f"synchronise at the end); loss first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}, mean of the first 20 {first:.6f}, of the last "
+          f"20 {last:.6f}; n_alive {n0} -> {n1} (pool {pool}); non-finite "
+          f"elements out of the backward kernels {nonfinite}, in the "
+          f"trained parameters {params_bad}", flush=True)
+    print(f"[launches] during run_3dgs_optim: {train_launches}; during the "
+          f"renders after it: {after_launches}", flush=True)
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+          "a training loss is not finite")
+    check(sum(params_bad.values()) == 0,
+          f"non-finite trained parameters: {params_bad}")
+    for name, count in nonfinite.items():
+        check(count == 0, f"{name} gave {count} non-finite gradient elements "
+              "during run_3dgs_optim")
+    check(last < first, f"the loss did not fall ({first} -> {last})")
+    mcfg = mcmc_config_from(scene.config.splat)
+    want = n0
+    for step in range(REFINE_START, TRAIN_STEPS + 1, REFINE_EVERY):
+        want = grow_target(want, pool, mcfg)
+    check(n1 == want, f"n_alive {n1} after training, grow_target gives "
+          f"{want}")
+    for name, count in train_launches.items():
+        check(count > 0, f"training did not launch {name}")
+    check_outputs(scene, orig_t, novel_t, N_VIEWS, HW, N_NOVEL)
+    print(f"[render] after training, mean alpha: original views "
+          f"{float(orig_t[1].mean()):.4f}, novel views "
+          f"{float(novel_t[1].mean()):.4f}", flush=True)
+
+    stages, wall_ms, busy_ms, host, by_kernel = profile_train_steps(scene)
+    print("[train-stages] stream ms per step (CUDA events in "
+          "splat.train): " + " ".join(f"{k}={v:.3f}"
+                                      for k, v in stages.items())
+          + f" total={sum(stages.values()):.3f}", flush=True)
+    print(f"[profile] 5 training steps under torch.profiler: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms"
+          + (f" ({100 * busy_ms / wall_ms:.1f}%)" if busy_ms else
+             " (no device events in the trace: not measured)")
+          + "; host ms per step by stage: " + " ".join(
+              f"{k}={v:.3f}" for k, v in host.items()), flush=True)
+    for name, ms in by_kernel[:10]:
+        print(f"[profile]   {ms / 5:9.3f} ms/step  {name[:90]}", flush=True)
+
+    real = trained_inputs(scene, dev)
+    print(f"[budget] training's tile budgets: max_tiles_per_gaussian "
+          f"{real['scfg'].max_tiles_per_gaussian}, max_per_tile "
+          f"{real['scfg'].max_per_tile}", flush=True)
+    bwd_cases = check_bwd_kernel(real, dev)
+    gather = check_gather_kernel(real)
+
+    kernels_line = []
+    # composite_bwd's error is the scaled one its tolerance is stated in:
+    # per attribute, max |kernel - plain| over the plain version's largest
+    # magnitude (the conic gradients of the trained scene reach 1e11)
+    rows = (("composite_fwd", "starst3r_tpu/splat/pallas_composite.py:107",
+             fwd_cases[0], max(c["max_abs_err"] for c in fwd_cases), None),
+            ("composite_bwd", "starst3r_tpu/splat/pallas_composite.py:159",
+             bwd_cases[0], max(c["scaled_err"] for c in bwd_cases), None),
+            ("gather_entries", "tools/probe_mosaic_gather.py:69", gather,
+             gather["max_abs_err"], gather["library_ms"]))
+    for name, replaces, case, err, library_ms in rows:
+        bound_ms, bound_by = bound(case["bytes"], case["ops"])
+        kernels_line.append({
+            "name": name, "route": "cuda",
+            "source": f"starst3r_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": err, "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+        print(f"[kernel] {name}: {case['ms']:.4f} ms, plain "
+              f"{case['plain_ms']:.4f} ms, library "
+              f"{library_ms if library_ms is None else round(library_ms, 4)}"
+              f" ms, bound {bound_ms:.4f} ms ({bound_by}: {case['bytes']} B,"
+              f" {case['ops']} ops; pixel-entry pairs walked, passing the "
+              f"culls: {case.get('pairs')})", flush=True)
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,13 +24,15 @@
 //     TPU kernel's does (BATCH = its 128-entry chunk), for the backward;
 //   - sigma is rounded operation by operation in the order of the plain
 //     PyTorch version (splat/composite.py), so the two culls, which are
-//     jumps, decide alike.
+//     jumps, decide alike; the falloff and the culls live in
+//     composite_common.cuh, shared with the backward (composite_bwd.cu).
 //
 // Bound on this card: the float32 exp/FMA work of pixels x entries
-// processed (about 25 operations per pair, on the CUDA cores, not the
-// tensor cores). The gathered entries are read once: C*T*K*36 bytes at most,
-// about 43 MB at 6 cameras, 224 px, K = 1024, which at 3.35 TB/s takes a
-// fraction of the arithmetic's time.
+// processed, on the CUDA cores, not the tensor cores: 16 operations per
+// pair for the falloff and the culls, 9 more per pair that passes them.
+// The gathered entries are read once: C*T*K*36 bytes at most, about 43 MB
+// at 6 cameras, 224 px, K = 1024, which at 3.35 TB/s takes a fraction of
+// the arithmetic's time.
 //
 // Layouts: entries (C*T, K, 9) float32 [mx, my, a, b, c, r, g, b, op];
 // counts (C*T,) int32. Outputs: rgb (C, H, W, 3) and alpha (C, H, W) in image
@@ -40,14 +42,11 @@
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kAttr = 9;
-constexpr int kBatch = 128;
-constexpr float kSigmaMax = 50.0f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.999f;
-constexpr float kTExit = 1e-6f;
+using namespace composite;
 
 __global__ void composite_fwd_kernel(
     const float* __restrict__ entries, const int* __restrict__ counts,
@@ -81,18 +80,11 @@ __global__ void composite_fwd_kernel(
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       const float* a = sh + j * kAttr;
-      const float dx = px - a[0];
-      const float dy = py - a[1];
-      // rounded op by op in the plain version's order (no FMA
-      // contraction): the sigma < 0 and alpha <= 1/255 culls are jumps, and
-      // a near-degenerate conic puts sigma within rounding of 0
-      const float sigma = __fadd_rn(
-          __fmul_rn(0.5f, __fadd_rn(__fmul_rn(__fmul_rn(a[2], dx), dx),
-                                    __fmul_rn(__fmul_rn(a[4], dy), dy))),
-          __fmul_rn(__fmul_rn(a[3], dx), dy));
-      const float raw = a[8] * expf(-fminf(fmaxf(sigma, 0.0f), kSigmaMax));
-      if (sigma >= 0.0f && raw > kAlphaMin) {
-        const float al = fminf(raw, kAlphaMax);
+      // the culls are jumps: composite_common.cuh rounds sigma as the
+      // plain version does, and the backward calls the same function
+      const Falloff f = entry_falloff(a, px, py);
+      if (f.ok) {
+        const float al = fminf(f.raw, kAlphaMax);
         const float wgt = al * T;
         r += a[5] * wgt;
         g += a[6] * wgt;

@@ -11,6 +11,8 @@ neither JAX nor the JAX package:
   - `ga_params_from_jax`: a JAX `GAParams` (as numpy) -> the port's
     `GAParams`, for warm-start parity.
   - `gaussians_from_jax`: `GSState.params` -> the port's Gaussian params.
+  - `gs_state_from_jax`: a whole JAX `GSState` -> the port's, for training
+    parity: params, the Adam count and moments, step and n_alive.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ import numpy as np
 import torch
 
 from ..alignment.ga import GAParams
+from ..splat.train import AdamState, GSState
 from ..utils.device import resolve_device
 
 __all__ = ("mast3r_state_dict_from_jax", "ga_params_from_jax",
-           "gaussians_from_jax")
+           "gaussians_from_jax", "gs_state_from_jax")
 
 
 def _np(x) -> np.ndarray:
@@ -174,3 +177,31 @@ def gaussians_from_jax(params: Mapping[str, Any], device="cuda"
     dev = resolve_device(device)
     keys = ("means", "quats", "scales", "opacities", "sh0", "shN")
     return {k: torch.as_tensor(_np(params[k]), device=dev) for k in keys}
+
+
+def _field(x, name: str, index: int):
+    """A NamedTuple's field by name, or by position in a plain tuple."""
+    return getattr(x, name) if hasattr(x, name) else x[index]
+
+
+def gs_state_from_jax(state, device="cuda", seed: int = 0) -> GSState:
+    """A JAX `GSState` (params, optax.adam state (ScaleByAdamState(count,
+    mu, nu), EmptyState), step, key, n_alive), as arrays or as numpy, ->
+    the port's `GSState` on ``device`` (the card unless "cpu").
+
+    The JAX PRNG key is not carried across: a key and a torch.Generator
+    give different numbers from one seed, so the port's generator is seeded
+    from ``seed`` instead."""
+    dev = resolve_device(device)
+    adam = _field(state, "opt_state", 1)[0]
+    count = int(np.asarray(_field(adam, "count", 0)))
+    mu = gaussians_from_jax(_field(adam, "mu", 1), device=dev)
+    nu = gaussians_from_jax(_field(adam, "nu", 2), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return GSState(params=gaussians_from_jax(_field(state, "params", 0),
+                                             device=dev),
+                   opt_state=AdamState(count, mu, nu),
+                   step=int(np.asarray(_field(state, "step", 2))),
+                   generator=gen,
+                   n_alive=int(np.asarray(_field(state, "n_alive", 4))))

@@ -2,7 +2,7 @@
 starster/scene.py:18-183): the incremental reconstruction (images, poses,
 intrinsics, dense points) and the 3DGS state, with the reference's
 surface: `add_images`, `init_3dgs`, `render_3dgs`, `render_3dgs_original`,
-`dense_pts_flat`, `dense_cols_flat`, `w2c`.
+`run_3dgs_optim`, `dense_pts_flat`, `dense_cols_flat`, `w2c`.
 
 `add_images` re-runs reconstruction over ALL images, warm-starting the GA
 from the previous `optim_params`, then replaces poses and points wholesale;
@@ -107,3 +107,12 @@ class Scene:
     def render_3dgs_original(self, width: int, height: int):
         from .splat import render_3dgs_original
         return render_3dgs_original(self, width, height)
+
+    def run_3dgs_optim(self, iters: int, enable_pruning: bool = False,
+                       loss_ssim_fac: float = 0.2,
+                       loss_opacity_fac: float = 0.01,
+                       loss_scale_fac: float = 0.01,
+                       verbose: bool = False) -> List[float]:
+        from .splat import run_3dgs_optim
+        return run_3dgs_optim(self, iters, enable_pruning, loss_ssim_fac,
+                              loss_opacity_fac, loss_scale_fac, verbose)

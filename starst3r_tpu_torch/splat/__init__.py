@@ -1,22 +1,29 @@
 """3D Gaussian Splatting, reference-compat surface (`starster.gs`:
-init_3dgs / render_3dgs / render_3dgs_original, reference
-starster/gs.py:1-95). `run_3dgs_optim` comes with the training slice."""
+init_3dgs / render_3dgs / render_3dgs_original / run_3dgs_optim, reference
+starster/gs.py:1-166)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 import numpy as np
 import torch
 
 from .composite import composite_tiles, composite_tiles_plain
-from .rasterize import project_gaussians, rasterize, sh_eval, tile_entries
-from .train import GSState, init_gaussians, render
+from .gather import gather_entries
+from .mcmc import MCMCConfig, add_position_noise, relocate_dead
+from .rasterize import (Bins, bin_gaussians, project_gaussians, rasterize,
+                        sh_eval, tile_entries)
+from .train import (GSState, init_gaussians, render, run_optim,
+                    train_step)
 
 __all__ = (
-    "init_3dgs", "render_3dgs", "render_3dgs_original", "GSState",
-    "init_gaussians", "render", "rasterize", "project_gaussians", "sh_eval",
-    "tile_entries", "composite_tiles", "composite_tiles_plain",
+    "init_3dgs", "render_3dgs", "render_3dgs_original", "run_3dgs_optim",
+    "GSState", "init_gaussians", "render", "run_optim", "train_step",
+    "rasterize", "project_gaussians", "sh_eval", "tile_entries", "Bins",
+    "bin_gaussians", "composite_tiles", "composite_tiles_plain",
+    "gather_entries", "MCMCConfig", "relocate_dead", "add_position_noise",
 )
 
 
@@ -60,3 +67,21 @@ def render_3dgs(scene, w2c, intrinsics, width: int, height: int):
 def render_3dgs_original(scene, width: int, height: int):
     """Render from all original cameras (reference gs.py:90-95)."""
     return render_3dgs(scene, scene.w2c, scene.intrinsics, width, height)
+
+
+def run_3dgs_optim(scene, iters: int, enable_pruning: bool = False,
+                   loss_ssim_fac: float = 0.2, loss_opacity_fac: float = 0.01,
+                   loss_scale_fac: float = 0.01,
+                   verbose: bool = False) -> List[float]:
+    """Optimise the splats against the scene's images on the scene's device
+    (reference: starster/gs.py:97-166). Returns the loss of every step."""
+    if scene.gs_state is None:
+        raise RuntimeError("call init_3dgs first")
+    cfg = dataclasses.replace(
+        scene.config.splat, loss_ssim_fac=loss_ssim_fac,
+        loss_opacity_fac=loss_opacity_fac, loss_scale_fac=loss_scale_fac)
+    gt = np.stack(scene.imgs)                   # (C, H, W, 3) in [0, 1]
+    scene.gs_state, losses = run_optim(
+        scene.gs_state, gt, scene.w2c, scene.intrinsics, iters, cfg,
+        enable_pruning=enable_pruning, verbose=verbose)
+    return losses

@@ -1,16 +1,26 @@
-"""Per-tile front-to-back alpha compositing: the hand-written CUDA kernel
-(`csrc/composite_fwd.cu`, replacing the JAX package's Pallas `_fwd_kernel`)
-and its plain torch version.
+"""Per-tile front-to-back alpha compositing and its gradient: the
+hand-written CUDA kernels (`csrc/composite_fwd.cu`, replacing the JAX
+package's Pallas `_fwd_kernel`, and `csrc/composite_bwd.cu`, replacing
+`_bwd_kernel`) and their plain torch versions.
 
   - `composite_tiles_plain`: the port of `rasterize._composite_tiles` (the
     JAX package's reference path), batched over cameras, with torch.cumprod
-    inside fixed-length chunks and no early exit. The CPU path, and the
-    yardstick the kernel is held to on the card.
-  - `composite_tiles_cuda`: builds the kernel on first use (nvcc into
-    `starst3r_tpu_torch/_build/`, loaded with ctypes), launches it on the
-    current stream and counts the launch in `composite_tiles_cuda.launches`.
+    inside fixed-length chunks and no early exit. The CPU path (autograd
+    differentiates it), and the yardstick the forward kernel is held to on
+    the card.
+  - `composite_tiles_bwd_plain`: the gradient of the plain version with
+    respect to the entries (torch.autograd.grad), with the slots past the
+    batches the forward kernel processed set to zero. The yardstick the
+    backward kernel is held to; the tests and chip_smoke.py use it.
+  - `composite_tiles_cuda` / `composite_tiles_bwd_cuda`: launch the forward
+    and the backward kernel on the current stream (built on first use by
+    `splat.kernels`) and count their launches in ``.launches``.
   - `composite_tiles`: the rasterizer's entry. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.
+    version; CUDA tensors go through `CompositeTiles`, a
+    torch.autograd.Function whose forward is the forward kernel and whose
+    backward is the backward kernel (the non-finite elements of the
+    gradients it hands back are counted, on the device, in
+    ``CompositeTiles.nonfinite``), or raise.
 
 Inputs: entries (C, T, K, 9) float32 [mx, my, conic a, b, c, r, g, b, op],
 depth-ordered per tile, zero past each tile's count; counts (C, T) int32.
@@ -18,23 +28,17 @@ depth-ordered per tile, zero past each tile's count; counts (C, T) int32.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ("composite_tiles", "composite_tiles_cuda", "composite_tiles_plain",
-           "build_kernel")
+from .kernels import launch
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "composite_fwd.cu"
-_BUILD_DIR = _PKG / "_build"
+__all__ = ("CompositeTiles", "composite_tiles", "composite_tiles_bwd_cuda",
+           "composite_tiles_bwd_plain", "composite_tiles_cuda",
+           "composite_tiles_plain")
+
+BATCH = 128     # the kernels' batch of entries (the TPU kernels' chunk)
 
 
 def _tile_pix(tw: int, th: int, tile: int, device):
@@ -59,20 +63,24 @@ def composite_tiles_plain(entries: torch.Tensor, counts: torch.Tensor,
                           h: int, w: int, tile: int, tw: int, th: int,
                           chunk: int = 128
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch compositing over every entry slot (``counts`` is implied
-    by the zero opacity past each tile's count). Returns rgb (C, H, W, 3),
-    alpha (C, H, W)."""
+    """Plain torch compositing, no early exit. Chunks of ``chunk`` slots
+    that lie wholly past a tile's count are skipped: their entries have
+    opacity 0 and change nothing. Returns rgb (C, H, W, 3), alpha
+    (C, H, W)."""
     c, t_total, k, _ = entries.shape
     e = entries.reshape(c * t_total, k, 9).float()
+    cnt = counts.reshape(-1).to(e.device)
     pix_x, pix_y = _tile_pix(tw, th, tile, e.device)
     pix_x = pix_x.repeat(c, 1)[:, None, :]                    # (CT, 1, P)
     pix_y = pix_y.repeat(c, 1)[:, None, :]
     acc_rgb = torch.zeros((c * t_total, tile * tile, 3), device=e.device)
     acc_t = torch.ones((c * t_total, tile * tile), device=e.device)
-    for s in range(0, k, chunk):
-        ch = e[:, s:s + chunk]                                # (CT, c, 9)
-        dx = pix_x - ch[:, :, 0:1]                            # (CT, c, P)
-        dy = pix_y - ch[:, :, 1:2]
+    n_slots = min(k, int(cnt.max())) if cnt.numel() else 0
+    for s in range(0, n_slots, chunk):
+        act = torch.nonzero(cnt > s).squeeze(1)               # tiles reached
+        ch = e[act, s:s + chunk]                              # (A, c, 9)
+        dx = pix_x[act] - ch[:, :, 0:1]                       # (A, c, P)
+        dy = pix_y[act] - ch[:, :, 1:2]
         sigma = (0.5 * (ch[:, :, 2:3] * dx * dx + ch[:, :, 4:5] * dy * dy)
                  + ch[:, :, 3:4] * dx * dy)
         # clip before the exp, as the JAX reference does
@@ -82,70 +90,25 @@ def composite_tiles_plain(entries: torch.Tensor, counts: torch.Tensor,
                             torch.zeros_like(alpha))
         cum = torch.cumprod(1.0 - alpha, dim=1)
         cum_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], 1)
-        wgt = alpha * cum_excl * acc_t[:, None, :]
-        acc_rgb = acc_rgb + torch.einsum("tcp,tcd->tpd", wgt, ch[:, :, 5:8])
-        acc_t = acc_t * cum[:, -1]
+        wgt = alpha * cum_excl * acc_t[act][:, None, :]
+        acc_rgb = acc_rgb.index_add(
+            0, act, torch.einsum("tcp,tcd->tpd", wgt, ch[:, :, 5:8]))
+        acc_t = acc_t * torch.ones_like(acc_t).index_copy(0, act, cum[:, -1])
     rgb = _tiles_to_image(acc_rgb, c, h, w, tile, tw, th)
     alpha = 1.0 - _tiles_to_image(acc_t, c, h, w, tile, tw, th)
     return rgb, alpha
 
 
-def _find_nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(env):
-            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the composite kernel is built on "
-                       "first use and needs the CUDA toolkit")
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> Tuple[ctypes.CDLL, str]:
-    """Build (once per source version) and load the kernel library.
-    Returns (library, compiler log)."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD_DIR / f"composite_fwd_{digest}.so"
-    log = ""
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.composite_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                                  + [ctypes.c_void_p])
-    lib.composite_fwd.restype = ctypes.c_int
-    return lib, log
-
-
-def build_kernel() -> str:
-    """Build and load the kernel now; returns the compiler's log (empty
-    when an up-to-date build was already on disk)."""
-    return _library()[1]
-
-
-def composite_tiles_cuda(entries: torch.Tensor, counts: torch.Tensor,
-                         h: int, w: int, tile: int, tw: int, th: int):
-    """Launch the CUDA compositing kernel. Returns rgb (C, H, W, 3), alpha
-    (C, H, W), tfin (C*T, tile*tile) and done (C*T,) int32."""
+def _check_inputs(name: str, entries: torch.Tensor, counts: torch.Tensor,
+                  h: int, w: int, tile: int, tw: int, th: int) -> None:
+    """What both kernels take: raise ValueError on anything else."""
     if not entries.is_cuda:
-        raise ValueError("composite_tiles_cuda needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     if entries.dtype != torch.float32 or entries.dim() != 4 \
             or entries.shape[-1] != 9 or not entries.is_contiguous():
         raise ValueError("entries must be contiguous float32 (C, T, K, 9), "
                          f"got {entries.dtype} {tuple(entries.shape)}")
-    c, t_total, k, _ = entries.shape
+    c, t_total = entries.shape[:2]
     if t_total != tw * th or h > th * tile or w > tw * tile:
         raise ValueError(f"{t_total} tiles do not cover {h}x{w} at "
                          f"{tw}x{th} tiles of {tile}")
@@ -157,7 +120,15 @@ def composite_tiles_cuda(entries: torch.Tensor, counts: torch.Tensor,
             or not counts.is_contiguous():
         raise ValueError("counts must be contiguous int32 (C, T) on the "
                          "entries' device")
-    lib, _ = _library()
+
+
+def composite_tiles_cuda(entries: torch.Tensor, counts: torch.Tensor,
+                         h: int, w: int, tile: int, tw: int, th: int):
+    """Launch the CUDA compositing kernel. Returns rgb (C, H, W, 3), alpha
+    (C, H, W), tfin (C*T, tile*tile) and done (C*T,) int32."""
+    _check_inputs("composite_tiles_cuda", entries, counts, h, w, tile, tw,
+                  th)
+    c, t_total, k, _ = entries.shape
     dev = entries.device
     rgb = torch.empty((c, h, w, 3), dtype=torch.float32, device=dev)
     alpha = torch.empty((c, h, w), dtype=torch.float32, device=dev)
@@ -165,13 +136,10 @@ def composite_tiles_cuda(entries: torch.Tensor, counts: torch.Tensor,
                        device=dev)
     done = torch.empty((c * t_total,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.composite_fwd(
-            entries.data_ptr(), counts.data_ptr(), rgb.data_ptr(),
-            alpha.data_ptr(), tfin.data_ptr(), done.data_ptr(),
-            c * t_total, k, tile, tw, th, h, w, stream)
-    if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
+        launch("composite_fwd", entries.data_ptr(), counts.data_ptr(),
+               rgb.data_ptr(), alpha.data_ptr(), tfin.data_ptr(),
+               done.data_ptr(), c * t_total, k, tile, tw, th, h, w,
+               torch.cuda.current_stream(dev).cuda_stream)
     composite_tiles_cuda.launches += 1
     return rgb, alpha, tfin, done
 
@@ -179,15 +147,108 @@ def composite_tiles_cuda(entries: torch.Tensor, counts: torch.Tensor,
 composite_tiles_cuda.launches = 0
 
 
-def composite_tiles(entries: torch.Tensor, counts: torch.Tensor, h: int,
-                    w: int, tile: int, tw: int, th: int, chunk: int = 128
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """rgb (C, H, W, 3), alpha (C, H, W): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if entries.is_cuda:
-        rgb, alpha, _, _ = composite_tiles_cuda(entries, counts, h, w, tile,
-                                                tw, th)
+def composite_tiles_bwd_plain(entries: torch.Tensor, counts: torch.Tensor,
+                              done: torch.Tensor, grad_rgb: torch.Tensor,
+                              grad_alpha: torch.Tensor, h: int, w: int,
+                              tile: int, tw: int, th: int, chunk: int = BATCH
+                              ) -> torch.Tensor:
+    """The backward kernel's plain version: d(rgb, alpha)/d(entries) of
+    `composite_tiles_plain` against grad_rgb (C, H, W, 3) and grad_alpha
+    (C, H, W), with the slots at or past ``done * 128`` (the batches the
+    forward kernel did not process; done (C*T,)) set to zero. Returns
+    (C, T, K, 9)."""
+    c, t_total, k, _ = entries.shape
+    e = entries.detach().requires_grad_(True)
+    with torch.enable_grad():
+        rgb, alpha = composite_tiles_plain(e, counts, h, w, tile, tw, th,
+                                           chunk)
+        (grad,) = torch.autograd.grad((rgb, alpha), e,
+                                      (grad_rgb, grad_alpha))
+    reached = (torch.arange(k, device=e.device)
+               < done.reshape(c, t_total, 1).long() * BATCH)
+    return grad * reached[..., None]
+
+
+def composite_tiles_bwd_cuda(entries: torch.Tensor, counts: torch.Tensor,
+                             rgb: torch.Tensor, tfin: torch.Tensor,
+                             done: torch.Tensor, grad_rgb: torch.Tensor,
+                             grad_alpha: torch.Tensor, h: int, w: int,
+                             tile: int, tw: int, th: int) -> torch.Tensor:
+    """Launch the CUDA backward kernel on the forward kernel's outputs
+    (rgb (C, H, W, 3), tfin (C*T, tile*tile), done (C*T,)) and the pixel
+    gradients grad_rgb (C, H, W, 3), grad_alpha (C, H, W). Returns
+    grad_entries (C, T, K, 9), zero at the slots the forward did not
+    process."""
+    _check_inputs("composite_tiles_bwd_cuda", entries, counts, h, w, tile,
+                  tw, th)
+    c, t_total, k, _ = entries.shape
+    dev = entries.device
+    for name, x, shape, dtype in (
+            ("rgb", rgb, (c, h, w, 3), torch.float32),
+            ("tfin", tfin, (c * t_total, tile * tile), torch.float32),
+            ("done", done, (c * t_total,), torch.int32),
+            ("grad_rgb", grad_rgb, (c, h, w, 3), torch.float32),
+            ("grad_alpha", grad_alpha, (c, h, w), torch.float32)):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
+                             f"the entries' device, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    grad = torch.zeros_like(entries)
+    with torch.cuda.device(dev):
+        launch("composite_bwd", entries.data_ptr(), counts.data_ptr(),
+               done.data_ptr(), rgb.data_ptr(), tfin.data_ptr(),
+               grad_rgb.data_ptr(),
+               grad_alpha.data_ptr(), grad.data_ptr(), c * t_total, k, tile,
+               tw, th, h, w, torch.cuda.current_stream(dev).cuda_stream)
+    composite_tiles_bwd_cuda.launches += 1
+    return grad
+
+
+composite_tiles_bwd_cuda.launches = 0
+
+
+class CompositeTiles(torch.autograd.Function):
+    """Compositing on the card with its gradient: the forward kernel, which
+    also records each tile's final transmittance and processed batches,
+    and the backward kernel, which walks the same batches again (the port
+    of the JAX package's custom_vjp around the two Pallas kernels)."""
+
+    nonfinite = 0
+
+    @staticmethod
+    def forward(ctx, entries, counts, h, w, tile, tw, th):
+        rgb, alpha, tfin, done = composite_tiles_cuda(entries, counts, h, w,
+                                                      tile, tw, th)
+        ctx.save_for_backward(entries, counts, rgb, tfin, done)
+        ctx.shape = (h, w, tile, tw, th)
         return rgb, alpha
+
+    @staticmethod
+    def backward(ctx, grad_rgb: Optional[torch.Tensor],
+                 grad_alpha: Optional[torch.Tensor]):
+        entries, counts, rgb, tfin, done = ctx.saved_tensors
+        h, w, tile, tw, th = ctx.shape
+        c = entries.shape[0]
+        if grad_rgb is None:
+            grad_rgb = entries.new_zeros((c, h, w, 3))
+        if grad_alpha is None:
+            grad_alpha = entries.new_zeros((c, h, w))
+        grad = composite_tiles_bwd_cuda(
+            entries, counts, rgb, tfin, done, grad_rgb.float().contiguous(),
+            grad_alpha.float().contiguous(), h, w, tile, tw, th)
+        # a 0-dim device tensor once added to: no wait for the card
+        CompositeTiles.nonfinite += (~torch.isfinite(grad)).sum()
+        return grad, None, None, None, None, None, None
+
+
+def composite_tiles(entries: torch.Tensor, counts: torch.Tensor, h: int,
+                    w: int, tile: int, tw: int, th: int, chunk: int = BATCH
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """rgb (C, H, W, 3), alpha (C, H, W), differentiable in ``entries``:
+    the CUDA kernels for CUDA tensors, the plain version for CPU tensors."""
+    if entries.is_cuda:
+        return CompositeTiles.apply(entries, counts, h, w, tile, tw, th)
     if entries.device.type == "cpu":
         return composite_tiles_plain(entries, counts, h, w, tile, tw, th,
                                      chunk)

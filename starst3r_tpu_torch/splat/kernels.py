@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels (`starst3r_tpu_torch/csrc/*.cu`).
+
+Each source is compiled on first use with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -shared`` into `starst3r_tpu_torch/_build/`
+(the file name carries a hash of the source and of the shared headers, so
+an edited source builds anew) and loaded with ctypes. Each exports one C
+function named after its file, which launches its kernel on the stream it
+is given and returns the CUDA error code; `launch` raises on a non-zero
+code. `build` compiles several sources at once, one `nvcc` each, all
+started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+__all__ = ("KERNELS", "build", "launch", "library")
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD_DIR = _PKG / "_build"
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# exported function (named after its source file) -> its argument types
+_SIGNATURES = {
+    "composite_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    "composite_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    "gather_entries": [_P] * 4 + [ctypes.c_int64, _P],
+}
+KERNELS = tuple(_SIGNATURES)
+
+
+def _find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "on first use and need the CUDA toolkit")
+
+
+def _so_path(name: str) -> Path:
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _compile(name: str) -> Tuple[float, str]:
+    """nvcc one source into its library. Returns (seconds, compiler log)."""
+    so = _so_path(name)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-I", str(_CSRC), "-o", str(tmp),
+           str(_CSRC / f"{name}.cu")]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    secs = time.perf_counter() - t
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):"
+                           f"\n{log}")
+    os.replace(tmp, so)
+    return secs, log
+
+
+def build(names: Optional[Iterable[str]] = None
+          ) -> Dict[str, Tuple[float, str]]:
+    """Build the named kernels (all by default) that are not on disk yet,
+    one nvcc each, in parallel. Returns {name: (seconds, compiler log)}
+    for the sources compiled now."""
+    todo = [n for n in (names or KERNELS) if not _so_path(n).exists()]
+    if not todo:
+        return {}
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        return dict(zip(todo, pool.map(_compile, todo)))
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if need be."""
+    if name not in _SIGNATURES:
+        raise KeyError(f"no CUDA kernel named {name!r}")
+    so = _so_path(name)
+    if not so.exists():
+        build([name])
+    lib = ctypes.CDLL(str(so))
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s launcher; raise if CUDA refused the launch."""
+    err = getattr(library(name), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -15,25 +15,49 @@ info).
      every camera's entries; with the entries laid out by Gaussian id, the
      stable sort breaks depth ties by id, as the JAX package's two-key sort
      does. Entries past ``max_per_tile`` are counted in info["tile_overflow"].
-  3. the (tile, slot) -> attributes gather is plain indexing into a packed
-     (C*N, 9) matrix.
+  3. the (tile, slot) -> attributes gather from a packed (C*N, 9) matrix:
+     `splat.gather.gather_entries` — the hand-written CUDA kernel for CUDA
+     tensors (its backward an ``index_add_``), plain indexing for CPU
+     tensors.
   4. compositing: `splat.composite.composite_tiles` — the hand-written CUDA
-     kernel for CUDA tensors, its plain torch version for CPU tensors.
+     forward and backward kernels for CUDA tensors, the plain torch version
+     (differentiated by autograd) for CPU tensors.
+
+Training reuses the binning across steps: `bin_gaussians` returns the
+index structure (`Bins`) and `rasterize(..., bins=...)` projects every
+step and reuses it, so every gradient stays exact and only the tile
+assignment and depth order are as old as the bins.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from .composite import composite_tiles
+from .gather import gather_entries
 
-__all__ = ("Projected", "project_gaussians", "rasterize", "sh_eval",
-           "tile_entries")
+__all__ = ("Bins", "Projected", "bin_gaussians", "max_bbox_area",
+           "pack_attributes", "project_gaussians", "quat_to_rotmat_wxyz",
+           "rasterize", "sh_eval", "tile_entries")
 
 _SH_C0 = 0.28209479177387814
 _SH_C1 = 0.4886025119029199
+
+
+def quat_to_rotmat_wxyz(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternions (any norm) -> (..., 3, 3) rotations."""
+    q = q * torch.rsqrt(torch.sum(q * q, -1, keepdim=True) + 1e-24)
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
 
 
 def sh_eval(sh: torch.Tensor, dirs: torch.Tensor, degree: int
@@ -103,12 +127,21 @@ def project_gaussians(means, quats, scales, opacities, sh, w2c, K,
          + j02 * j11 * sig[1][2] + j02 * j12 * sig[2][2])
     c = (j11 * j11 * sig[1][1] + 2 * j11 * j12 * sig[1][2]
          + j12 * j12 * sig[2][2]) + eps2d
-    det = torch.clamp(a * c - b * b, min=1e-12)
+    det = a * c - b * b
+    # a Gaussian near a camera's plane far off its axis overflows a*c and
+    # b*b, and det = inf - inf is NaN: the pair is invalid, as in the JAX
+    # package, but a NaN divisor would turn the pair's zero cotangent into
+    # NaN gradients (0 * NaN; the JAX package's compiled step folds those
+    # zeros away). Such pairs divide by 1, so their (unused) conics are
+    # finite and pass no gradient back.
+    det_ok = torch.isfinite(det)
+    det = torch.clamp(torch.where(det_ok, det, torch.ones_like(det)),
+                      min=1e-12)
     conics = torch.stack([c / det, -b / det, a / det], -1)
     mid = 0.5 * (a + c)
     eig = mid + torch.sqrt(torch.clamp(mid * mid - det, min=1e-12))
     radii = torch.ceil(3.0 * torch.sqrt(eig))
-    valid = valid & (det > 1e-12) & (opacities > 1.0 / 255.0)
+    valid = valid & det_ok & (det > 1e-12) & (opacities > 1.0 / 255.0)
 
     cam_pos = -torch.einsum("...ji,...j->...i", R, t)
     dirs = means - cam_pos[..., None, :]
@@ -132,8 +165,9 @@ def _bin_gaussians(proj: Projected, tw: int, th: int, tile: int,
                    max_tiles: int, max_per_tile: int):
     """Bin (C, N) projected Gaussians into tiles.
 
-    Returns (gidx (C, T, K) global row in the (C*N) packed attributes,
-    ent_valid (C, T, K), counts (C, T) capped, overflow (C,), n_clipped (C,)).
+    Returns (gidx (C, T, K) int32 global row in the (C*N) packed
+    attributes, ent_valid (C, T, K), counts (C, T) capped, overflow (C,),
+    n_clipped (C,), max_count (C,) the uncapped largest tile occupancy).
     """
     cams, n = proj.depths.shape
     dev = proj.depths.device
@@ -183,55 +217,123 @@ def _bin_gaussians(proj: Projected, tw: int, th: int, tile: int,
     raw_counts = starts[:, 1:] - starts[:, :-1]
     counts = torch.clamp(raw_counts, max=max_per_tile)
     overflow = torch.sum(torch.clamp(raw_counts - max_per_tile, min=0), 1)
+    max_count = raw_counts.max(dim=1).values
 
     ent = starts[:, :-1, None] + torch.arange(max_per_tile, device=dev)
     ent_valid = ent < starts[:, 1:, None]
-    gidx = rows[torch.clamp(ent, max=rows.shape[0] - 1)]
-    return gidx, ent_valid, counts, overflow, n_clipped
+    gidx = rows[torch.clamp(ent, max=rows.shape[0] - 1)].to(torch.int32)
+    return gidx, ent_valid, counts, overflow, n_clipped, max_count
+
+
+class Bins(NamedTuple):
+    """The tile-binning index structure of C cameras (no gradients flow
+    through it), reusable across training steps: the cameras are fixed
+    and the means move little per step."""
+
+    gidx: torch.Tensor        # (C, T, K) int32 row of the packed matrix
+    ent_valid: torch.Tensor   # (C, T, K) slot occupancy
+    counts: torch.Tensor      # (C, T) int32 capped per-tile entry counts
+    overflow: torch.Tensor    # (C,) entries dropped by max_per_tile
+    n_clipped: torch.Tensor   # (C,) Gaussians with bbox > max_tiles
+    max_count: torch.Tensor   # (C,) uncapped largest tile occupancy
+
+
+def _tile_grid(width: int, height: int, tile_size: int) -> Tuple[int, int]:
+    return -(-width // tile_size), -(-height // tile_size)
+
+
+@torch.no_grad()
+def max_bbox_area(means, quats, scales, opacities, sh, viewmats, Ks,
+                  width: int, height: int, tile_size: int = 16
+                  ) -> torch.Tensor:
+    """Largest tile-bbox area of any valid Gaussian over all cameras (0-dim
+    int64): the scene's true per-Gaussian tile budget."""
+    tw, th = _tile_grid(width, height, tile_size)
+    proj = project_gaussians(means, quats, scales, opacities, sh, viewmats,
+                             Ks, 0)
+    mx, my, rad = proj.means2d[..., 0], proj.means2d[..., 1], proj.radii
+    tx0 = torch.clamp(torch.floor((mx - rad) / tile_size), 0, tw - 1)
+    ty0 = torch.clamp(torch.floor((my - rad) / tile_size), 0, th - 1)
+    tx1 = torch.clamp(torch.floor((mx + rad) / tile_size), 0, tw - 1)
+    ty1 = torch.clamp(torch.floor((my + rad) / tile_size), 0, th - 1)
+    area = ((tx1 - tx0 + 1) * (ty1 - ty0 + 1)).long()
+    return torch.where(proj.valid, area, torch.zeros_like(area)).max()
+
+
+@torch.no_grad()
+def bin_gaussians(means, quats, scales, opacities, sh, viewmats, Ks,
+                  width: int, height: int, sh_degree: int = 1,
+                  tile_size: int = 16, max_tiles_per_gaussian: int = 16,
+                  max_per_tile: int = 1024) -> Bins:
+    """Project and tile-bin all cameras, returning only the index structure
+    (for `rasterize(..., bins=...)` reuse across training steps)."""
+    tw, th = _tile_grid(width, height, tile_size)
+    proj = project_gaussians(means, quats, scales, opacities, sh, viewmats,
+                             Ks, sh_degree)
+    gidx, ent_valid, counts, overflow, n_clip, max_count = _bin_gaussians(
+        proj, tw, th, tile_size, max_tiles_per_gaussian, max_per_tile)
+    return Bins(gidx, ent_valid, counts.to(torch.int32), overflow, n_clip,
+                max_count)
+
+
+def pack_attributes(proj: Projected) -> torch.Tensor:
+    """The gather's table: (C*N, 9) float32 [mean x, mean y, conic a, b, c,
+    r, g, b, opacity] rows, camera-major. Opacity is masked by validity
+    before packing, so stale bins cannot composite a culled Gaussian."""
+    op = torch.where(proj.valid, proj.opacities,
+                     torch.zeros_like(proj.opacities))
+    packed = torch.cat([proj.means2d, proj.conics, proj.colors,
+                        op[..., None]], dim=-1)              # (C, N, 9)
+    return packed.reshape(-1, 9).float().contiguous()
 
 
 def tile_entries(means, quats, scales, opacities, sh, viewmats, Ks,
                  width: int, height: int, sh_degree: int = 1,
                  tile_size: int = 16, max_tiles_per_gaussian: int = 16,
-                 max_per_tile: int = 1024
+                 max_per_tile: int = 1024, bins: Optional[Bins] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-    """Project, bin and gather: the compositing input.
+    """Project, bin and gather: the compositing input. With ``bins`` (a
+    `bin_gaussians` result for the same cameras and budgets) the binning
+    is reused and only the projection runs.
 
     Returns (entries (C, T, K, 9) float32 [mean x, mean y, conic a, b, c,
     r, g, b, opacity], depth-ordered per tile and zero past each tile's
     count; counts (C, T) int32; info dict)."""
-    tw = -(-width // tile_size)
-    th = -(-height // tile_size)
+    tw, th = _tile_grid(width, height, tile_size)
     proj = project_gaussians(means, quats, scales, opacities, sh, viewmats,
                              Ks, sh_degree)
-    gidx, ent_valid, counts, overflow, n_clip = _bin_gaussians(
-        proj, tw, th, tile_size, max_tiles_per_gaussian, max_per_tile)
-    op = torch.where(proj.valid, proj.opacities, torch.zeros_like(
-        proj.opacities))
-    packed = torch.cat([proj.means2d, proj.conics, proj.colors, op[..., None]],
-                       dim=-1)                               # (C, N, 9)
-    entries = packed.reshape(-1, 9)[gidx] * ent_valid[..., None]
+    if bins is None:
+        with torch.no_grad():
+            gidx, ent_valid, counts, overflow, n_clip, _ = _bin_gaussians(
+                proj, tw, th, tile_size, max_tiles_per_gaussian,
+                max_per_tile)
+    else:
+        gidx, ent_valid, counts, overflow, n_clip, _ = bins
+    entries = gather_entries(pack_attributes(proj), gidx.contiguous(),
+                             ent_valid.contiguous())
     info = {"means2d": proj.means2d, "radii": proj.radii,
             "depths": proj.depths, "n_tiles_clipped": n_clip,
             "tile_overflow": overflow, "width": width, "height": height}
-    return entries.float().contiguous(), counts.to(torch.int32), info
+    return entries, counts.to(torch.int32).contiguous(), info
 
 
 def rasterize(means, quats, scales, opacities, sh, viewmats, Ks,
               width: int, height: int, sh_degree: int = 1,
               tile_size: int = 16, max_tiles_per_gaussian: int = 16,
-              max_per_tile: int = 1024, chunk: int = 128):
+              max_per_tile: int = 1024, chunk: int = 128,
+              bins: Optional[Bins] = None):
     """Render C cameras. means (N,3), quats (N,4) wxyz, scales (N,3) linear,
     opacities (N,) linear, sh (N,K,3), viewmats = w2c (C,4,4), Ks (C,3,3),
     all on one device. ``chunk`` only affects the plain (CPU) compositing.
+    ``bins``: an optional `bin_gaussians` result to reuse. Differentiable
+    in the Gaussian parameters.
 
     Returns (rgb (C,H,W,3), alpha (C,H,W,1), info) with info["tile_overflow"]
     and info["n_tiles_clipped"] per camera."""
-    tw = -(-width // tile_size)
-    th = -(-height // tile_size)
+    tw, th = _tile_grid(width, height, tile_size)
     entries, counts, info = tile_entries(
         means, quats, scales, opacities, sh, viewmats, Ks, width, height,
-        sh_degree, tile_size, max_tiles_per_gaussian, max_per_tile)
+        sh_degree, tile_size, max_tiles_per_gaussian, max_per_tile, bins)
     rgb, alpha = composite_tiles(entries, counts, height, width, tile_size,
                                  tw, th, chunk=min(chunk, max_per_tile))
     return rgb, alpha[..., None], info

@@ -1,33 +1,100 @@
-"""3DGS initialisation and rendering (port of the init/render half of
-`starst3r_tpu/splat/train.py`; reference: starster/gs.py:14-95).
+"""3DGS initialisation, rendering and training (port of
+`starst3r_tpu/splat/train.py`; reference: starster/gs.py:14-166).
 
-init: one Gaussian per dense point; scales ``init_scale`` (linear), identity
-wxyz quats, opacity 1, sh0 and all ``sh_bands`` shN bands = 1 - colour (the
-reference's inverted-SH quirk, kept under ``compat_inverted_sh``); an
-optional inactive pool tail (opacity 0) for MCMC growth.
-render: rasterize with colors = shN and ``sh_degree`` (reference
-gs.py:76-87); inactive slots render with opacity 0.
+init (gs.py:14-45): one Gaussian per dense point; scales ``init_scale``
+(linear), identity wxyz quats, opacity 1, sh0 and all ``sh_bands`` shN
+bands = 1 - colour (the reference's inverted-SH quirk, kept under
+``compat_inverted_sh``); an optional inactive pool tail (opacity 0) for MCMC
+growth; Adam state and a torch.Generator seeded from ``seed``.
+render (gs.py:47-95): rasterize with colors = shN and ``sh_degree``;
+inactive slots render with opacity 0.
+optimize (gs.py:97-166): every step renders all cameras (or a
+``camera_batch``); loss per camera 0.8 L1 + 0.2 (1 - SSIM), plus the
+opacity and scale regularisers times the camera count (the reference adds
+them inside its per-camera loop) and the optional ``anchors`` drift prior;
+backward; Adam; MCMC relocation, growth and position noise when pruning is
+on.
 
-Training (Adam, MCMC, SSIM loss) is the port's next slice.
+Adam is written out with optax ``scale_by_adam``'s state (count, mu, nu) and
+order (b1 0.9, b2 0.999, eps 1e-8, count incremented before the bias
+correction, which is taken in float32) and per-parameter learning rates,
+so the MCMC moment reset and the conversion of a JAX state
+(`io.from_jax.gs_state_from_jax`) carry over. The step is functional: it
+returns new parameter and moment tensors and leaves the old state as it
+was.
+
+The JAX package jit-compiles its step with the config as a static argument
+and pins the host-only fields (`_graph_cfg`, `_NON_GRAPH_FIELDS`) so they
+do not force recompiles; the port runs eagerly and has neither. Its
+`run_optim` also takes no device mesh (sharded training is a later slice)
+and records no profiler trace of its own: the stages of a step (binning,
+render, loss, backward, adam, mcmc) are torch.profiler ranges named
+``3dgs/<stage>``, and CUDA events when `stage_events` is a list.
+
+Two faults of the reference are reproduced, not fixed, and the tests name
+them: `init_gaussians` takes the log of ``point_scales`` under the fixed
+activations, so a non-positive scale gives NaN; and after every refine the
+drift-prior anchors move to every Gaussian's current mean, not only the
+relocated ones'.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import contextlib
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import SplatConfig
+from ..ops.ssim import ssim_per_image
 from ..utils.device import resolve_device
-from .rasterize import rasterize
+from .mcmc import MCMCConfig, add_position_noise, grow_target, relocate_dead
+from .rasterize import Bins, bin_gaussians, max_bbox_area, rasterize
 
-__all__ = ("GSState", "init_gaussians", "render", "render_inputs")
+__all__ = ("AdamState", "GSState", "adam_init", "adam_update",
+           "compute_bins", "init_gaussians", "mcmc_config_from", "render",
+           "render_inputs", "run_optim", "train_step")
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+# Set to a list to time the stages of training steps on the card: each
+# stage then appends (name, start, end) CUDA events, recorded on the
+# current stream. None (the default) records nothing.
+stage_events: Optional[List[Tuple[str, torch.cuda.Event,
+                                  torch.cuda.Event]]] = None
+
+
+@contextlib.contextmanager
+def _stage(name: str):
+    """One stage of a training step: a torch.profiler range named
+    ``3dgs/<name>``, and CUDA events when `stage_events` is a list."""
+    with record_function("3dgs/" + name):
+        if stage_events is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        stage_events.append((name, start, end))
+
+
+class AdamState(NamedTuple):
+    count: int                      # steps taken (optax's ScaleByAdamState)
+    mu: Dict[str, torch.Tensor]     # first moments, per parameter
+    nu: Dict[str, torch.Tensor]     # second moments
 
 
 class GSState(NamedTuple):
     params: Dict[str, torch.Tensor]
-    n_alive: int              # slots < n_alive are active
+    opt_state: AdamState
+    step: int
+    generator: torch.Generator     # MCMC draws
+    n_alive: int                    # slots < n_alive are active
 
 
 def _opacity_act(cfg: SplatConfig):
@@ -43,14 +110,58 @@ def _scale_act(cfg: SplatConfig):
     return (torch.exp, torch.log)
 
 
+def _learning_rates(cfg: SplatConfig) -> Dict[str, float]:
+    """Per-parameter learning rates (None in the config = cfg.lr)."""
+    lrs = {"means": cfg.lr_means, "quats": cfg.lr_quats,
+           "scales": cfg.lr_scales, "opacities": cfg.lr_opacities,
+           "sh0": cfg.lr_sh, "shN": cfg.lr_sh}
+    return {k: (cfg.lr if v is None else v) for k, v in lrs.items()}
+
+
+def adam_init(params: Dict[str, torch.Tensor]) -> AdamState:
+    return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
+                     {k: torch.zeros_like(v) for k, v in params.items()})
+
+
+def adam_update(grads: Dict[str, torch.Tensor], state: AdamState,
+                params: Dict[str, torch.Tensor], cfg: SplatConfig
+                ) -> Tuple[Dict[str, torch.Tensor], AdamState]:
+    """One Adam step in optax's order; returns (new params, new state)."""
+    count = state.count + 1
+    # the bias corrections in float32, as optax computes decay**count
+    bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(count))
+    bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(count))
+    lrs = _learning_rates(cfg)
+    new_params, mu, nu = {}, {}, {}
+    with torch.no_grad():
+        for k, x in params.items():
+            g = grads[k]
+            mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * state.mu[k]
+            nu[k] = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[k]
+            upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
+            new_params[k] = x + upd * (-lrs[k])
+    return new_params, AdamState(count, mu, nu)
+
+
+def mcmc_config_from(cfg: SplatConfig) -> MCMCConfig:
+    """The MCMC schedule from the user-facing SplatConfig knobs."""
+    return MCMCConfig(cap_max=cfg.cap_max, min_opacity=cfg.mcmc_min_opacity,
+                      noise_lr=cfg.mcmc_noise_lr,
+                      refine_every=cfg.mcmc_refine_every,
+                      refine_start=cfg.mcmc_refine_start,
+                      refine_stop=cfg.mcmc_refine_stop,
+                      grow_factor=cfg.mcmc_grow_factor)
+
+
 def init_gaussians(points: np.ndarray, colors: np.ndarray,
-                   cfg: SplatConfig, pool_size: int = 0,
+                   cfg: SplatConfig, seed: int = 0, pool_size: int = 0,
                    point_scales: Optional[np.ndarray] = None,
                    device="cuda") -> GSState:
     """points (N, 3), colors (N, 3) in [0, 1] -> Gaussians on ``device``
     (the card unless "cpu").
     pool_size > N appends inactive capacity; point_scales (N,) or (N, 3)
-    overrides the scalar init scale with per-point linear scales."""
+    overrides the scalar init scale with per-point linear scales; ``seed``
+    seeds the state's generator (the MCMC draws)."""
     device = resolve_device(device)
     n = points.shape[0]
     cap = max(n, pool_size)
@@ -94,7 +205,10 @@ def init_gaussians(points: np.ndarray, colors: np.ndarray,
                   for k, v in params.items()}
         params["quats"][n:, 0] = 1.0
         params["scales"][n:] = raw_scale
-    return GSState(params=params, n_alive=n)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return GSState(params=params, opt_state=adam_init(params), step=0,
+                   generator=gen, n_alive=n)
 
 
 def render_inputs(params: Dict[str, torch.Tensor], cfg: SplatConfig,
@@ -110,16 +224,237 @@ def render_inputs(params: Dict[str, torch.Tensor], cfg: SplatConfig,
     return params["means"], params["quats"], sc, op, params["shN"]
 
 
+def _as_f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
 def render(params: Dict[str, torch.Tensor], w2c, Ks, width: int, height: int,
-           cfg: SplatConfig, n_alive: Optional[int] = None):
+           cfg: SplatConfig, n_alive: Optional[int] = None,
+           bins: Optional[Bins] = None):
     """Reference render: colors = shN, sh_degree = cfg.sh_degree. w2c
-    (C, 4, 4), Ks (C, 3, 3), arrays or tensors. Returns (rgb (C,H,W,3),
-    alpha (C,H,W,1), info)."""
+    (C, 4, 4), Ks (C, 3, 3), arrays or tensors; ``bins``: an optional
+    `compute_bins` result to reuse. Returns (rgb (C,H,W,3), alpha
+    (C,H,W,1), info)."""
     dev = params["means"].device
-    w2c = torch.as_tensor(np.array(w2c, np.float32), device=dev)
-    Ks = torch.as_tensor(np.array(Ks, np.float32), device=dev)
     return rasterize(
-        *render_inputs(params, cfg, n_alive), w2c, Ks, width, height,
-        sh_degree=cfg.sh_degree, tile_size=cfg.tile_size,
+        *render_inputs(params, cfg, n_alive), _as_f32(w2c, dev),
+        _as_f32(Ks, dev), width, height, sh_degree=cfg.sh_degree,
+        tile_size=cfg.tile_size,
         max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-        max_per_tile=cfg.max_per_tile, chunk=cfg.chunk)
+        max_per_tile=cfg.max_per_tile, chunk=cfg.chunk, bins=bins)
+
+
+def compute_bins(params: Dict[str, torch.Tensor], w2c, Ks, width: int,
+                 height: int, cfg: SplatConfig,
+                 n_alive: Optional[int] = None) -> Bins:
+    """The tile-binning index structure for `train_step(..., bins=...)`."""
+    dev = params["means"].device
+    return bin_gaussians(
+        *render_inputs(params, cfg, n_alive), _as_f32(w2c, dev),
+        _as_f32(Ks, dev), width, height, sh_degree=cfg.sh_degree,
+        tile_size=cfg.tile_size,
+        max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+        max_per_tile=cfg.max_per_tile)
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length() if x > 1 else 1
+
+
+def _scene_max_area(params, w2c, Ks, width, height, cfg, n_alive) -> int:
+    dev = params["means"].device
+    return int(max_bbox_area(*render_inputs(params, cfg, n_alive),
+                             _as_f32(w2c, dev), _as_f32(Ks, dev), width,
+                             height, tile_size=cfg.tile_size))
+
+
+def _autobudget_cfg(state: GSState, w2c, Ks, width, height,
+                    cfg: SplatConfig) -> SplatConfig:
+    """The smallest power-of-2 tile budgets the scene needs now. The
+    configured max_tiles_per_gaussian / max_per_tile become ceilings; below
+    them nothing is dropped (the loop grows the bucket when the scene
+    outgrows it)."""
+    area = _scene_max_area(state.params, w2c, Ks, width, height, cfg,
+                           state.n_alive)
+    mt = min(_next_pow2(max(area, 2)), cfg.max_tiles_per_gaussian)
+    probe = compute_bins(state.params, w2c, Ks, width, height,
+                         dataclasses.replace(cfg, max_tiles_per_gaussian=mt),
+                         n_alive=state.n_alive)
+    mc = int(probe.max_count.max())
+    # floor 128, one batch of the compositing kernels, as the JAX package
+    # floors at its kernels' lane width: the same budgets on both sides
+    mpt = min(max(_next_pow2(int(mc * 1.25) + 1), 128), cfg.max_per_tile)
+    return dataclasses.replace(cfg, max_tiles_per_gaussian=mt,
+                               max_per_tile=mpt)
+
+
+def train_step(state: GSState, gt: torch.Tensor, w2c: torch.Tensor,
+               Ks: torch.Tensor, width: int, height: int, cfg: SplatConfig,
+               n_cams: int, bins: Optional[Bins] = None,
+               anchors: Optional[torch.Tensor] = None
+               ) -> Tuple[GSState, torch.Tensor]:
+    """One optimisation step over the given cameras. gt (C, H, W, 3) in
+    [0, 1], w2c (C, 4, 4), Ks (C, 3, 3) on the state's device. ``bins``: an
+    optional `compute_bins` result (rebin_every reuse; gradients stay
+    exact). ``anchors``: optional (cap, 3) seed positions for the drift
+    prior (cfg.loss_anchor_fac > 0). Returns (new state, loss as a 0-dim
+    device tensor)."""
+    keys = list(state.params)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in state.params.items()}
+    n_alive = state.n_alive
+    dev = leaves["means"].device
+    with torch.enable_grad():
+        with _stage("render"):
+            rgb, _, _ = render(leaves, w2c, Ks, width, height, cfg,
+                               n_alive=n_alive, bins=bins)
+        with _stage("loss"):
+            l1 = torch.mean(torch.abs(gt - rgb), dim=(1, 2, 3))    # (C,)
+            ssim_val = ssim_per_image(gt, rgb)                      # (C,)
+            per_cam = (l1 * (1 - cfg.loss_ssim_fac)
+                       + (1.0 - ssim_val) * cfg.loss_ssim_fac)
+            loss = torch.sum(per_cam)
+            # the reference adds the regularisers once per camera; means
+            # over the alive slots only
+            alive = (torch.arange(leaves["means"].shape[0], device=dev)
+                     < n_alive).float()
+            denom = max(float(n_alive), 1.0)
+            reg_o = torch.sum(torch.abs(torch.sigmoid(leaves["opacities"]))
+                              * alive) / denom
+            reg_s = torch.sum(torch.abs(torch.exp(leaves["scales"]))
+                              * alive[:, None]) / (3.0 * denom)
+            loss = loss + n_cams * (cfg.loss_opacity_fac * reg_o
+                                    + cfg.loss_scale_fac * reg_s)
+            if cfg.loss_anchor_fac > 0.0 and anchors is not None:
+                drift = torch.sum((leaves["means"] - anchors) ** 2, dim=-1)
+                loss = loss + cfg.loss_anchor_fac * torch.sum(
+                    drift * alive) / denom
+        with _stage("backward"):
+            grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
+                                        allow_unused=True)
+    with _stage("adam"):
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                 for k, g in zip(keys, grads)}
+        params, opt_state = adam_update(grads, state.opt_state,
+                                        state.params, cfg)
+    return state._replace(params=params, opt_state=opt_state,
+                          step=state.step + 1), loss.detach()
+
+
+def _mcmc_post_step(state: GSState, lr: float, cfg: SplatConfig,
+                    mcfg: MCMCConfig, do_refine: bool) -> GSState:
+    """After a step: on refine steps grow and relocate (and reset the Adam
+    moments of the relocated slots); every step add position noise."""
+    params, opt_state, n_alive = state.params, state.opt_state, state.n_alive
+    with torch.no_grad():
+        if do_refine:
+            n_target = grow_target(n_alive, params["means"].shape[0], mcfg)
+            params, relocated = relocate_dead(
+                params, _opacity_act(cfg), _scale_act(cfg),
+                min_opacity=mcfg.min_opacity, n_alive=n_alive,
+                n_target=n_target, generator=state.generator)
+            n_alive = n_target
+
+            def reset(x):
+                m = relocated.reshape((-1,) + (1,) * (x.dim() - 1))
+                return torch.where(m, torch.zeros_like(x), x)
+
+            opt_state = opt_state._replace(
+                mu={k: reset(v) for k, v in opt_state.mu.items()},
+                nu={k: reset(v) for k, v in opt_state.nu.items()})
+        params = add_position_noise(params, lr, mcfg.noise_lr,
+                                    _opacity_act(cfg), _scale_act(cfg),
+                                    n_alive=n_alive,
+                                    generator=state.generator)
+    return state._replace(params=params, opt_state=opt_state,
+                          n_alive=n_alive)
+
+
+def run_optim(state: GSState, gt_images, w2c, Ks, iters: int,
+              cfg: SplatConfig, enable_pruning: bool = False,
+              mcfg: Optional[MCMCConfig] = None,
+              verbose: bool = False) -> Tuple[GSState, List[float]]:
+    """The reference's run_3dgs_optim loop (gs.py:97-166) on the state's
+    device. gt_images (C, H, W, 3) in [0, 1], w2c (C, 4, 4), Ks (C, 3, 3),
+    arrays or tensors. mcfg defaults to the schedule in ``cfg``. Returns
+    (new state, the loss of every step)."""
+    if mcfg is None:
+        mcfg = mcmc_config_from(cfg)
+    dev = state.params["means"].device
+    gt = _as_f32(gt_images, dev)
+    c, h, w = gt.shape[0], gt.shape[1], gt.shape[2]
+    w2c_t = _as_f32(w2c, dev)
+    ks_t = _as_f32(Ks, dev)
+    cb = cfg.camera_batch if 0 < cfg.camera_batch < c else 0
+    step0 = state.step
+    cam_rng = np.random.default_rng(step0 + 1)
+    # losses stay on the device until the loop ends: one host read at the
+    # end, so the host does not wait on the card every step
+    losses_dev: List[torch.Tensor] = []
+    rebin = max(int(cfg.rebin_every), 1)
+    scfg = (_autobudget_cfg(state, w2c_t, ks_t, w, h, cfg)
+            if cfg.auto_budget else cfg)
+    bins = None   # reused across steps when rebin > 1 (all cameras)
+    # drift-prior anchors: the seed positions, moved to the current means
+    # after every refine (for every Gaussian, as the reference does)
+    anchors = (state.params["means"].clone()
+               if cfg.loss_anchor_fac > 0.0 else None)
+    for it in range(iters):
+        if cb:
+            # minibatches change the cameras every step: no bin reuse
+            sel = torch.as_tensor(cam_rng.choice(c, size=cb, replace=False),
+                                  device=dev)
+            state, loss = train_step(state, gt[sel], w2c_t[sel], ks_t[sel],
+                                     w, h, scfg, cb, anchors=anchors)
+        else:
+            if bins is None or it % rebin == 0:
+                with _stage("binning"):
+                    bins = compute_bins(state.params, w2c_t, ks_t, w, h,
+                                        scfg, n_alive=state.n_alive)
+                    if cfg.auto_budget:
+                        scfg, bins = _grow_budget(state, bins, w2c_t, ks_t,
+                                                  w, h, scfg, cfg)
+            state, loss = train_step(state, gt, w2c_t, ks_t, w, h, scfg, c,
+                                     bins=bins, anchors=anchors)
+        if enable_pruning:
+            step = step0 + it + 1
+            do_refine = (mcfg.refine_start <= step < mcfg.refine_stop
+                         and step % mcfg.refine_every == 0)
+            # the noise scales with the means' learning rate, as gsplat's
+            # does with the means optimiser's
+            mean_lr = cfg.lr_means if cfg.lr_means is not None else cfg.lr
+            with _stage("mcmc"):
+                state = _mcmc_post_step(state, mean_lr, cfg, mcfg,
+                                        do_refine)
+            if do_refine:
+                bins = None   # relocated Gaussians jump: rebin
+                if anchors is not None:
+                    anchors = state.params["means"].clone()
+        losses_dev.append(loss)
+        if verbose and (it % 50 == 0 or it == iters - 1):
+            print(f"[3dgs] step {step0 + it + 1} loss={float(loss):.4f} "
+                  f"alive={state.n_alive}")
+    losses = torch.stack(losses_dev).tolist() if losses_dev else []
+    return state, losses
+
+
+def _grow_budget(state: GSState, bins: Bins, w2c, Ks, w: int, h: int,
+                 scfg: SplatConfig, cfg: SplatConfig
+                 ) -> Tuple[SplatConfig, Bins]:
+    """Grow a budget bucket the moment the scene outgrows it (nothing is
+    dropped below the configured ceilings), rebinning at the new size."""
+    grown = scfg
+    if (int(bins.n_clipped.max()) > 0
+            and scfg.max_tiles_per_gaussian < cfg.max_tiles_per_gaussian):
+        grown = dataclasses.replace(grown, max_tiles_per_gaussian=min(
+            scfg.max_tiles_per_gaussian * 2, cfg.max_tiles_per_gaussian))
+    mc = int(bins.max_count.max())
+    if mc > scfg.max_per_tile and scfg.max_per_tile < cfg.max_per_tile:
+        grown = dataclasses.replace(grown, max_per_tile=min(
+            _next_pow2(int(mc * 1.25) + 1), cfg.max_per_tile))
+    if grown is scfg:
+        return scfg, bins
+    return grown, compute_bins(state.params, w2c, Ks, w, h, grown,
+                               n_alive=state.n_alive)

@@ -1,4 +1,7 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the compositing forward (`composite_fwd.cu`) and backward
+(`composite_bwd.cu`), the entry gather (`gather_entries.cu`), and a
+training step on the card against the same step on the CPU.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): each is
 marked `cuda` and skips when `torch.cuda.is_available()` is false. The file
@@ -7,10 +10,25 @@ JAX it runs on its own:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: 1e-4, the Pallas forward's own tolerance against its oracle
-(tests/test_pallas_composite.py). The kernel multiplies transmittance
-sequentially where the plain version takes chunked cumulative products, so
-the two differ by float32 rounding only.
+Tolerances:
+  - forward 1e-4, the Pallas forward's own tolerance against its oracle
+    (tests/test_pallas_composite.py). The kernel multiplies transmittance
+    sequentially where the plain version takes chunked cumulative products,
+    so the two differ by float32 rounding only;
+  - backward: each attribute's gradient divided by the largest magnitude of
+    the plain version's agrees to 2e-3 (the Pallas backward's own
+    tolerance). The kernel walks the batches front to back with the
+    forward's own running product T *= 1 - alpha and takes each entry's
+    suffix sum as the forward's rgb minus the colour accumulated so far,
+    which cancels to about 1e-7 of |rgb|; the plain version runs every
+    batch where the kernel stops at the forward's early exit (those terms
+    are below T = 1e-6);
+  - the gather: exact;
+  - a training step on the card against the CPU: the loss to 1e-4
+    relative (other summation orders, and the kernels' own rounding), and
+    each parameter's gradient (Adam's first moment after one step, 0.1
+    times the gradient) within 2e-3 of the CPU's largest magnitude, the
+    backward kernel's own tolerance.
 """
 
 import numpy as np
@@ -18,12 +36,17 @@ import pytest
 import torch
 
 import starst3r_tpu_torch as stt
+from starst3r_tpu_torch.config import SplatConfig
 from starst3r_tpu_torch.splat import composite as comp
-from starst3r_tpu_torch.splat.rasterize import rasterize, tile_entries
+from starst3r_tpu_torch.splat import gather as gat
+from starst3r_tpu_torch.splat import train as train_mod
+from starst3r_tpu_torch.splat.rasterize import (bin_gaussians, rasterize,
+                                                tile_entries)
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-4
+BWD_SCALED_TOL = 2e-3
 
 
 @pytest.fixture
@@ -90,32 +113,26 @@ def _compare(ent, counts, h, w, tile, tw, th, dev):
     return tfin.cpu(), done.cpu()
 
 
-@pytest.mark.parametrize("case", ["scene", "wall", "multichunk"])
-def test_kernel_matches_plain(dev, case):
-    if case == "wall":
-        args, kw = _wall(), dict(max_tiles_per_gaussian=9, max_per_tile=1024)
-    elif case == "multichunk":
-        args, kw = _scene(n=1400), dict(max_tiles_per_gaussian=4,
-                                        max_per_tile=512)
-    else:
-        args, kw = _scene(), dict(max_tiles_per_gaussian=9, max_per_tile=128)
-    ent, counts, _ = tile_entries(*args, 32, 32, 1, 16,
-                                  kw["max_tiles_per_gaussian"],
-                                  kw["max_per_tile"])
-    tfin, done = _compare(ent, counts, 32, 32, 16, 2, 2, dev)
-    if case == "wall":
-        # every tile saturates in its first batch and stops there
-        assert bool((done == 1).all()) and int(counts.min()) > 128
-        assert float(tfin.max()) <= 1e-6
-    if case == "multichunk":
-        assert int(counts.max()) > 128 and int(done.max()) > 1
+CASE_KW = {"scene": dict(max_tiles_per_gaussian=9, max_per_tile=128),
+           "wall": dict(max_tiles_per_gaussian=9, max_per_tile=1024),
+           "multichunk": dict(max_tiles_per_gaussian=4, max_per_tile=512)}
+ANY_SHAPES = [(16, 40, 24, 200), (8, 20, 36, 64), (16, 224, 224, 128),
+              (32, 40, 50, 96)]
 
 
-@pytest.mark.parametrize("tile,h,w,k", [(16, 40, 24, 200), (8, 20, 36, 64),
-                                        (16, 224, 224, 128)])
-def test_kernel_any_shape(dev, tile, h, w, k):
-    """Any camera count, tile count and K (no multiple-of-128 or tile-group
-    preconditions), ragged image edges, empty tiles."""
+def _case_args(case):
+    return {"scene": _scene, "wall": _wall,
+            "multichunk": lambda: _scene(n=1400)}[case]()
+
+
+def _case_entries(case):
+    kw = CASE_KW[case]
+    return tile_entries(*_case_args(case), 32, 32, 1, 16,
+                        kw["max_tiles_per_gaussian"], kw["max_per_tile"])[:2]
+
+
+def _random_entries(tile, h, w, k):
+    """Random entries of 3 cameras for an h x w image, with empty tiles."""
     rng = np.random.default_rng(tile + h + k)
     tw, th = -(-w // tile), -(-h // tile)
     c, t = 3, tw * th
@@ -133,14 +150,13 @@ def test_kernel_any_shape(dev, tile, h, w, k):
             ent[ci, ti, :m, 4] = rng.uniform(0.05, 0.5, m)
             ent[ci, ti, :m, 5:8] = rng.uniform(0, 1, (m, 3))
             ent[ci, ti, :m, 8] = rng.uniform(0.05, 0.99, m)
-    _compare(torch.from_numpy(ent), torch.from_numpy(counts), h, w, tile,
-             tw, th, dev)
+    return torch.from_numpy(ent), torch.from_numpy(counts), tw, th
 
 
-def test_kernel_degenerate_conics(dev):
-    """Near-singular conics (a*c ~ b^2) put sigma within rounding of 0
-    along a line of pixels, where the sigma < 0 cull jumps from an opaque
-    splat to none: the kernel must round sigma as the plain version does."""
+def _degenerate_entries():
+    """Near-singular conics (a*c ~ b^2): sigma within rounding of 0 along
+    a line of pixels, where the sigma < 0 cull jumps from an opaque splat
+    to none."""
     rng = np.random.default_rng(9)
     tile, tw, th, k = 16, 2, 2, 256
     counts = np.full((1, 4), k, np.int32)
@@ -157,8 +173,176 @@ def test_kernel_degenerate_conics(dev):
         ent[0, ti, :, 4] = s
         ent[0, ti, :, 5:8] = rng.uniform(0, 1, (k, 3))
         ent[0, ti, :, 8] = 1.0
-    _compare(torch.from_numpy(ent), torch.from_numpy(counts), 32, 32, tile,
-             tw, th, dev)
+    return torch.from_numpy(ent), torch.from_numpy(counts)
+
+
+def _compare_bwd(ent, counts, h, w, tile, tw, th, dev, seed=0,
+                 tol=(BWD_SCALED_TOL,) * 9):
+    """Backward kernel and its plain version on the card, on the forward
+    kernel's tfin/done and random pixel gradients; ``tol`` per attribute."""
+    ent = ent.to(dev).contiguous()
+    counts = counts.to(dev).contiguous()
+    c = ent.shape[0]
+    rgb, _, tfin, done = comp.composite_tiles_cuda(ent, counts, h, w, tile,
+                                                   tw, th)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g_rgb = torch.randn((c, h, w, 3), generator=gen, device=dev)
+    g_alpha = torch.randn((c, h, w), generator=gen, device=dev)
+    before = comp.composite_tiles_bwd_cuda.launches
+    got = comp.composite_tiles_bwd_cuda(ent, counts, rgb, tfin, done, g_rgb,
+                                        g_alpha, h, w, tile, tw, th)
+    torch.cuda.synchronize()
+    assert comp.composite_tiles_bwd_cuda.launches == before + 1
+    want = comp.composite_tiles_bwd_plain(ent, counts, done, g_rgb, g_alpha,
+                                          h, w, tile, tw, th)
+    assert bool(torch.isfinite(got).all())
+    for a in range(9):
+        scale = max(float(want[..., a].abs().max()), 1e-6)
+        err = float((got[..., a] - want[..., a]).abs().max()) / scale
+        assert err <= tol[a], (a, err)
+    # slots past the forward's batches are untouched zeros
+    k = ent.shape[2]
+    past = (torch.arange(k, device=dev)
+            >= done.reshape(c, -1, 1).long() * comp.BATCH)
+    if bool(past.any()):
+        assert float(got[past].abs().max()) == 0.0
+    return got
+
+
+@pytest.mark.parametrize("case", ["scene", "wall", "multichunk"])
+def test_kernel_matches_plain(dev, case):
+    ent, counts = _case_entries(case)
+    tfin, done = _compare(ent, counts, 32, 32, 16, 2, 2, dev)
+    if case == "wall":
+        # every tile saturates in its first batch and stops there
+        assert bool((done == 1).all()) and int(counts.min()) > 128
+        assert float(tfin.max()) <= 1e-6
+    if case == "multichunk":
+        assert int(counts.max()) > 128 and int(done.max()) > 1
+
+
+@pytest.mark.parametrize("tile,h,w,k", ANY_SHAPES)
+def test_kernel_any_shape(dev, tile, h, w, k):
+    """Any camera count, tile count and K (no multiple-of-128 or tile-group
+    preconditions), ragged image edges, empty tiles."""
+    ent, counts, tw, th = _random_entries(tile, h, w, k)
+    _compare(ent, counts, h, w, tile, tw, th, dev)
+
+
+def test_kernel_degenerate_conics(dev):
+    """The kernel must round sigma as the plain version does, or the
+    sigma < 0 cull decides otherwise."""
+    ent, counts = _degenerate_entries()
+    _compare(ent, counts, 32, 32, 16, 2, 2, dev)
+
+
+@pytest.mark.parametrize("case", ["scene", "wall", "multichunk"])
+def test_bwd_kernel_matches_plain(dev, case):
+    ent, counts = _case_entries(case)
+    _compare_bwd(ent, counts, 32, 32, 16, 2, 2, dev)
+
+
+@pytest.mark.parametrize("tile,h,w,k", ANY_SHAPES)
+def test_bwd_kernel_any_shape(dev, tile, h, w, k):
+    """Ragged edges, empty tiles, tiles of 64 threads and of 1024 (whose
+    per-warp sums take more than 48 KB of shared memory)."""
+    ent, counts, tw, th = _random_entries(tile, h, w, k)
+    _compare_bwd(ent, counts, h, w, tile, tw, th, dev, seed=tile + k)
+
+
+def test_bwd_kernel_degenerate_conics(dev):
+    """The backward culls exactly the entries the forward culled: the
+    colour, opacity and conic gradients agree to 2e-3. The mean gradients
+    of these entries are ill-conditioned: a dx + b dy, with b = -a (1 - 1e-6)
+    and dx close to dy, cancels to 1e-6 of its terms, so float32 rounding
+    alone moves both versions by up to about a tenth of the largest value;
+    they are held to 0.2."""
+    ent, counts = _degenerate_entries()
+    _compare_bwd(ent, counts, 32, 32, 16, 2, 2, dev,
+                 tol=(0.2, 0.2) + (BWD_SCALED_TOL,) * 7)
+
+
+def test_composite_autograd_launches_both_kernels(dev):
+    ent, counts = _case_entries("multichunk")
+    e = ent.to(dev).requires_grad_(True)
+    counts = counts.to(dev)
+    fwd, bwd = (comp.composite_tiles_cuda.launches,
+                comp.composite_tiles_bwd_cuda.launches)
+    nonfinite = int(comp.CompositeTiles.nonfinite)
+    rgb, alpha = comp.composite_tiles(e, counts, 32, 32, 16, 2, 2)
+    (rgb.square().sum() + alpha.sum()).backward()
+    torch.cuda.synchronize()
+    assert comp.composite_tiles_cuda.launches == fwd + 1
+    assert comp.composite_tiles_bwd_cuda.launches == bwd + 1
+    assert e.grad.shape == e.shape and bool(torch.isfinite(e.grad).all())
+    assert int(comp.CompositeTiles.nonfinite) == nonfinite
+
+
+def test_gather_matches_indexing(dev):
+    """The gather kernel equals ``packed[gidx] * ent_valid`` exactly, and
+    its index_add backward equals autograd through the indexing."""
+    args = [a.to(dev) for a in _scene(n=1400)]
+    bins = bin_gaussians(*args, 32, 32, 1, 16, 4, 512)
+    n_rows = 2 * 1400
+    gen = torch.Generator(device=dev).manual_seed(0)
+    packed = torch.randn((n_rows, 9), generator=gen, device=dev)
+    before = gat.gather_entries_cuda.launches
+    got = gat.gather_entries_cuda(packed, bins.gidx, bins.ent_valid)
+    torch.cuda.synchronize()
+    assert gat.gather_entries_cuda.launches == before + 1
+    want = gat.gather_entries_plain(packed, bins.gidx, bins.ent_valid)
+    assert torch.equal(got, want)
+    cot = torch.randn(got.shape, generator=gen, device=dev)
+    p1 = packed.clone().requires_grad_(True)
+    (g1,) = torch.autograd.grad(gat.gather_entries(p1, bins.gidx,
+                                                   bins.ent_valid), p1, cot)
+    p2 = packed.clone().requires_grad_(True)
+    (g2,) = torch.autograd.grad(gat.gather_entries_plain(
+        p2, bins.gidx, bins.ent_valid), p2, cot)
+    np.testing.assert_allclose(g1.cpu().numpy(), g2.cpu().numpy(),
+                               atol=1e-5)
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """One train_step on the card (gather, forward and backward kernels)
+    against the same step on the CPU (plain versions): the loss, and the
+    gradients that reached Adam, which the loss alone does not show."""
+    rng = np.random.default_rng(0)
+    n, c = 512, 2
+    pts = rng.normal(size=(n, 3)).astype(np.float32)
+    pts[:, 2] += 3.0
+    cols = rng.uniform(size=(n, 3)).astype(np.float32)
+    gt = torch.from_numpy(rng.uniform(size=(c, 32, 32, 3)).astype(
+        np.float32))
+    w2c = torch.eye(4).repeat(c, 1, 1)
+    K = torch.tensor([[30.0, 0, 16], [0, 30.0, 16], [0, 0, 1]]).repeat(c, 1,
+                                                                        1)
+    cfg = SplatConfig()
+    losses, moments = {}, {}
+    launches = (gat.gather_entries_cuda.launches,
+                comp.composite_tiles_cuda.launches,
+                comp.composite_tiles_bwd_cuda.launches)
+    for d in ("cpu", dev):
+        state = train_mod.init_gaussians(pts, cols, cfg, device=d)
+        state, loss = train_mod.train_step(state, gt.to(d), w2c.to(d),
+                                           K.to(d), 32, 32, cfg, c)
+        losses[str(d)] = float(loss)
+        moments[str(d)] = {k: v.cpu() for k, v in state.opt_state.mu.items()}
+        assert all(bool(torch.isfinite(v).all())
+                   for v in state.params.values())
+    assert (gat.gather_entries_cuda.launches,
+            comp.composite_tiles_cuda.launches,
+            comp.composite_tiles_bwd_cuda.launches) == tuple(
+                x + 1 for x in launches)
+    np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
+    for k, want in moments["cpu"].items():
+        got = moments[str(dev)][k]
+        assert bool(torch.isfinite(got).all()), k
+        # the quats' gradient is zero at the isotropic start: the floor
+        # keeps rounding noise from counting as an error
+        scale = max(float(want.abs().max()), 1e-6)
+        err = float((got - want).abs().max()) / scale
+        assert err <= BWD_SCALED_TOL, (k, err)
 
 
 def test_rasterize_on_cuda_matches_cpu(dev):
@@ -186,6 +370,37 @@ def test_wrapper_rejects_bad_inputs(dev):
         comp.composite_tiles_cuda(ent, counts.long(), 32, 32, 16, 2, 2)
     with pytest.raises(ValueError):
         comp.composite_tiles_cuda(ent, counts, 64, 32, 16, 2, 2)
+    rgb = torch.zeros((1, 32, 32, 3), device=dev)
+    tfin = torch.ones((4, 256), device=dev)
+    done = torch.ones((4,), dtype=torch.int32, device=dev)
+    g_rgb = torch.zeros((1, 32, 32, 3), device=dev)
+    g_a = torch.zeros((1, 32, 32), device=dev)
+    bwd = comp.composite_tiles_bwd_cuda
+    with pytest.raises(ValueError):
+        bwd(ent, counts, rgb, tfin, done.long(), g_rgb, g_a, 32, 32, 16, 2,
+            2)
+    with pytest.raises(ValueError):
+        bwd(ent, counts, rgb, tfin[:, :64], done, g_rgb, g_a, 32, 32, 16, 2,
+            2)
+    with pytest.raises(ValueError):
+        bwd(ent, counts, rgb, tfin, done, g_rgb[..., :2], g_a, 32, 32, 16, 2,
+            2)
+    with pytest.raises(ValueError):
+        bwd(ent, counts, rgb[:, :16], tfin, done, g_rgb, g_a, 32, 32, 16, 2,
+            2)
+    with pytest.raises(ValueError):
+        bwd(ent, counts, rgb, tfin, done, g_rgb, g_a.cpu(), 32, 32, 16, 2, 2)
+    packed = torch.zeros((10, 9), device=dev)
+    gidx = torch.zeros((1, 4, 8), dtype=torch.int32, device=dev)
+    valid = torch.ones((1, 4, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        gat.gather_entries_cuda(packed.double(), gidx, valid)
+    with pytest.raises(ValueError):
+        gat.gather_entries_cuda(packed, gidx.long(), valid)
+    with pytest.raises(ValueError):
+        gat.gather_entries_cuda(packed, gidx, valid[..., :4])
+    with pytest.raises(ValueError):
+        gat.gather_entries_cuda(packed[:, :8], gidx, valid)
 
 
 def test_scene_defaults_to_cuda(dev):

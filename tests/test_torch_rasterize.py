@@ -113,10 +113,12 @@ def test_binning_matches_jax(kw):
         max_per_tile=kw["max_per_tile"])
     tw = th = -(-kw["width"] // kw["tile_size"])
     proj = tr.project_gaussians(*_t(args), 1)
-    gidx, valid, counts, overflow, n_clip = tr._bin_gaussians(
+    gidx, valid, counts, overflow, n_clip, max_count = tr._bin_gaussians(
         proj, tw, th, kw["tile_size"], kw["max_tiles_per_gaussian"],
         kw["max_per_tile"])
     np.testing.assert_array_equal(valid.numpy(), np.asarray(bins.ent_valid))
+    np.testing.assert_array_equal(max_count.numpy(),
+                                  np.asarray(bins.max_count))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(bins.counts))
     np.testing.assert_array_equal(overflow.numpy(), np.asarray(bins.overflow))
     np.testing.assert_array_equal(n_clip.numpy(), np.asarray(bins.n_clipped))
