@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (`starst3r_tpu_torch`) end to end on one
 NVIDIA GPU and hold its CUDA kernels against their plain versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-csrc DIR]
 
 from the root of a checkout, on a machine with one CUDA card, `nvcc` (on the
 PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
@@ -21,7 +21,8 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
   3. holds the forward compositing kernel against its plain PyTorch version
      on the card, on the entries of the real render and on two small scenes
      (an opaque wall that stops every tile early, a scene with several
-     batches per tile), and times both;
+     batches per tile), its `done` against the plain early exit
+     (`done_plain`), and times both;
   4. drives the training path on the same scene: Scene.run_3dgs_optim for
      TRAIN_STEPS steps with MCMC pruning (refines at steps 100, 150, 200),
      the launch counts set to 0 just before and read just after, then the
@@ -37,7 +38,17 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      that the pool grew as gsplat's add_new_gs rule says; and times the
      stages of five more training steps (CUDA events that splat.train
      records around its stages) and the kernels of five more
-     (torch.profiler).
+     (torch.profiler);
+  7. with --parent-csrc, the compositing kernels of another revision of
+     starst3r_tpu_torch/csrc (a parent commit's, unpacked with git
+     archive), built with the same nvcc line, held to these and timed
+     beside them in turns on the render's and the trained scene's entries.
+
+Each kernel's bound counts the work the run's data needs: for the
+compositing kernels the (pixel, entry) pairs inside the entries' cull
+boxes, each entry's box, and the pairs that pass the culls
+(`bound_ms`); the same over every pair of the batches walked is
+`bound_ms_walked`, the figure kernels that walk every pair are held to.
 
 It prints the per-stage seconds, the Gaussian and coverage counts, the
 training line, a line `{"kernels": [...]}` and, last,
@@ -80,6 +91,18 @@ BLEND_OPS = 9
 # and alpha gradient 20, the 9 gradient terms 24, the per-entry reduction's
 # adds 9
 BWD_PASS_OPS = 53
+# one entry's cull box (csrc/composite_common.cuh::cull_box, for an entry
+# whose box is an ellipse's): 37 float operations (determinant 4, log
+# threshold 4, two extents 9, centre 4, radii 8, the four bounds 8) and 11
+# tests (opacity, 6 finiteness, definiteness 3, threshold). A kernel that
+# skips the pairs outside the boxes walks FALLOFF_OPS for the pairs inside
+# them and BOX_OPS for every entry walked: the operations both kernels'
+# bounds count; the pairs of the whole batches walked give the older,
+# larger figure (bound_ms_walked) of kernels that walk every pair
+BOX_OPS = 48
+# the kernels' warp footprint over a tile (composite_common.cuh), for the
+# share of (warp, entry) pairs the per-warp masks skip
+WARP_W, WARP_H = 8, 4
 
 
 class CheckFailed(RuntimeError):
@@ -247,11 +270,16 @@ def cuda_ms(fn, reps, warmup=2):
 
 
 def pair_counts(entries, counts, done, tile, tw, th):
-    """(pairs walked, pairs passing the culls): the (pixel, entry) pairs
-    of the batches the forward kernel processed (``done``), and those of
-    them whose falloff passes the culls (sigma >= 0, alpha > 1/255), by the
-    plain version's arithmetic. The work both kernels' bounds are counted
-    from."""
+    """The work the kernels' bounds are counted from, in the batches the
+    forward kernel processed (``done``): the entries walked; the (pixel,
+    entry) pairs of those batches ("walked"), those inside the entries'
+    cull boxes (`cull_boxes_plain`, "in_boxes") and those whose falloff
+    passes the culls (sigma >= 0, alpha > 1/255) by the plain version's
+    arithmetic ("passing"); and the (warp, entry) pairs of the walked
+    entries, all of them and those whose box meets the warp's footprint
+    (the bits the per-warp masks set), and the longest and the mean walk
+    of a warp through its tile's entries, beside the most entries a tile
+    walks."""
     import torch
     from starst3r_tpu_torch.splat import composite as comp
 
@@ -259,6 +287,25 @@ def pair_counts(entries, counts, done, tile, tw, th):
     e = entries.reshape(c * t, k, 9)
     walked = torch.clamp(counts.reshape(-1).long(),
                          max=done.long() * comp.BATCH)
+    slot = torch.arange(k, device=e.device)
+    live = slot[None] < walked[:, None]                       # (CT, K)
+    box = comp.cull_boxes_plain(entries, tile, tw, th).reshape(c * t, k, 4)
+    box = box.long()
+    nonempty = live & (box[..., 0] <= box[..., 1]) & (box[..., 2]
+                                                      <= box[..., 3])
+    area = ((box[..., 1] - box[..., 0] + 1) * (box[..., 3] - box[..., 2] + 1))
+    warps = ((box[..., 1] // WARP_W - box[..., 0] // WARP_W + 1)
+             * (box[..., 3] // WARP_H - box[..., 2] // WARP_H + 1))
+    warps_x = -(-tile // WARP_W)
+    n_warps = warps_x * -(-tile // WARP_H)
+    # entries each warp of each tile walks: the longest walk sets a tile's
+    # time, the slowest tile the kernel's
+    walk = torch.stack([(nonempty & (box[..., 0] < fx + WARP_W)
+                         & (box[..., 1] >= fx) & (box[..., 2] < fy + WARP_H)
+                         & (box[..., 3] >= fy)).sum(1)
+                        for fx, fy in ((q % warps_x * WARP_W,
+                                        q // warps_x * WARP_H)
+                                       for q in range(n_warps))], 1)
     pix_x, pix_y = comp._tile_pix(tw, th, tile, e.device)
     pix_x, pix_y = pix_x.repeat(c, 1)[:, None], pix_y.repeat(c, 1)[:, None]
     passing = 0
@@ -266,8 +313,7 @@ def pair_counts(entries, counts, done, tile, tw, th):
                    comp.BATCH):
         act = torch.nonzero(walked > s).squeeze(1)
         ch = e[act, s:s + comp.BATCH]                         # (A, b, 9)
-        slot = torch.arange(s, s + ch.shape[1], device=e.device)
-        inside = (slot[None] < walked[act][:, None])[..., None]
+        inside = live[act, s:s + comp.BATCH][..., None]
         dx = pix_x[act] - ch[:, :, 0:1]                       # (A, b, P)
         dy = pix_y[act] - ch[:, :, 1:2]
         sigma = (0.5 * (ch[:, :, 2:3] * dx * dx + ch[:, :, 4:5] * dy * dy)
@@ -275,7 +321,33 @@ def pair_counts(entries, counts, done, tile, tw, th):
         alpha = ch[:, :, 8:9] * torch.exp(-torch.clamp(sigma, 0.0, 50.0))
         passing += int((inside & (sigma >= 0.0)
                         & (alpha > 1.0 / 255.0)).sum())
-    return int(walked.sum()) * tile * tile, passing
+    n_entries = int(walked.sum())
+    return {"entries": n_entries, "walked": n_entries * tile * tile,
+            "in_boxes": int((area * nonempty).sum()), "passing": passing,
+            "warp_pairs": n_entries * n_warps,
+            "warp_pairs_set": int((warps * nonempty).sum()),
+            "warp_walk_max": int(walk.max()),
+            "warp_walk_mean": float(walk[walked > 0].float().mean()),
+            "entries_max": int(walked.max())}
+
+
+def check_done(name, entries, counts, done, tile, tw, th):
+    """The forward kernel's early exit processed the batches the plain
+    version's transmittance asks for, tile by tile."""
+    from starst3r_tpu_torch.splat import composite as comp
+    want, near = comp.done_plain(entries, counts, tile, tw, th)
+    differ = (done.long() != want) & ~near
+    check(not bool(differ.any()), f"{name}: done differs from the plain "
+          f"early exit in {int(differ.sum())} tiles")
+    return int(near.sum())
+
+
+def work(pairs, pass_ops):
+    """(operations, operations counted over every pair walked): the bound's
+    operations with and without the cull boxes."""
+    tail = pass_ops * pairs["passing"]
+    return (FALLOFF_OPS * pairs["in_boxes"] + BOX_OPS * pairs["entries"]
+            + tail, FALLOFF_OPS * pairs["walked"] + tail)
 
 
 def composite_case(name, entries, counts, h, w, tile, tw, th, timed):
@@ -295,28 +367,28 @@ def composite_case(name, entries, counts, h, w, tile, tw, th, timed):
     n_over = int((d_rgb > ATOL).sum()) + int((d_a > ATOL).sum())
     check(bool(torch.isfinite(rgb_k).all() & torch.isfinite(tfin).all()),
           f"{name}: kernel output not finite")
+    n_near = check_done(name, entries, counts, done, tile, tw, th)
     cnt = counts.reshape(-1).long()
-    needed = torch.clamp(cnt, max=done.long() * 128)
     out = {"case": name, "max_abs_err": err,
            "batches": int(done.sum()),
            "batches_without_exit": int(((cnt + 127) // 128).sum())}
     if timed:
         c, t = counts.shape
         p = tile * tile
-        n_entries = int(needed.sum())
-        walked, passing = pair_counts(entries, counts, done, tile, tw, th)
-        out["bytes"] = (n_entries * 36 + c * t * 4          # reads
+        pairs = pair_counts(entries, counts, done, tile, tw, th)
+        out["bytes"] = (pairs["entries"] * 36 + c * t * 4        # reads
                         + c * h * w * 16 + c * t * (p + 1) * 4)  # writes
-        out["ops"] = FALLOFF_OPS * walked + BLEND_OPS * passing
-        out["pairs"] = (walked, passing)
+        out["ops"], out["ops_walked"] = work(pairs, BLEND_OPS)
+        out["pairs"] = pairs
         out["ms"] = cuda_ms(lambda: comp.composite_tiles_cuda(
             entries, counts, h, w, tile, tw, th), reps=50)
         out["plain_ms"] = cuda_ms(lambda: comp.composite_tiles_plain(
             entries, counts, h, w, tile, tw, th), reps=5, warmup=1)
     print(f"[kernel] composite_fwd {name}: max|kernel - plain| = {err:.3e} "
           f"({n_over} values above {ATOL}), batches {out['batches']} of "
-          f"{out['batches_without_exit']} without the early exit",
-          flush=True)
+          f"{out['batches_without_exit']} without the early exit, done as "
+          f"the plain early exit's in every tile ({n_near} within rounding "
+          "of the threshold)", flush=True)
     check(err <= ATOL, f"{name}: kernel disagrees with the plain version "
           f"({err:.3e} > {ATOL})")
     return out
@@ -324,7 +396,7 @@ def composite_case(name, entries, counts, h, w, tile, tw, th, timed):
 
 def check_composite_kernel(stt, scene, dev):
     """composite_fwd on the real render's entries and on the two small
-    scenes."""
+    scenes. Returns the cases and the render's inputs."""
     import torch
     from starst3r_tpu_torch.splat.rasterize import tile_entries
     from starst3r_tpu_torch.splat.train import render_inputs
@@ -355,7 +427,7 @@ def check_composite_kernel(stt, scene, dev):
         else:
             check(int(cnt_s.max()) > 128, "no tile has several batches")
         cases.append(case)
-    return cases
+    return cases, (ent, counts, h, w, tile, tw, th)
 
 
 def bound(n_bytes, n_ops):
@@ -481,6 +553,7 @@ def bwd_case(name, entries, counts, h, w, tile, tw, th, g_rgb, g_alpha,
     want = comp.composite_tiles_bwd_plain(entries, counts, done, g_rgb,
                                           g_alpha, h, w, tile, tw, th)
     check(bool(torch.isfinite(got).all()), f"{name}: gradient not finite")
+    check_done(name, entries, counts, done, tile, tw, th)
     errs = []
     for a in range(9):
         scale = max(float(want[..., a].abs().max()), 1e-12)
@@ -491,16 +564,15 @@ def bwd_case(name, entries, counts, h, w, tile, tw, th, g_rgb, g_alpha,
     if timed:
         c, t = counts.shape
         p = tile * tile
-        cnt = counts.reshape(-1).long()
-        n_walked = int(torch.clamp(cnt, max=done.long() * 128).sum())
-        walked, passing = pair_counts(entries, counts, done, tile, tw, th)
+        pairs = pair_counts(entries, counts, done, tile, tw, th)
+        n_walked = pairs["entries"]
         # reads: the entries walked, counts and done, T_fin, rgb and the
         # two pixel gradients; writes: the walked entries' gradients (the
         # rest of the output is the caller's zeros)
         out["bytes"] = (n_walked * 36 + c * t * 8 + c * t * p * 4
                         + c * h * w * (12 + 12 + 4) + n_walked * 36)
-        out["ops"] = FALLOFF_OPS * walked + BWD_PASS_OPS * passing
-        out["pairs"] = (walked, passing)
+        out["ops"], out["ops_walked"] = work(pairs, BWD_PASS_OPS)
+        out["pairs"] = pairs
         out["ms"] = cuda_ms(lambda: comp.composite_tiles_bwd_cuda(
             entries, counts, rgb, tfin, done, g_rgb, g_alpha, h, w, tile,
             tw, th), reps=20)
@@ -610,8 +682,121 @@ def check_gather_kernel(real):
     return out
 
 
-def main():
+SIDE_BY_SIDE = ("composite_fwd", "composite_bwd")
+
+
+def raw_fwd(fn, ent, counts, h, w, tile, tw, th):
+    """A launcher of forward kernel ``fn`` (a ctypes function of the
+    composite_fwd C signature) with outputs allocated once: (launch,
+    outputs)."""
     import torch
+    c, t, k, _ = ent.shape
+    dev = ent.device
+    out = (torch.empty((c, h, w, 3), device=dev),
+           torch.empty((c, h, w), device=dev),
+           torch.empty((c * t, tile * tile), device=dev),
+           torch.empty((c * t,), dtype=torch.int32, device=dev))
+
+    def launch():
+        err = fn(ent.data_ptr(), counts.data_ptr(),
+                 *(o.data_ptr() for o in out), c * t, k, tile, tw, th, h, w,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"launch failed: CUDA error {err}")
+    return launch, out
+
+
+def raw_bwd(fn, ent, counts, fwd_out, g_rgb, g_alpha, h, w, tile, tw, th):
+    """A launcher of backward kernel ``fn`` on a forward's outputs, with the
+    zero-filled gradient allocated once: (launch, gradient)."""
+    import torch
+    c, t, k, _ = ent.shape
+    rgb, _, tfin, done = fwd_out
+    grad = torch.zeros_like(ent)
+
+    def launch():
+        err = fn(ent.data_ptr(), counts.data_ptr(), done.data_ptr(),
+                 rgb.data_ptr(), tfin.data_ptr(), g_rgb.data_ptr(),
+                 g_alpha.data_ptr(), grad.data_ptr(), c * t, k, tile, tw, th,
+                 h, w, torch.cuda.current_stream(ent.device).cuda_stream)
+        check(err == 0, f"launch failed: CUDA error {err}")
+    return launch, grad
+
+
+def side_by_side(parent_csrc, render_in, real):
+    """The parent's compositing kernels (built from ``parent_csrc``) and
+    these, on the same inputs in one process: K1 on the render's entries
+    and on the trained scene's, K2 on the trained scene's with the real
+    loss's pixel gradients. The forward's done must be equal and its rgb,
+    alpha and T_fin within ATOL (the same per-pixel arithmetic, only culled
+    pairs skipped: expect 0); the backward's within BWD_SCALED_TOL of the
+    parent's per attribute (another summation order across the warps).
+    Times in turns parent, new, new, parent, launch against launch (no
+    allocation in the timed loop)."""
+    import torch
+    from starst3r_tpu_torch.splat import kernels
+
+    fns = {"parent": {n: getattr(kernels.library(n, parent_csrc), n)
+                      for n in SIDE_BY_SIDE},
+           "new": {n: getattr(kernels.library(n), n) for n in SIDE_BY_SIDE}}
+    trained = (real["entries"], real["bins"].counts, real["h"], real["w"],
+               real["tile"], real["tw"], real["th"])
+    for case, args in (("render", render_in), ("trained", trained)):
+        launchers = {side: raw_fwd(f["composite_fwd"], *args)
+                     for side, f in fns.items()}
+        for launch, _ in launchers.values():
+            launch()
+        torch.cuda.synchronize()
+        pairs = list(zip(launchers["parent"][1], launchers["new"][1]))
+        check(torch.equal(*pairs[3]), f"side by side, K1 {case}: done "
+              "differs from the parent kernel's")
+        diff = max(float((a - b).abs().max()) for a, b in pairs[:3])
+        check(diff <= ATOL, f"side by side, K1 {case}: the new kernel's "
+              f"output differs from the parent's by {diff:.3e}")
+        ms = {side: [] for side in fns}
+        for side in ("parent", "new", "new", "parent"):
+            ms[side].append(cuda_ms(launchers[side][0], reps=50))
+        print(f"[side-by-side] composite_fwd {case}: parent "
+              f"{np.mean(ms['parent']):.4f} ms {ms['parent']}, new "
+              f"{np.mean(ms['new']):.4f} ms {ms['new']}; done equal, "
+              f"max |new - parent| of rgb, alpha and T_fin {diff:.3e}",
+              flush=True)
+        if case != "trained":
+            continue
+        fwd_out = launchers["new"][1]
+        bwd = {side: raw_bwd(f["composite_bwd"], *args[:2], fwd_out,
+                             real["g_rgb"], real["g_alpha"], *args[2:])
+               for side, f in fns.items()}
+        for launch, _ in bwd.values():
+            launch()
+        torch.cuda.synchronize()
+        want, got = bwd["parent"][1], bwd["new"][1]
+        check(bool(torch.isfinite(got).all()), "side by side, K2: the new "
+              "kernel's gradient is not finite")
+        errs = [float((got[..., a] - want[..., a]).abs().max())
+                / max(float(want[..., a].abs().max()), 1e-12)
+                for a in range(9)]
+        check(max(errs) <= BWD_SCALED_TOL, "side by side, K2: the new "
+              f"kernel disagrees with the parent's ({max(errs):.3e})")
+        ms = {side: [] for side in fns}
+        for side in ("parent", "new", "new", "parent"):
+            ms[side].append(cuda_ms(bwd[side][0], reps=50))
+        print(f"[side-by-side] composite_bwd {case}: parent "
+              f"{np.mean(ms['parent']):.4f} ms {ms['parent']}, new "
+              f"{np.mean(ms['new']):.4f} ms {ms['new']}; max scaled "
+              f"|new - parent| {max(errs):.3e}", flush=True)
+
+
+def main():
+    import argparse
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--parent-csrc", default=None,
+        help="a directory holding another revision of starst3r_tpu_torch/"
+        "csrc (the parent commit's): its compositing kernels are built "
+        "with the same nvcc line, held to these and timed beside them on "
+        "the render's and the trained scene's entries")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); the port's entry points run on the card",
@@ -633,6 +818,9 @@ def main():
 
     t = time.perf_counter()
     built = kernels.build()
+    if args.parent_csrc:
+        built.update({f"parent {n}": v for n, v in kernels.build(
+            SIDE_BY_SIDE, csrc=args.parent_csrc).items()})
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t:.2f} s "
           "(one nvcc each, in parallel)", flush=True)
     for name, (secs, log) in built.items():
@@ -678,7 +866,7 @@ def main():
     check_outputs(scene, orig, novel, N_VIEWS, HW, N_NOVEL)
     print(f"[ga] second add_images: coarse / fine phase loss "
           f"{scene.reconstruction.losses}", flush=True)
-    fwd_cases = check_composite_kernel(stt, scene, dev)
+    fwd_cases, render_in = check_composite_kernel(stt, scene, dev)
 
     # slice 2: training on the same scene
     n0 = scene.gs_state.n_alive
@@ -739,6 +927,8 @@ def main():
           f"{real['scfg'].max_per_tile}", flush=True)
     bwd_cases = check_bwd_kernel(real, dev)
     gather = check_gather_kernel(real)
+    if args.parent_csrc:
+        side_by_side(args.parent_csrc, render_in, real)
 
     kernels_line = []
     # composite_bwd's error is the scaled one its tolerance is stated in:
@@ -752,19 +942,37 @@ def main():
              gather["max_abs_err"], gather["library_ms"]))
     for name, replaces, case, err, library_ms in rows:
         bound_ms, bound_by = bound(case["bytes"], case["ops"])
+        walked_ms, _ = bound(case["bytes"], case.get("ops_walked", 0))
+        pairs = case.get("pairs", {})
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": f"starst3r_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": err, "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
+            "bound_by": bound_by, "library_ms": library_ms,
+            "bound_ms_walked": walked_ms,
+            "pairs_walked": pairs.get("walked"),
+            "pairs_in_boxes": pairs.get("in_boxes"),
+            "pairs_passing": pairs.get("passing")})
         print(f"[kernel] {name}: {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}"
               f" ms, bound {bound_ms:.4f} ms ({bound_by}: {case['bytes']} B,"
-              f" {case['ops']} ops; pixel-entry pairs walked, passing the "
-              f"culls: {case.get('pairs')})", flush=True)
+              f" {case['ops']} ops), bound over every pair walked "
+              f"{walked_ms:.4f} ms ({case.get('ops_walked', 0)} ops); work "
+              f"{pairs or None}", flush=True)
+        if pairs:
+            print(f"[masks] {name}: the per-warp masks set "
+                  f"{pairs['warp_pairs_set']} of {pairs['warp_pairs']} "
+                  f"(warp, entry) pairs, skip "
+                  f"{1 - pairs['warp_pairs_set'] / pairs['warp_pairs']:.4f};"
+                  f" the boxes hold {pairs['in_boxes']} of "
+                  f"{pairs['walked']} (pixel, entry) pairs, "
+                  f"{pairs['passing']} pass the culls; a warp walks "
+                  f"{pairs['warp_walk_mean']:.1f} entries on average, the "
+                  f"longest walk {pairs['warp_walk_max']} (the most entries "
+                  f"a tile walks: {pairs['entries_max']})", flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

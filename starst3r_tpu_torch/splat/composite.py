@@ -12,6 +12,13 @@ package's Pallas `_fwd_kernel`, and `csrc/composite_bwd.cu`, replacing
     respect to the entries (torch.autograd.grad), with the slots past the
     batches the forward kernel processed set to zero. The yardstick the
     backward kernel is held to; the tests and chip_smoke.py use it.
+  - `done_plain`: the batches the forward kernel's early exit processes
+    (its ``done``), by the plain version's transmittance; the tests and
+    chip_smoke.py hold the kernel's to it.
+  - `cull_boxes_plain`: each entry's cull box, the pixel rectangle of its
+    tile outside of which the culls cannot pass, as both kernels compute it
+    to skip the (warp, entry) pairs that would be culled. Not on the main
+    path: the tests and chip_smoke.py's work counts use it.
   - `composite_tiles_cuda` / `composite_tiles_bwd_cuda`: launch the forward
     and the backward kernel on the current stream (built on first use by
     `splat.kernels`) and count their launches in ``.launches``.
@@ -36,7 +43,7 @@ from .kernels import launch
 
 __all__ = ("CompositeTiles", "composite_tiles", "composite_tiles_bwd_cuda",
            "composite_tiles_bwd_plain", "composite_tiles_cuda",
-           "composite_tiles_plain")
+           "composite_tiles_plain", "cull_boxes_plain", "done_plain")
 
 BATCH = 128     # the kernels' batch of entries (the TPU kernels' chunk)
 
@@ -97,6 +104,97 @@ def composite_tiles_plain(entries: torch.Tensor, counts: torch.Tensor,
     rgb = _tiles_to_image(acc_rgb, c, h, w, tile, tw, th)
     alpha = 1.0 - _tiles_to_image(acc_t, c, h, w, tile, tw, th)
     return rgb, alpha
+
+
+def done_plain(entries: torch.Tensor, counts: torch.Tensor, tile: int,
+               tw: int, th: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's ``done`` by the plain version's arithmetic:
+    batch 0 of every tile with entries, then batch b while some pixel of
+    the tile has T > 1e-6 after batch b - 1 (T from chunked cumulative
+    products, as `composite_tiles_plain`). Returns (done (C*T,) int64,
+    near (C*T,) bool): ``near`` marks the tiles where the largest T at a
+    batch boundary lies within 0.1% of 1e-6, where the kernel's sequential
+    product may round to the other side."""
+    c, t_total, k, _ = entries.shape
+    e = entries.reshape(c * t_total, k, 9).float()
+    cnt = torch.clamp(counts.reshape(-1).long().to(e.device), 0, k)
+    pix_x, pix_y = _tile_pix(tw, th, tile, e.device)
+    pix_x = pix_x.repeat(c, 1)[:, None, :]
+    pix_y = pix_y.repeat(c, 1)[:, None, :]
+    acc_t = torch.ones((c * t_total, tile * tile), device=e.device)
+    done = torch.zeros(c * t_total, dtype=torch.long, device=e.device)
+    near = torch.zeros(c * t_total, dtype=torch.bool, device=e.device)
+    for s in range(0, int(cnt.max()) if cnt.numel() else 0, BATCH):
+        started = (cnt > s) & ((s == 0) | (acc_t.amax(1) > 1e-6))
+        act = torch.nonzero(started).squeeze(1)
+        if act.numel() == 0:
+            break
+        done[act] += 1
+        ch = e[act, s:s + BATCH]
+        slot = torch.arange(s, s + ch.shape[1], device=e.device)
+        live = (slot[None] < cnt[act][:, None])[..., None]
+        dx = pix_x[act] - ch[:, :, 0:1]
+        dy = pix_y[act] - ch[:, :, 1:2]
+        sigma = (0.5 * (ch[:, :, 2:3] * dx * dx + ch[:, :, 4:5] * dy * dy)
+                 + ch[:, :, 3:4] * dx * dy)
+        alpha = ch[:, :, 8:9] * torch.exp(-torch.clamp(sigma, 0.0, 50.0))
+        alpha = torch.where(live & (sigma >= 0.0) & (alpha > 1.0 / 255.0),
+                            torch.clamp(alpha, max=0.999),
+                            torch.zeros_like(alpha))
+        acc_t[act] = acc_t[act] * torch.cumprod(1.0 - alpha, dim=1)[:, -1]
+        near[act] |= (acc_t[act].amax(1) - 1e-6).abs() <= 1e-9
+    return done, near
+
+
+def cull_boxes_plain(entries: torch.Tensor, tile: int, tw: int, th: int
+                     ) -> torch.Tensor:
+    """Each entry's cull box, as the kernels compute it
+    (`csrc/composite_common.cuh::cull_box`, operation for operation in
+    float32): the tile-local pixel rectangle outside of which the culls
+    (sigma >= 0 and op * exp(-sigma) > 1/255) cannot pass, conservative
+    against the rounding of the falloff. entries (C, T, K, 9) with
+    T == tw * th. Returns (C, T, K, 4) int32 inclusive bounds
+    (x0, x1, y0, y1); an empty box is (0, -1, 0, -1), a box that cannot be
+    bounded (non-finite attributes, a conic that is not positive definite
+    or is near-degenerate) the whole tile. The tests and chip_smoke.py's
+    work counts use it; the kernels compute their own."""
+    e = entries.float()
+    t_total = e.shape[1]
+    if t_total != tw * th:
+        raise ValueError(f"{t_total} tiles, not {tw}x{th}")
+    t = torch.arange(t_total, device=e.device)
+    ox = ((t % tw) * tile).float()[None, :, None]
+    oy = ((t // tw) * tile).float()[None, :, None]
+    mx, my, ca, cb, cc, op = (e[..., i] for i in (0, 1, 2, 3, 4, 8))
+    visible = op > 1.0 / 255.0
+    finite = torch.isfinite(e[..., [0, 1, 2, 3, 4, 8]]).all(-1)
+    ac = ca * cc
+    det = ac - cb * cb
+    s = (torch.log(255.0 * op) + 1e-5) * 1.01
+    ellipse = (finite & (ca > 0) & (cc > 0) & (det > 1e-3 * ac)
+               & (s < 49.0))
+    two_s = 2.0 * s
+    bounds = []
+    for centre, origin, num in ((mx, ox, cc), (my, oy, ca)):
+        ext = torch.sqrt(two_s * num / det) * 1.001
+        c = (centre - origin) - 0.5
+        r = (ext + 1.0) + 1e-5 * c.abs()
+        lo = torch.ceil(torch.clamp(torch.clamp(c - r, min=-1.0),
+                                    max=float(tile)))
+        hi = torch.floor(torch.clamp(torch.clamp(c + r, max=float(tile)),
+                                     min=-1.0))
+        # NaN where the box is not an ellipse's; replaced below
+        lo = torch.where(ellipse, lo, torch.zeros_like(lo))
+        hi = torch.where(ellipse, hi, torch.zeros_like(hi))
+        bounds += [torch.clamp(lo.int(), min=0),
+                   torch.clamp(hi.int(), max=tile - 1)]
+    box = torch.stack(bounds, -1)
+    whole = torch.tensor([0, tile - 1, 0, tile - 1], dtype=torch.int32,
+                         device=e.device)
+    empty = torch.tensor([0, -1, 0, -1], dtype=torch.int32, device=e.device)
+    box = torch.where(ellipse[..., None], box, whole)
+    none = ~visible | (box[..., 0] > box[..., 1]) | (box[..., 2] > box[..., 3])
+    return torch.where(none[..., None], empty, box)
 
 
 def _check_inputs(name: str, entries: torch.Tensor, counts: torch.Tensor,

@@ -7,7 +7,9 @@ an edited source builds anew) and loaded with ctypes. Each exports one C
 function named after its file, which launches its kernel on the stream it
 is given and returns the CUDA error code; `launch` raises on a non-zero
 code. `build` compiles several sources at once, one `nvcc` each, all
-started together.
+started together. `build` and `library` also take another directory of
+the same sources (another revision of `csrc/`), which chip_smoke.py uses
+to time a parent commit's kernels beside these with the same nvcc line.
 """
 
 from __future__ import annotations
@@ -52,21 +54,21 @@ def _find_nvcc() -> str:
                        "on first use and need the CUDA toolkit")
 
 
-def _so_path(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
+def _so_path(name: str, csrc: Path = _CSRC) -> Path:
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(name: str) -> Tuple[float, str]:
+def _compile(name: str, csrc: Path = _CSRC) -> Tuple[float, str]:
     """nvcc one source into its library. Returns (seconds, compiler log)."""
-    so = _so_path(name)
+    so = _so_path(name, csrc)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-I", str(_CSRC), "-o", str(tmp),
-           str(_CSRC / f"{name}.cu")]
+           "-Xptxas", "-v", "-I", str(csrc), "-o", str(tmp),
+           str(csrc / f"{name}.cu")]
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     secs = time.perf_counter() - t
@@ -78,27 +80,30 @@ def _compile(name: str) -> Tuple[float, str]:
     return secs, log
 
 
-def build(names: Optional[Iterable[str]] = None
+def build(names: Optional[Iterable[str]] = None, csrc: Path = _CSRC
           ) -> Dict[str, Tuple[float, str]]:
-    """Build the named kernels (all by default) that are not on disk yet,
-    one nvcc each, in parallel. Returns {name: (seconds, compiler log)}
-    for the sources compiled now."""
-    todo = [n for n in (names or KERNELS) if not _so_path(n).exists()]
+    """Build the named kernels (all by default) from the sources in
+    ``csrc`` that are not on disk yet, one nvcc each, in parallel. Returns
+    {name: (seconds, compiler log)} for the sources compiled now."""
+    csrc = Path(csrc)
+    todo = [n for n in (names or KERNELS) if not _so_path(n, csrc).exists()]
     if not todo:
         return {}
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:
-        return dict(zip(todo, pool.map(_compile, todo)))
+        return dict(zip(todo, pool.map(lambda n: _compile(n, csrc), todo)))
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if need be."""
+def library(name: str, csrc: Path = _CSRC) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` built from the sources in
+    ``csrc``, built first if need be."""
     if name not in _SIGNATURES:
         raise KeyError(f"no CUDA kernel named {name!r}")
-    so = _so_path(name)
+    csrc = Path(csrc)
+    so = _so_path(name, csrc)
     if not so.exists():
-        build([name])
+        build([name], csrc)
     lib = ctypes.CDLL(str(so))
     fn = getattr(lib, name)
     fn.argtypes = _SIGNATURES[name]

@@ -262,6 +262,156 @@ def test_bwd_kernel_degenerate_conics(dev):
                  tol=(0.2, 0.2) + (BWD_SCALED_TOL,) * 7)
 
 
+def _small_splats(seed, k=512, opaque=False):
+    """Many splats per tile of 2 to 10 pixels each (radius 0.8 to 1.8 px
+    at the culls' threshold, some slanted), so most warps skip most
+    entries. ``opaque`` ones (opacity 0.999, K entries in every tile, each
+    within 0.02 px of a pixel centre: every pixel once in a random order,
+    then again) drive the tiles to the early exit."""
+    rng = np.random.default_rng(seed)
+    tile, tw, th = 16, 2, 2
+    t = tw * th
+    counts = (np.full((2, t), k, np.int32) if opaque else
+              rng.integers(k // 2, k + 1, size=(2, t)).astype(np.int32))
+    ent = np.zeros((2, t, k, 9), np.float32)
+    shape = (2, t, k)
+    ti = np.arange(t)[None, :, None]
+    if opaque:
+        pix = np.concatenate([rng.permuted(np.tile(
+            np.arange(tile * tile), (2, t, 1)), axis=-1)
+            for _ in range(k // (tile * tile))], axis=-1)
+        local_x = pix % tile + 0.5 + rng.uniform(-0.02, 0.02, shape)
+        local_y = pix // tile + 0.5 + rng.uniform(-0.02, 0.02, shape)
+    else:
+        local_x = rng.uniform(-1, tile + 1, shape)
+        local_y = rng.uniform(-1, tile + 1, shape)
+    ent[..., 0] = (ti % tw) * tile + local_x
+    ent[..., 1] = (ti // tw) * tile + local_y
+    op = np.full(shape, 0.999) if opaque else rng.uniform(0.3, 0.99, shape)
+    rad = rng.uniform(0.8, 1.8, shape)
+    a = 2.0 * np.log(255.0 * op) / rad ** 2
+    ent[..., 2] = a
+    ent[..., 3] = rng.uniform(-0.3, 0.3, shape) * a
+    ent[..., 4] = a * rng.uniform(0.7, 1.3, shape)
+    ent[..., 5:8] = rng.uniform(0, 1, shape + (3,))
+    ent[..., 8] = op
+    past = np.arange(k)[None, None] >= counts[..., None]
+    ent[past] = 0.0
+    return torch.from_numpy(ent), torch.from_numpy(counts)
+
+
+def _check_done(ent, counts, done, tile, tw, th):
+    """The early exit processed the batches the plain transmittance asks
+    for, in every tile not within rounding of the threshold."""
+    want, near = comp.done_plain(ent.cpu(), counts.cpu(), tile, tw, th)
+    ok = (done.long() == want) | near
+    assert bool(ok.all()), (done[~ok], want[~ok])
+
+
+@pytest.mark.parametrize("opaque", [False, True],
+                         ids=["translucent", "opaque"])
+def test_kernels_small_splats(dev, opaque):
+    """Splats of a few pixels, where each warp walks few of a batch's
+    entries: the forward within 1e-4 of plain with the plain early exit,
+    the backward within 2e-3 scaled."""
+    ent, counts = _small_splats(11 + opaque, k=1024 if opaque else 512,
+                                opaque=opaque)
+    box = comp.cull_boxes_plain(ent, 16, 2, 2)
+    area = ((box[..., 1] - box[..., 0] + 1) * (box[..., 3] - box[..., 2] + 1)
+            * (box[..., 0] <= box[..., 1]))
+    assert float(area.float().mean()) < 40          # small boxes
+    _, done = _compare(ent, counts, 32, 32, 16, 2, 2, dev)
+    _check_done(ent, counts, done, 16, 2, 2)
+    if opaque:
+        assert int(done.max()) < 8                  # the exit fired
+    _compare_bwd(ent, counts, 32, 32, 16, 2, 2, dev, seed=3)
+
+
+def _adversarial_entries():
+    """Small splats mixed, slot by slot, with near-degenerate conics,
+    non-finite means and conics, NaN opacities, and splats far off the tile
+    (1e6 px away): every box rule at once."""
+    ent, counts = _small_splats(21, k=384)
+    e = ent.numpy().copy()
+    rng = np.random.default_rng(22)
+    kind = rng.integers(0, 4, size=e.shape[:3])
+    live = np.arange(e.shape[2])[None, None] < counts.numpy()[..., None]
+    degen = (kind == 1) & live
+    s = rng.uniform(1e2, 1e4, int(degen.sum()))
+    e[degen, 2] = s
+    e[degen, 3] = -s * rng.uniform(0.999999, 1.0, s.size)
+    e[degen, 4] = s
+    bad = (kind == 2) & live
+    attr = rng.choice([0, 1, 2, 3, 4, 8], size=int(bad.sum()))
+    vals = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                      size=attr.size)
+    vals[attr == 8] = np.nan        # an infinite opacity would fill a tile
+    rows = np.argwhere(bad)
+    e[rows[:, 0], rows[:, 1], rows[:, 2], attr] = vals
+    far = (kind == 3) & live
+    e[far, 0] += rng.choice([-1e6, 1e6], int(far.sum()))
+    return torch.from_numpy(e), counts, torch.from_numpy(bad)
+
+
+def test_kernels_adversarial_entries(dev):
+    """Degenerate, non-finite and far-away entries among ordinary ones: the
+    forward within 1e-4 of plain with the plain early exit; the backward
+    finite, zero for the entries with a non-finite attribute (culled at
+    every pixel), and within 2e-3 scaled of plain elsewhere (the plain
+    version's autograd gives those entries NaN: 0 times a NaN falloff).
+    The mean gradients of degenerate conics cancel to 1e-6 of their terms
+    and are held to 0.2, as in test_bwd_kernel_degenerate_conics."""
+    ent, counts, bad = _adversarial_entries()
+    _, done = _compare(ent, counts, 32, 32, 16, 2, 2, dev)
+    _check_done(ent, counts, done, 16, 2, 2)
+    e, cnt = ent.to(dev), counts.to(dev)
+    rgb, _, tfin, done = comp.composite_tiles_cuda(e, cnt, 32, 32, 16, 2, 2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g_rgb = torch.randn((2, 32, 32, 3), generator=gen, device=dev)
+    g_alpha = torch.randn((2, 32, 32), generator=gen, device=dev)
+    got = comp.composite_tiles_bwd_cuda(e, cnt, rgb, tfin, done, g_rgb,
+                                        g_alpha, 32, 32, 16, 2, 2).cpu()
+    want = comp.composite_tiles_bwd_plain(e, cnt, done, g_rgb, g_alpha, 32,
+                                          32, 16, 2, 2).cpu()
+    assert bool(torch.isfinite(got).all())
+    assert float(got[bad].abs().max()) == 0.0
+    keep = ~bad
+    assert bool(torch.isfinite(want[keep]).all())
+    for a, tol in enumerate((0.2, 0.2) + (BWD_SCALED_TOL,) * 7):
+        scale = max(float(want[keep][:, a].abs().max()), 1e-6)
+        err = float((got[keep][:, a] - want[keep][:, a]).abs().max()) / scale
+        assert err <= tol, (a, err)
+
+
+@pytest.mark.parametrize("n_full", [1, 3])
+def test_kernels_partial_last_batch(dev, n_full):
+    """128 * n + 1 entries in a tile, in a K that is not a multiple of 4
+    (unaligned batches, staged 4 bytes at a time): the double buffer's last
+    batch holds one entry; tiles of 129 and 1 entries beside it."""
+    k = 128 * n_full + 1
+    ent, counts = _small_splats(31 + n_full, k=k)
+    counts = counts.clone()
+    counts[0, 0], counts[0, 1], counts[1, 0], counts[1, 1] = k, 129, 1, 0
+    live = torch.arange(k)[None, None] < counts[..., None]
+    ent = ent * live[..., None]
+    _, done = _compare(ent, counts, 32, 32, 16, 2, 2, dev)
+    _check_done(ent, counts, done, 16, 2, 2)
+    assert int(done[0]) == n_full + 1 and int(done[1]) == 2
+    _compare_bwd(ent, counts, 32, 32, 16, 2, 2, dev, seed=n_full)
+
+
+@pytest.mark.parametrize("tile,h,w,k", [(12, 30, 40, 200),
+                                         (20, 44, 37, 160)])
+def test_kernels_tile_not_multiple_of_footprint(dev, tile, h, w, k):
+    """Tiles of 12 and 20 pixels: the 8x4 warp footprints overhang the
+    tile, and their phantom lanes take no part in the early exit and write
+    nothing."""
+    ent, counts, tw, th = _random_entries(tile, h, w, k)
+    _, done = _compare(ent, counts, h, w, tile, tw, th, dev)
+    _check_done(ent, counts, done, tile, tw, th)
+    _compare_bwd(ent, counts, h, w, tile, tw, th, dev, seed=tile)
+
+
 def test_composite_autograd_launches_both_kernels(dev):
     ent, counts = _case_entries("multichunk")
     e = ent.to(dev).requires_grad_(True)

@@ -265,6 +265,40 @@ def test_composite_bwd_plain_matches_pallas_bwd_kernel():
         _assert_scaled(got[..., a], want[..., a], f"attribute {a}")
 
 
+@pytest.mark.parametrize("case", ["random", "wall"])
+def test_done_plain_matches_pallas_fwd_done(case):
+    """`done_plain` (what the CUDA forward's early exit is held to) against
+    the Pallas `_fwd_kernel`'s own `done`: every batch of random entries,
+    and the opaque wall's tiles stopping after their first batch."""
+    if case == "random":
+        ent, counts = _random_entries(4, 2, 2, 2, 16, 256)
+    else:
+        args = list(_opaque_wall())
+        args[5] = np.tile(args[5], (2, 1, 1))
+        args[6] = np.tile(args[6], (2, 1, 1))
+        ent_t, cnt_t, _ = tr.tile_entries(*[torch.from_numpy(a)
+                                            for a in args], 32, 32, 1, 16,
+                                          9, 1024)
+        ent, counts = ent_t.numpy(), cnt_t.numpy()
+    c, t = counts.shape
+    e = jnp.asarray(ent)
+    attr = jpc._pack_attr(e[..., 0:2].reshape(c * t, -1, 2),
+                          e[..., 2:5].reshape(c * t, -1, 3),
+                          e[..., 5:8].reshape(c * t, -1, 3),
+                          e[..., 8].reshape(c * t, -1), 128)
+    _, _, want = jpc._run_fwd(attr, jnp.asarray(counts).reshape(-1), 16, 2,
+                              2, 128)
+    got, near = tc.done_plain(torch.from_numpy(ent),
+                              torch.from_numpy(counts), 16, 2, 2)
+    assert not bool(near.any())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    batches = (counts.reshape(-1) + 127) // 128
+    if case == "wall":
+        assert bool((got.numpy() == 1).all()) and int(batches.min()) > 1
+    else:
+        np.testing.assert_array_equal(got.numpy(), batches)
+
+
 def test_composite_tiles_cpu_is_differentiable_plain():
     """On the CPU `composite_tiles` is the plain version, and autograd
     through it gives `composite_tiles_bwd_plain` where every batch ran."""
