@@ -18,20 +18,25 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      iterations), init_3dgs, render_3dgs_original and an 8-view
      render_3dgs along the path from the first to the last camera, with
      every kernel's launch count set to 0 just before and read just after;
-  3. holds the forward compositing kernel against its plain PyTorch version
-     on the card, on the entries of the real render and on two small scenes
-     (an opaque wall that stops every tile early, a scene with several
-     batches per tile), its `done` against the plain early exit
-     (`done_plain`), and times both;
+  3. holds the forward compositing kernel, on both of its routes (the
+     rasterizer's packed route, which gathers each entry's row as it stages
+     it, and the entries route on the standalone gather's output), against
+     its plain PyTorch version on the card, on the real render's inputs and
+     on two small scenes (an opaque wall that stops every tile early, a
+     scene with several batches per tile), its `done` against the plain
+     early exit (`done_plain`), and times the packed route and the plain
+     version;
   4. drives the training path on the same scene: Scene.run_3dgs_optim for
      TRAIN_STEPS steps with MCMC pruning (refines at steps 100, 150, 200),
      the launch counts set to 0 just before and read just after, then the
      6 original and 8 novel views again;
-  5. holds the backward compositing kernel against its plain version (the
-     autograd gradient of the plain forward) on the trained scene's entries
-     with the real loss's pixel gradients, and on the two small scenes; and
-     the entry-gather kernel against ``packed[gidx] * valid``; times each,
-     with the gather's library call ``packed[gidx]``;
+  5. holds the backward compositing kernel on both routes against its
+     plain version (the autograd gradient of the plain forward; on the
+     packed route ``index_add_``-ed into the projected table) on the
+     trained scene with the real loss's pixel gradients, and on the two
+     small scenes; and the standalone entry-gather kernel against
+     ``packed[gidx] * valid``; times each, with the gather's library call
+     ``packed[gidx]``;
   6. checks that every output is finite and shaped as expected, that the
      loss fell, that no non-finite gradient came out of the backward kernel
      or the gather's backward and no trained parameter is non-finite, and
@@ -39,7 +44,15 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      stages of five more training steps (CUDA events that splat.train
      records around its stages) and the kernels of five more
      (torch.profiler);
-  7. with --parent-csrc, the compositing kernels of another revision of
+  7. `[fused]`: on the render's inputs and the trained scene, the packed
+     routes against the unfused chains they replace, in one process, in
+     turns (`device_ms` and CUDA events): the gather and the entries-route
+     forward against the packed forward (rgb, alpha, T_fin and done equal bit for bit); the
+     backward's zero fill, entries route, mask and ``index_add_`` against
+     the packed backward and its zeroed table (within 1e-6 per attribute);
+     and one training step on each route (the same state and bins): its
+     peak device memory and, under torch.profiler, its device-busy time;
+  8. with --parent-csrc, the compositing kernels of another revision of
      starst3r_tpu_torch/csrc (a parent commit's, unpacked with git
      archive), built with the same nvcc line, held to these and timed
      beside them in turns on the render's and the trained scene's entries.
@@ -49,6 +62,20 @@ compositing kernels the (pixel, entry) pairs inside the entries' cull
 boxes, each entry's box, and the pairs that pass the culls
 (`bound_ms`); the same over every pair of the batches walked is
 `bound_ms_walked`, the figure kernels that walk every pair are held to.
+The compositing kernels' rows on the `kernels` line are their packed
+routes, the ones the main path launches: their bytes count each entry
+walked as its 4-byte index and its 36-byte row (and, for the backward,
+36 bytes of reduction adds per entry that contributed), and
+`bytes_sector` counts each row as the two 32-byte sectors it spans. A
+kernel's `ms` (and `library_ms`) is device time per call: CUDA events
+around a loop of calls queued behind a spin kernel that holds the stream
+until the host has queued them all (`device_ms`), so every kernel the call
+launches counts (the backward's includes the zero fill of its output) and
+the host's launch pace does not; `ms_events` beside it is the CUDA-event
+time per call of the same loop unqueued, which counts the pace too;
+`plain_ms` is CUDA-event time. torch.profiler only breaks times down and
+sums a training step's device-busy time; where its trace holds no device
+time those figures read "not measured" and nothing fails.
 
 It prints the per-stage seconds, the Gaussian and coverage counts, the
 training line, a line `{"kernels": [...]}` and, last,
@@ -79,6 +106,10 @@ REFINE_START, REFINE_EVERY = 100, 50
 # tensor cores operations/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# the packed routes against the unfused chains: the same per-entry sums,
+# added into the table's rows in another order
+FUSED_SCALED_TOL = 1e-6
+ROW_BYTES, ROW_SECTOR_BYTES, INDEX_BYTES = 36, 64, 4
 # float32 operations per (pixel, entry) pair, counted from the kernels' code
 # (csrc/composite_common.cuh, composite_fwd.cu, composite_bwd.cu). Both
 # kernels take the falloff and the culls for every pair of the batches they
@@ -254,6 +285,81 @@ def small_scene(kind, seed=0):
                                                          height=32)
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms():
+    """The card's `torch.cuda._sleep` cycles per millisecond, measured once
+    with CUDA events over a 2M-cycle spin."""
+    import torch
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)            # warm
+        start.record()
+        torch.cuda._sleep(2_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(2_000_000 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, reps, warmup=2):
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls
+    queued behind a spin kernel (`torch.cuda._sleep`) that holds the stream
+    until the host has queued them all, so the card runs them back to back
+    and the host's launch pace does not count. The spin is lengthened until
+    it is still running when the host has queued the last call (an event
+    recorded after it has not completed); ``fn`` must not synchronise."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(6):
+        torch.cuda._sleep(int((2 * queue_ms + 1.0) * sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        queue_ms *= 2
+    raise CheckFailed(f"device_ms: the host did not queue {reps} calls "
+                      "within the spin; the timed function synchronises")
+
+
+def profiled_ms(fn, reps, tries=2):
+    """The device time of every kernel ``fn`` launches (memsets and copies
+    included), summed by torch.profiler over ``reps`` calls and divided by
+    ``reps``: (ms, {kernel name: ms}), or (None, {}) when the trace holds no
+    device time in any of ``tries`` sessions. What it breaks down or sums is
+    reported, never checked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {ev.key: getattr(ev, "self_device_time_total", 0.0)
+                     / 1e3 / reps for ev in prof.key_averages()
+                     if str(ev.device_type).endswith("CUDA")}
+        if sum(by_kernel.values()) > 0:
+            return sum(by_kernel.values()), by_kernel
+    return None, {}
+
+
 def cuda_ms(fn, reps, warmup=2):
     import torch
     for _ in range(warmup):
@@ -275,7 +381,9 @@ def pair_counts(entries, counts, done, tile, tw, th):
     entry) pairs of those batches ("walked"), those inside the entries'
     cull boxes (`cull_boxes_plain`, "in_boxes") and those whose falloff
     passes the culls (sigma >= 0, alpha > 1/255) by the plain version's
-    arithmetic ("passing"); and the (warp, entry) pairs of the walked
+    arithmetic ("passing"), and the entries with a passing pixel
+    ("contributing": the packed backward's reduction adds); and the (warp,
+    entry) pairs of the walked
     entries, all of them and those whose box meets the warp's footprint
     (the bits the per-warp masks set), and the longest and the mean walk
     of a warp through its tile's entries, beside the most entries a tile
@@ -308,7 +416,7 @@ def pair_counts(entries, counts, done, tile, tw, th):
                                        for q in range(n_warps))], 1)
     pix_x, pix_y = comp._tile_pix(tw, th, tile, e.device)
     pix_x, pix_y = pix_x.repeat(c, 1)[:, None], pix_y.repeat(c, 1)[:, None]
-    passing = 0
+    passing = contributing = 0
     for s in range(0, int(walked.max()) if walked.numel() else 0,
                    comp.BATCH):
         act = torch.nonzero(walked > s).squeeze(1)
@@ -319,11 +427,13 @@ def pair_counts(entries, counts, done, tile, tw, th):
         sigma = (0.5 * (ch[:, :, 2:3] * dx * dx + ch[:, :, 4:5] * dy * dy)
                  + ch[:, :, 3:4] * dx * dy)
         alpha = ch[:, :, 8:9] * torch.exp(-torch.clamp(sigma, 0.0, 50.0))
-        passing += int((inside & (sigma >= 0.0)
-                        & (alpha > 1.0 / 255.0)).sum())
+        hit = inside & (sigma >= 0.0) & (alpha > 1.0 / 255.0)
+        passing += int(hit.sum())
+        contributing += int(hit.any(-1).sum())
     n_entries = int(walked.sum())
     return {"entries": n_entries, "walked": n_entries * tile * tile,
             "in_boxes": int((area * nonempty).sum()), "passing": passing,
+            "contributing": contributing,
             "warp_pairs": n_entries * n_warps,
             "warp_pairs_set": int((warps * nonempty).sum()),
             "warp_walk_max": int(walk.max()),
@@ -350,17 +460,45 @@ def work(pairs, pass_ops):
             + tail, FALLOFF_OPS * pairs["walked"] + tail)
 
 
-def composite_case(name, entries, counts, h, w, tile, tw, th, timed):
-    """Kernel against the plain version on one input. Returns the errors
-    and, when ``timed``, the two times and the work the data needs."""
+def case_inputs(packed, gidx, valid, counts, h, w, tile, tw, th):
+    """One compositing input in both forms: the projected table and the
+    binning's indices (the packed routes), and the entries the gather
+    gives (the entries routes and the plain versions)."""
+    from starst3r_tpu_torch.splat import gather as gat
+    return dict(packed=packed.detach().contiguous(), gidx=gidx,
+                valid=valid, counts=counts,
+                entries=gat.gather_entries_plain(packed.detach(), gidx,
+                                                 valid),
+                h=h, w=w, tile=tile, tw=tw, th=th)
+
+
+def geometry(x):
+    return x["h"], x["w"], x["tile"], x["tw"], x["th"]
+
+
+def run_fwd(x, route):
+    """One launch of the forward kernel's route on input ``x``: rgb,
+    alpha, tfin, done."""
+    from starst3r_tpu_torch.splat import composite as comp
+    if route == "packed":
+        return comp.composite_packed_cuda(x["packed"], x["gidx"], x["counts"],
+                                          *geometry(x))
+    return comp.composite_tiles_cuda(x["entries"], x["counts"], *geometry(x))
+
+
+def composite_case(name, x, route, timed):
+    """A forward route against the plain version on one input. Returns
+    the errors and, when ``timed``, the two times and the work the data
+    needs."""
     import torch
     from starst3r_tpu_torch.splat import composite as comp
+    from starst3r_tpu_torch.splat import gather as gat
 
-    rgb_k, a_k, tfin, done = comp.composite_tiles_cuda(entries, counts, h,
-                                                       w, tile, tw, th)
+    entries, counts = x["entries"], x["counts"]
+    h, w, tile, tw, th = geometry(x)
+    rgb_k, a_k, tfin, done = run_fwd(x, route)
     torch.cuda.synchronize()
-    rgb_p, a_p = comp.composite_tiles_plain(entries, counts, h, w, tile, tw,
-                                            th)
+    rgb_p, a_p = comp.composite_tiles_plain(entries, counts, *geometry(x))
     d_rgb = (rgb_k - rgb_p).abs()
     d_a = (a_k - a_p).abs()
     err = max(float(d_rgb.max()), float(d_a.max()))
@@ -376,29 +514,46 @@ def composite_case(name, entries, counts, h, w, tile, tw, th, timed):
         c, t = counts.shape
         p = tile * tile
         pairs = pair_counts(entries, counts, done, tile, tw, th)
-        out["bytes"] = (pairs["entries"] * 36 + c * t * 4        # reads
-                        + c * h * w * 16 + c * t * (p + 1) * 4)  # writes
+        writes = c * t * 4 + c * h * w * 16 + c * t * (p + 1) * 4
+        out["bytes"] = pairs["entries"] * (INDEX_BYTES + ROW_BYTES) + writes
+        out["bytes_sector"] = (pairs["entries"]
+                               * (INDEX_BYTES + ROW_SECTOR_BYTES) + writes)
         out["ops"], out["ops_walked"] = work(pairs, BLEND_OPS)
         out["pairs"] = pairs
-        out["ms"] = cuda_ms(lambda: comp.composite_tiles_cuda(
-            entries, counts, h, w, tile, tw, th), reps=50)
+        out["ms"] = device_ms(lambda: run_fwd(x, route), reps=50)
+        out["ms_events"] = cuda_ms(lambda: run_fwd(x, route), reps=50)
         out["plain_ms"] = cuda_ms(lambda: comp.composite_tiles_plain(
-            entries, counts, h, w, tile, tw, th), reps=5, warmup=1)
-    print(f"[kernel] composite_fwd {name}: max|kernel - plain| = {err:.3e} "
-          f"({n_over} values above {ATOL}), batches {out['batches']} of "
-          f"{out['batches_without_exit']} without the early exit, done as "
-          f"the plain early exit's in every tile ({n_near} within rounding "
-          "of the threshold)", flush=True)
+            gat.gather_entries_plain(x["packed"], x["gidx"], x["valid"]),
+            counts, *geometry(x)), reps=5, warmup=1)
+    print(f"[kernel] composite_fwd ({route} route) {name}: max|kernel - "
+          f"plain| = {err:.3e} ({n_over} values above {ATOL}), batches "
+          f"{out['batches']} of {out['batches_without_exit']} without the "
+          f"early exit, done as the plain early exit's in every tile "
+          f"({n_near} within rounding of the threshold)", flush=True)
     check(err <= ATOL, f"{name}: kernel disagrees with the plain version "
           f"({err:.3e} > {ATOL})")
     return out
 
 
-def check_composite_kernel(stt, scene, dev):
-    """composite_fwd on the real render's entries and on the two small
-    scenes. Returns the cases and the render's inputs."""
+def small_inputs(kind, dev):
+    """A small scene's compositing input at its own budgets."""
     import torch
-    from starst3r_tpu_torch.splat.rasterize import tile_entries
+    from starst3r_tpu_torch.splat.rasterize import _project_and_bin
+    args, kw = small_scene(kind)
+    t_args = [torch.as_tensor(a, device=dev) for a in args]
+    packed, gidx, valid, counts, _ = _project_and_bin(
+        *t_args, kw["width"], kw["height"], 1, 16,
+        kw["max_tiles_per_gaussian"], kw["max_per_tile"], None)
+    return case_inputs(packed, gidx, valid, counts, kw["height"],
+                       kw["width"], 16, 2, 2)
+
+
+def check_composite_kernel(stt, scene, dev):
+    """composite_fwd, both routes, on the real render's inputs and on the
+    two small scenes. Returns the timed packed case of the render and the
+    render's inputs."""
+    import torch
+    from starst3r_tpu_torch.splat.rasterize import _project_and_bin
     from starst3r_tpu_torch.splat.train import render_inputs
 
     cfg = scene.config.splat
@@ -408,26 +563,24 @@ def check_composite_kernel(stt, scene, dev):
     gauss = render_inputs(scene.gs_state.params, cfg, scene.gs_state.n_alive)
     w2c = torch.as_tensor(scene.w2c, dtype=torch.float32, device=dev)
     Ks = torch.as_tensor(scene.intrinsics, dtype=torch.float32, device=dev)
-    ent, counts, _ = tile_entries(*gauss, w2c, Ks, w, h, cfg.sh_degree, tile,
-                                  cfg.max_tiles_per_gaussian,
-                                  cfg.max_per_tile)
-    cases = [composite_case("render", ent, counts, h, w, tile, tw, th,
-                            timed=True)]
+    packed, gidx, valid, counts, _ = _project_and_bin(
+        *gauss, w2c, Ks, w, h, cfg.sh_degree, tile,
+        cfg.max_tiles_per_gaussian, cfg.max_per_tile, None)
+    render_in = case_inputs(packed, gidx, valid, counts, h, w, tile, tw, th)
+    cases = [composite_case("render", render_in, "packed", timed=True),
+             composite_case("render", render_in, "entries", timed=False)]
     for kind in ("wall", "multi"):
-        args, kw = small_scene(kind)
-        t_args = [torch.as_tensor(a, device=dev) for a in args]
-        ent_s, cnt_s, _ = tile_entries(
-            *t_args, kw["width"], kw["height"], 1, 16,
-            kw["max_tiles_per_gaussian"], kw["max_per_tile"])
-        case = composite_case(kind, ent_s, cnt_s, kw["height"], kw["width"],
-                              16, 2, 2, timed=False)
-        if kind == "wall":
-            check(case["batches"] < case["batches_without_exit"],
-                  "the opaque wall did not stop early")
-        else:
-            check(int(cnt_s.max()) > 128, "no tile has several batches")
-        cases.append(case)
-    return cases, (ent, counts, h, w, tile, tw, th)
+        x = small_inputs(kind, dev)
+        for route in ("packed", "entries"):
+            case = composite_case(kind, x, route, timed=False)
+            if kind == "wall":
+                check(case["batches"] < case["batches_without_exit"],
+                      "the opaque wall did not stop early")
+            else:
+                check(int(x["counts"].max()) > 128,
+                      "no tile has several batches")
+            cases.append(case)
+    return cases, render_in
 
 
 def bound(n_bytes, n_ops):
@@ -437,28 +590,37 @@ def bound(n_bytes, n_ops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def launch_counters():
+    """{exported kernel function: the wrapper that counts its launches}."""
+    from starst3r_tpu_torch.splat import composite as comp, gather as gat
+    return {"composite_fwd_packed": comp.composite_packed_cuda,
+            "composite_bwd_packed": comp.composite_packed_bwd_cuda,
+            "composite_fwd": comp.composite_tiles_cuda,
+            "composite_bwd": comp.composite_tiles_bwd_cuda,
+            "gather_entries": gat.gather_entries_cuda}
+
+
 def set_launches(value=0):
     """Set every kernel's launch count, and the counts of non-finite
-    gradient elements out of the backward kernel and the gather's
+    gradient elements out of the backward kernel's routes and the gather's
     backward, to ``value``."""
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
-    comp.composite_tiles_cuda.launches = value
-    comp.composite_tiles_bwd_cuda.launches = value
-    gat.gather_entries_cuda.launches = value
+    for wrapper in launch_counters().values():
+        wrapper.launches = value
+    comp.CompositePacked.nonfinite = value
     comp.CompositeTiles.nonfinite = value
     gat.GatherEntries.nonfinite = value
 
 
 def read_launches():
-    from starst3r_tpu_torch.splat import composite as comp, gather as gat
-    return {"composite_fwd": comp.composite_tiles_cuda.launches,
-            "composite_bwd": comp.composite_tiles_bwd_cuda.launches,
-            "gather_entries": gat.gather_entries_cuda.launches}
+    return {name: wrapper.launches
+            for name, wrapper in launch_counters().items()}
 
 
 def read_nonfinite():
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
-    return {"composite_bwd": int(comp.CompositeTiles.nonfinite),
+    return {"composite_bwd_packed": int(comp.CompositePacked.nonfinite),
+            "composite_bwd": int(comp.CompositeTiles.nonfinite),
             "gather_backward": int(gat.GatherEntries.nonfinite)}
 
 
@@ -537,63 +699,96 @@ def profile_train_steps(scene, steps=5):
             kernels)
 
 
-def bwd_case(name, entries, counts, h, w, tile, tw, th, g_rgb, g_alpha,
-             timed):
-    """composite_bwd against composite_tiles_bwd_plain on one input, on
-    the forward kernel's outputs. Returns the scaled error and, when
-    ``timed``, the two times and the work the data needs."""
-    import torch
+def run_bwd(x, route, fwd_out, g_rgb, g_alpha):
+    """One launch of the backward kernel's route (its wrapper, zero fill
+    included) on the forward's outputs: grad_packed (C*N, 9) on the packed
+    route, grad_entries (C, T, K, 9) on the entries route."""
     from starst3r_tpu_torch.splat import composite as comp
+    rgb, _, tfin, done = fwd_out
+    if route == "packed":
+        return comp.composite_packed_bwd_cuda(
+            x["packed"], x["gidx"], x["counts"], rgb, tfin, done, g_rgb,
+            g_alpha, *geometry(x))
+    return comp.composite_tiles_bwd_cuda(x["entries"], x["counts"], rgb,
+                                         tfin, done, g_rgb, g_alpha,
+                                         *geometry(x))
 
-    rgb, _, tfin, done = comp.composite_tiles_cuda(entries, counts, h, w,
-                                                   tile, tw, th)
-    got = comp.composite_tiles_bwd_cuda(entries, counts, rgb, tfin, done,
-                                        g_rgb, g_alpha, h, w, tile, tw, th)
+
+def plain_bwd(x, route, done, g_rgb, g_alpha):
+    from starst3r_tpu_torch.splat import composite as comp
+    if route == "packed":
+        return comp.composite_packed_bwd_plain(
+            x["packed"], x["gidx"], x["counts"], done, g_rgb, g_alpha,
+            *geometry(x))
+    return comp.composite_tiles_bwd_plain(x["entries"], x["counts"], done,
+                                          g_rgb, g_alpha, *geometry(x))
+
+
+def scaled_errors(got, want):
+    """Per attribute (the last axis), max |got - want| over want's largest
+    magnitude."""
+    return [float((got[..., a] - want[..., a]).abs().max())
+            / max(float(want[..., a].abs().max()), 1e-12) for a in range(9)]
+
+
+def bwd_case(name, x, route, g_rgb, g_alpha, timed):
+    """A backward route against its plain version on one input, on the
+    forward kernel's outputs. Returns the scaled error and, when ``timed``,
+    the two times and the work the data needs."""
+    import torch
+
+    counts = x["counts"]
+    h, w, tile, tw, th = geometry(x)
+    fwd_out = run_fwd(x, route)
+    done = fwd_out[3]
+    got = run_bwd(x, route, fwd_out, g_rgb, g_alpha)
     torch.cuda.synchronize()
-    want = comp.composite_tiles_bwd_plain(entries, counts, done, g_rgb,
-                                          g_alpha, h, w, tile, tw, th)
+    want = plain_bwd(x, route, done, g_rgb, g_alpha)
     check(bool(torch.isfinite(got).all()), f"{name}: gradient not finite")
-    check_done(name, entries, counts, done, tile, tw, th)
-    errs = []
-    for a in range(9):
-        scale = max(float(want[..., a].abs().max()), 1e-12)
-        errs.append(float((got[..., a] - want[..., a]).abs().max()) / scale)
+    check_done(name, x["entries"], counts, done, tile, tw, th)
+    errs = scaled_errors(got, want)
     err = max(errs)
     out = {"case": name, "scaled_err": err,
            "max_abs_err": float((got - want).abs().max())}
     if timed:
         c, t = counts.shape
         p = tile * tile
-        pairs = pair_counts(entries, counts, done, tile, tw, th)
-        n_walked = pairs["entries"]
-        # reads: the entries walked, counts and done, T_fin, rgb and the
-        # two pixel gradients; writes: the walked entries' gradients (the
-        # rest of the output is the caller's zeros)
-        out["bytes"] = (n_walked * 36 + c * t * 8 + c * t * p * 4
-                        + c * h * w * (12 + 12 + 4) + n_walked * 36)
+        pairs = pair_counts(x["entries"], counts, done, tile, tw, th)
+        # reads: the entries walked (index and row), counts and done, T_fin,
+        # rgb and the two pixel gradients; writes: a reduction add of 36
+        # bytes into the table per entry that contributed (the rest of the
+        # table is the caller's zeros)
+        fixed = c * t * 8 + c * t * p * 4 + c * h * w * (12 + 12 + 4)
+        n_walked, n_added = pairs["entries"], pairs["contributing"]
+        out["bytes"] = (n_walked * (INDEX_BYTES + ROW_BYTES) + fixed
+                        + n_added * ROW_BYTES)
+        out["bytes_sector"] = (n_walked * (INDEX_BYTES + ROW_SECTOR_BYTES)
+                               + fixed + n_added * ROW_SECTOR_BYTES)
         out["ops"], out["ops_walked"] = work(pairs, BWD_PASS_OPS)
         out["pairs"] = pairs
-        out["ms"] = cuda_ms(lambda: comp.composite_tiles_bwd_cuda(
-            entries, counts, rgb, tfin, done, g_rgb, g_alpha, h, w, tile,
-            tw, th), reps=20)
-        out["plain_ms"] = cuda_ms(lambda: comp.composite_tiles_bwd_plain(
-            entries, counts, done, g_rgb, g_alpha, h, w, tile, tw, th),
-            reps=3, warmup=1)
-    print(f"[kernel] composite_bwd {name}: max scaled |kernel - plain| = "
-          f"{err:.3e} (per attribute {[f'{e:.1e}' for e in errs]}), max "
-          f"abs {out['max_abs_err']:.3e}", flush=True)
+        out["ms"] = device_ms(lambda: run_bwd(x, route, fwd_out, g_rgb,
+                                              g_alpha), reps=20)
+        out["ms_events"] = cuda_ms(lambda: run_bwd(x, route, fwd_out, g_rgb,
+                                                   g_alpha), reps=20)
+        out["plain_ms"] = cuda_ms(lambda: plain_bwd(x, route, done, g_rgb,
+                                                    g_alpha), reps=3,
+                                  warmup=1)
+    print(f"[kernel] composite_bwd ({route} route) {name}: max scaled "
+          f"|kernel - plain| = {err:.3e} (per attribute "
+          f"{[f'{e:.1e}' for e in errs]}), max abs "
+          f"{out['max_abs_err']:.3e}", flush=True)
     check(err <= BWD_SCALED_TOL, f"{name}: backward kernel disagrees with "
           f"the plain version ({err:.3e} > {BWD_SCALED_TOL})")
     return out
 
 
 def trained_inputs(scene, dev):
-    """The trained scene at the tile budgets training picks: the gather's
-    table and bins, and the real loss's pixel gradients of its render."""
+    """The trained scene at the tile budgets training picks: the
+    compositing input (the gather's table and bins, the gathered entries),
+    the bins, and the real loss's pixel gradients of its render."""
     import torch
     from starst3r_tpu_torch.ops.ssim import ssim_per_image
     from starst3r_tpu_torch.splat import composite as comp
-    from starst3r_tpu_torch.splat import gather as gat
     from starst3r_tpu_torch.splat import train as tr
     from starst3r_tpu_torch.splat.rasterize import (pack_attributes,
                                                     project_gaussians)
@@ -609,58 +804,53 @@ def trained_inputs(scene, dev):
     proj = project_gaussians(*tr.render_inputs(state.params, scfg,
                                                state.n_alive), w2c, Ks,
                              scfg.sh_degree)
-    packed = pack_attributes(proj)
-    entries = gat.gather_entries_plain(packed, bins.gidx, bins.ent_valid)
     tile = scfg.tile_size
     tw, th = -(-w // tile), -(-h // tile)
-    rgb, alpha, _, _ = comp.composite_tiles_cuda(entries, bins.counts, h, w,
-                                                 tile, tw, th)
+    x = case_inputs(pack_attributes(proj), bins.gidx, bins.ent_valid,
+                    bins.counts, h, w, tile, tw, th)
+    rgb, alpha, _, _ = comp.composite_tiles_cuda(x["entries"], bins.counts,
+                                                 h, w, tile, tw, th)
     gt = torch.as_tensor(np.stack(scene.imgs), dtype=torch.float32,
                          device=dev)
-    x = rgb.detach().requires_grad_(True)
+    rgb_x = rgb.detach().requires_grad_(True)
     f = cfg.loss_ssim_fac
-    loss = torch.sum(torch.mean(torch.abs(gt - x), dim=(1, 2, 3)) * (1 - f)
-                     + (1.0 - ssim_per_image(gt, x)) * f)
-    (g_rgb,) = torch.autograd.grad(loss, x)
-    return dict(scfg=scfg, bins=bins, packed=packed, entries=entries,
-                h=h, w=w, tile=tile, tw=tw, th=th,
+    loss = torch.sum(torch.mean(torch.abs(gt - rgb_x), dim=(1, 2, 3))
+                     * (1 - f) + (1.0 - ssim_per_image(gt, rgb_x)) * f)
+    (g_rgb,) = torch.autograd.grad(loss, rgb_x)
+    return dict(x=x, state=state, scfg=scfg, bins=bins, w2c=w2c, Ks=Ks, gt=gt,
                 g_rgb=g_rgb.contiguous(), g_alpha=torch.zeros_like(alpha))
 
 
 def check_bwd_kernel(real, dev):
-    """composite_bwd on the trained scene and the two small scenes."""
+    """composite_bwd, both routes, on the trained scene and the two small
+    scenes. Returns the timed packed case of the trained scene and every
+    case."""
     import torch
-    from starst3r_tpu_torch.splat.rasterize import tile_entries
 
-    cases = [bwd_case("trained", real["entries"], real["bins"].counts,
-                      real["h"], real["w"], real["tile"], real["tw"],
-                      real["th"], real["g_rgb"], real["g_alpha"],
-                      timed=True)]
+    cases = [bwd_case("trained", real["x"], route, real["g_rgb"],
+                      real["g_alpha"], timed=route == "packed")
+             for route in ("packed", "entries")]
     gen = torch.Generator(device=dev).manual_seed(0)
     for kind in ("wall", "multi"):
-        args, kw = small_scene(kind)
-        t_args = [torch.as_tensor(a, device=dev) for a in args]
-        ent_s, cnt_s, _ = tile_entries(
-            *t_args, kw["width"], kw["height"], 1, 16,
-            kw["max_tiles_per_gaussian"], kw["max_per_tile"])
-        c = cnt_s.shape[0]
-        g_rgb = torch.randn((c, kw["height"], kw["width"], 3),
-                            generator=gen, device=dev)
-        g_alpha = torch.randn((c, kw["height"], kw["width"]), generator=gen,
-                              device=dev)
-        cases.append(bwd_case(kind, ent_s, cnt_s, kw["height"], kw["width"],
-                              16, 2, 2, g_rgb, g_alpha, timed=False))
+        x = small_inputs(kind, dev)
+        c = x["counts"].shape[0]
+        g_rgb = torch.randn((c, x["h"], x["w"], 3), generator=gen,
+                            device=dev)
+        g_alpha = torch.randn((c, x["h"], x["w"]), generator=gen, device=dev)
+        cases += [bwd_case(kind, x, route, g_rgb, g_alpha, timed=False)
+                  for route in ("packed", "entries")]
     return cases
 
 
 def check_gather_kernel(real):
-    """gather_entries against packed[gidx] * valid on the trained scene;
-    times it, the plain version and the library's packed[gidx]."""
+    """The standalone gather_entries against packed[gidx] * valid on the
+    trained scene; times it, the plain version and the library's
+    packed[gidx]."""
     import torch
     from starst3r_tpu_torch.splat import gather as gat
 
-    packed, gidx, valid = (real["packed"], real["bins"].gidx,
-                           real["bins"].ent_valid)
+    x = real["x"]
+    packed, gidx, valid = x["packed"], x["gidx"], x["valid"]
     got = gat.gather_entries_cuda(packed, gidx, valid)
     torch.cuda.synchronize()
     want = gat.gather_entries_plain(packed, gidx, valid)
@@ -671,15 +861,178 @@ def check_gather_kernel(real):
     out = {"max_abs_err": err,
            "bytes": n_rows * 36 + gidx.numel() * (4 + 1) + got.numel() * 4,
            "ops": 0,
-           "ms": cuda_ms(lambda: gat.gather_entries_cuda(packed, gidx,
-                                                         valid), reps=50),
+           "ms": device_ms(lambda: gat.gather_entries_cuda(packed, gidx,
+                                                           valid), reps=50),
+           "ms_events": cuda_ms(lambda: gat.gather_entries_cuda(
+               packed, gidx, valid), reps=50),
            "plain_ms": cuda_ms(lambda: gat.gather_entries_plain(
                packed, gidx, valid), reps=20),
-           "library_ms": cuda_ms(lambda: packed[gidx], reps=20)}
+           "library_ms": device_ms(lambda: packed[gidx], reps=20)}
     print(f"[kernel] gather_entries on the trained scene: {tuple(gidx.shape)}"
           f" slots, {int(valid.sum())} valid, {n_rows} distinct rows; "
           f"max|kernel - plain| = {err}", flush=True)
     return out
+
+
+def unfused_composite(packed, gidx, counts, h, w, tile, tw, th, chunk=128):
+    """The chain the packed route replaced, with the packed route's
+    signature: the standalone gather (GatherEntries, backward an
+    index_add_) and the entries route (CompositeTiles)."""
+    from starst3r_tpu_torch.splat import composite as comp
+    from starst3r_tpu_torch.splat import gather as gat
+    entries = gat.gather_entries(packed, gidx, comp.slot_valid(gidx, counts))
+    return comp.composite_tiles(entries, counts, h, w, tile, tw, th, chunk)
+
+
+def in_turns(fns, reps):
+    """The device ms (`device_ms`) and the CUDA-event ms (`cuda_ms`, which
+    also counts the host's launch pace) of each named launcher, in turns
+    a, b, b, a, then each one's kernels under torch.profiler
+    (`profiled_ms`, empty where the trace holds no device time):
+    ({name: [ms, ms]}, {name: [ms, ms]}, {name: {kernel: ms}})."""
+    (na, fa), (nb, fb) = fns.items()
+    dev, events = {na: [], nb: []}, {na: [], nb: []}
+    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        dev[name].append(device_ms(fn, reps=reps))
+        events[name].append(cuda_ms(fn, reps=reps))
+    kernels = {name: profiled_ms(fn, reps=reps)[1]
+               for name, fn in ((na, fa), (nb, fb))}
+    return dev, events, kernels
+
+
+def fused_phase(render_in, real, dev):
+    """[fused]: the packed routes against the unfused chains they replace,
+    on the render's inputs and the trained scene, timed in turns (device
+    time from `device_ms`, and CUDA events), and one training step on
+    each route: its peak device memory and its device-busy time. Returns
+    the numbers."""
+    import importlib
+    import torch
+    from starst3r_tpu_torch.splat import composite as comp
+    from starst3r_tpu_torch.splat import gather as gat
+    from starst3r_tpu_torch.splat import train as tr
+    # the module: the package's `rasterize` is the function
+    rz = importlib.import_module("starst3r_tpu_torch.splat.rasterize")
+
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for case, x in (("render", render_in), ("trained", real["x"])):
+        geo = geometry(x)
+        fused = comp.composite_packed_cuda(x["packed"], x["gidx"],
+                                           x["counts"], *geo)
+        ent = gat.gather_entries_cuda(x["packed"], x["gidx"], x["valid"])
+        unfused = comp.composite_tiles_cuda(ent, x["counts"], *geo)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("rgb", "alpha", "tfin", "done"), fused,
+                              unfused):
+            check(torch.equal(a, b), f"[fused] {case}: the packed forward's "
+                  f"{name} differs from the gather and the entries route's")
+        fwd = in_turns({
+            "unfused": lambda: comp.composite_tiles_cuda(
+                gat.gather_entries_cuda(x["packed"], x["gidx"], x["valid"]),
+                x["counts"], *geo),
+            "fused": lambda: comp.composite_packed_cuda(
+                x["packed"], x["gidx"], x["counts"], *geo)}, reps=50)
+        if case == "trained":
+            g_rgb, g_alpha = real["g_rgb"], real["g_alpha"]
+        else:
+            c, h, w = x["counts"].shape[0], x["h"], x["w"]
+            g_rgb = torch.randn((c, h, w, 3), generator=gen, device=dev)
+            g_alpha = torch.randn((c, h, w), generator=gen, device=dev)
+        rows = x["packed"].shape[0]
+        valid9 = x["valid"][..., None]
+        flat = x["gidx"].reshape(-1)
+
+        def unfused_bwd():
+            grad = comp.composite_tiles_bwd_cuda(ent, x["counts"], unfused[0],
+                                                 unfused[2], unfused[3],
+                                                 g_rgb, g_alpha, *geo)
+            table = torch.zeros((rows, 9), device=dev)
+            return table.index_add_(0, flat, (grad * valid9).reshape(-1, 9))
+
+        def fused_bwd():
+            return comp.composite_packed_bwd_cuda(
+                x["packed"], x["gidx"], x["counts"], fused[0], fused[2],
+                fused[3], g_rgb, g_alpha, *geo)
+
+        got, want = fused_bwd(), unfused_bwd()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"[fused] {case}: the packed "
+              "backward's gradient is not finite")
+        errs = scaled_errors(got, want)
+        check(max(errs) <= FUSED_SCALED_TOL, f"[fused] {case}: the packed "
+              f"backward differs from the unfused chain by {max(errs):.3e} "
+              f"(scaled) > {FUSED_SCALED_TOL}")
+        bwd = in_turns({"unfused": unfused_bwd, "fused": fused_bwd}, reps=20)
+        res[case] = {"fwd": fwd, "bwd": bwd, "bwd_scaled_err": max(errs)}
+        for part, (dev_ms, ev_ms, kernels) in (("forward", fwd),
+                                               ("backward", bwd)):
+            print(f"[fused] {case} {part}: device ms unfused "
+                  f"{np.mean(dev_ms['unfused']):.4f} {dev_ms['unfused']}, "
+                  f"packed {np.mean(dev_ms['fused']):.4f} {dev_ms['fused']};"
+                  f" CUDA-event ms unfused {np.mean(ev_ms['unfused']):.4f} "
+                  f"{ev_ms['unfused']}, packed {np.mean(ev_ms['fused']):.4f}"
+                  f" {ev_ms['fused']}", flush=True)
+            for route, by in kernels.items():
+                print(f"[fused]   {case} {part} {route}, torch.profiler: "
+                      + ("; ".join(f"{ms:.4f} ms {name[:60]}"
+                                   for name, ms in sorted(
+                                       by.items(), key=lambda kv: -kv[1]))
+                         or "no device time in the trace: not measured"),
+                      flush=True)
+        print(f"[fused] {case}: the packed forward's rgb, alpha, T_fin and "
+              "done equal the gather + entries route's bit for bit; max "
+              f"scaled |packed - unfused| of the backward {max(errs):.3e}",
+              flush=True)
+
+    # one training step on each route, the same state and bins
+    state, scfg, bins = real["state"], real["scfg"], real["bins"]
+    x = real["x"]
+
+    def step():
+        tr.train_step(state, real["gt"], real["w2c"], real["Ks"], x["w"],
+                      x["h"], scfg, x["counts"].shape[0], bins=bins)
+
+    routes = {"unfused": unfused_composite, "fused": comp.composite_packed}
+    peak, busy, launched = {}, {}, {}
+    try:
+        for route in ("unfused", "fused", "fused", "unfused") * 2:
+            rz.composite_packed = routes[route]
+            step()                                  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            set_launches(0)
+            step()
+            torch.cuda.synchronize()
+            launched[route] = read_launches()
+            peak.setdefault(route, []).append(
+                torch.cuda.max_memory_allocated(dev) - base)
+            busy.setdefault(route, []).append(profiled_ms(step, reps=10)[0])
+    finally:
+        rz.composite_packed = comp.composite_packed
+    check(launched["fused"]["gather_entries"] == 0
+          and launched["fused"]["composite_bwd_packed"] == 1,
+          f"[fused] the packed step launched {launched['fused']}")
+    check(launched["unfused"]["gather_entries"] == 1
+          and launched["unfused"]["composite_bwd"] == 1,
+          f"[fused] the unfused step launched {launched['unfused']}")
+    res["step"] = {"peak_bytes": peak, "busy_ms": busy}
+    mib = {k: [round(b / 2**20, 3) for b in v] for k, v in peak.items()}
+    # a turn whose trace held no device time is None: not measured
+    busy_ms = {k: [None if b is None else round(b, 4) for b in v]
+               for k, v in busy.items()}
+    means = {k: round(float(np.mean(got)), 4) if got else None
+             for k, got in ((k, [b for b in v if b is not None])
+                            for k, v in busy.items())}
+    print(f"[fused] one training step (train_step on the trained scene's "
+          f"state and bins, {x['counts'].shape[0]} cameras), in turns "
+          f"(unfused, fused, fused, unfused) twice: peak device memory above "
+          f"the step's start {mib} MiB; device busy per step "
+          f"(torch.profiler, 10 steps a turn; None: no device time in the "
+          f"trace) {busy_ms} ms, means {means} ms; launches of the measured "
+          f"step {launched}", flush=True)
+    return res
 
 
 SIDE_BY_SIDE = ("composite_fwd", "composite_bwd")
@@ -738,9 +1091,8 @@ def side_by_side(parent_csrc, render_in, real):
     fns = {"parent": {n: getattr(kernels.library(n, parent_csrc), n)
                       for n in SIDE_BY_SIDE},
            "new": {n: getattr(kernels.library(n), n) for n in SIDE_BY_SIDE}}
-    trained = (real["entries"], real["bins"].counts, real["h"], real["w"],
-               real["tile"], real["tw"], real["th"])
-    for case, args in (("render", render_in), ("trained", trained)):
+    for case, x in (("render", render_in), ("trained", real["x"])):
+        args = (x["entries"], x["counts"]) + geometry(x)
         launchers = {side: raw_fwd(f["composite_fwd"], *args)
                      for side, f in fns.items()}
         for launch, _ in launchers.values():
@@ -860,9 +1212,10 @@ def main():
           f"{float(orig[1].mean()):.4f}, novel views "
           f"{float(novel[1].mean()):.4f}", flush=True)
     print(f"[launches] during the renders: {render_launches}", flush=True)
-    check(render_launches["composite_fwd"] > 0
-          and render_launches["gather_entries"] > 0,
-          "the renders did not launch the forward and gather kernels")
+    check(render_launches["composite_fwd_packed"] > 0,
+          "the renders did not launch the packed forward kernel")
+    check(render_launches["gather_entries"] == 0,
+          "the renders launched the standalone gather")
     check_outputs(scene, orig, novel, N_VIEWS, HW, N_NOVEL)
     print(f"[ga] second add_images: coarse / fine phase loss "
           f"{scene.reconstruction.losses}", flush=True)
@@ -900,8 +1253,11 @@ def main():
         want = grow_target(want, pool, mcfg)
     check(n1 == want, f"n_alive {n1} after training, grow_target gives "
           f"{want}")
-    for name, count in train_launches.items():
-        check(count > 0, f"training did not launch {name}")
+    for name in ("composite_fwd_packed", "composite_bwd_packed"):
+        check(train_launches[name] > 0, f"training did not launch {name}")
+    check(train_launches["gather_entries"] == 0
+          and after_launches["gather_entries"] == 0,
+          "training or the renders after it launched the standalone gather")
     check_outputs(scene, orig_t, novel_t, N_VIEWS, HW, N_NOVEL)
     print(f"[render] after training, mean alpha: original views "
           f"{float(orig_t[1].mean()):.4f}, novel views "
@@ -927,35 +1283,44 @@ def main():
           f"{real['scfg'].max_per_tile}", flush=True)
     bwd_cases = check_bwd_kernel(real, dev)
     gather = check_gather_kernel(real)
+    fused = fused_phase(render_in, real, dev)
     if args.parent_csrc:
         side_by_side(args.parent_csrc, render_in, real)
 
     kernels_line = []
-    # composite_bwd's error is the scaled one its tolerance is stated in:
-    # per attribute, max |kernel - plain| over the plain version's largest
-    # magnitude (the conic gradients of the trained scene reach 1e11)
-    rows = (("composite_fwd", "starst3r_tpu/splat/pallas_composite.py:107",
-             fwd_cases[0], max(c["max_abs_err"] for c in fwd_cases), None),
-            ("composite_bwd", "starst3r_tpu/splat/pallas_composite.py:159",
-             bwd_cases[0], max(c["scaled_err"] for c in bwd_cases), None),
-            ("gather_entries", "tools/probe_mosaic_gather.py:69", gather,
+    # K1's and K2's rows are their packed routes, the functions the main
+    # path launches. composite_bwd's error is the scaled one its tolerance
+    # is stated in: per attribute, max |kernel - plain| over the plain
+    # version's largest magnitude (the conic gradients of the trained scene
+    # reach 1e11). The gather's row is the standalone kernel, which the main
+    # path no longer launches.
+    rows = (("composite_fwd", "composite_fwd_packed",
+             "starst3r_tpu/splat/pallas_composite.py:107", fwd_cases[0],
+             max(c["max_abs_err"] for c in fwd_cases), None),
+            ("composite_bwd", "composite_bwd_packed",
+             "starst3r_tpu/splat/pallas_composite.py:159", bwd_cases[0],
+             max(c["scaled_err"] for c in bwd_cases), None),
+            ("gather_entries", "gather_entries",
+             "tools/probe_mosaic_gather.py:69", gather,
              gather["max_abs_err"], gather["library_ms"]))
-    for name, replaces, case, err, library_ms in rows:
+    for name, function, replaces, case, err, library_ms in rows:
         bound_ms, bound_by = bound(case["bytes"], case["ops"])
         walked_ms, _ = bound(case["bytes"], case.get("ops_walked", 0))
         pairs = case.get("pairs", {})
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": f"starst3r_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": train_launches[name],
+            "replaces": replaces, "launches": train_launches[function],
             "max_abs_err": err, "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
+            "function": function, "ms_events": case.get("ms_events"),
+            "bytes_sector": case.get("bytes_sector", case["bytes"]),
             "bound_ms_walked": walked_ms,
             "pairs_walked": pairs.get("walked"),
             "pairs_in_boxes": pairs.get("in_boxes"),
             "pairs_passing": pairs.get("passing")})
-        print(f"[kernel] {name}: {case['ms']:.4f} ms, plain "
+        print(f"[kernel] {name} ({function}): {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}"
               f" ms, bound {bound_ms:.4f} ms ({bound_by}: {case['bytes']} B,"

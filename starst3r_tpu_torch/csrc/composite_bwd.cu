@@ -46,9 +46,19 @@
 //     the batch adds, per gradient element, the sums of the warps still in
 //     the entry's set (in warp order) and writes the batch's gradients
 //     with coalesced stores. No zero is stored for a warp that did not
-//     contribute. One block owns its tile's slots, so no global atomics;
-//     slots the walk does not reach keep the zeros of the caller's
-//     torch.zeros output;
+//     contribute. On the entries route one block owns its tile's slots, so
+//     no global atomics; slots the walk does not reach keep the zeros of
+//     the caller's torch.zeros output;
+//   - on the rasterizer's route (composite_bwd_packed) the batches are
+//     staged from the projected table through the binning's indices, as
+//     the forward's packed route stages them (composite_common.cuh::
+//     PackedRows), and the epilogue is the entry gather's gradient: each
+//     sum goes straight into its table row with a global reduction add,
+//     for the entries some warp contributed to (~1.6M adds per training
+//     step instead of an index_add_ of every slot's 9 values, most of them
+//     zeros, and no (C*T, K, 9) gradient written, masked and read back).
+//     The order of the adds into a row is not fixed, as index_add_'s is
+//     not on the card;
 //   - the falloff and the culls come from composite_common.cuh, the same
 //     function the forward calls, so the backward culls exactly the
 //     entries the forward culled.
@@ -59,13 +69,16 @@
 // culls takes 53 more: the transmittance, colour prefix and alpha gradient
 // 20, the 9 gradient terms 24, the reduction's adds 9. Or the bytes (the
 // entries walked and their gradients, the pixel gradients, rgb, T_fin),
-// whichever is larger (chip_smoke.py counts both from the run's data).
+// whichever is larger (chip_smoke.py counts both from the run's data; on
+// the packed route an entry walked reads its 4-byte index and its 36-byte
+// row, and each contributing entry adds its 36 bytes into the table).
 //
-// Layouts: entries (C*T, K, 9) float32; counts, done (C*T,) int32; rgb
-// (C, H, W, 3) the forward's output; tfin (C*T, tile*tile) float32 from the
-// forward; grad_rgb (C, H, W, 3) and grad_alpha (C, H, W) float32 in image
-// layout. Output: grad_entries (C*T, K, 9) float32, zero-filled by the
-// caller.
+// Layouts: entries (C*T, K, 9) float32, or packed (C*N, 9) and gidx
+// (C*T, K) int32; counts, done (C*T,) int32; rgb (C, H, W, 3) the forward's
+// output; tfin (C*T, tile*tile) float32 from the forward; grad_rgb
+// (C, H, W, 3) and grad_alpha (C, H, W) float32 in image layout. Output:
+// grad_entries (C*T, K, 9), or grad_packed (C*N, 9), float32, zero-filled
+// by the caller.
 
 #include <cuda_runtime.h>
 
@@ -82,20 +95,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Dynamic shared memory, in floats: two batch buffers, the per-warp sums,
-// the per-warp masks and the per-entry warp sets.
-__host__ __device__ constexpr size_t smem_floats(int n_warps) {
+// Dynamic shared memory, in 4-byte words: two batch buffers, the per-warp
+// sums, the per-warp masks, the per-entry warp sets and the source's index
+// ring (16-byte aligned: every part before it is a multiple of 16 bytes).
+__host__ __device__ constexpr size_t smem_words(int n_warps, int ring) {
   return 2 * kBatch * kAttr + static_cast<size_t>(n_warps) * kBatch * kAttr +
-         static_cast<size_t>(n_warps) * kWords + kBatch;
+         static_cast<size_t>(n_warps) * kWords + kBatch + ring;
 }
 
+template <class Rows>
 __global__ void composite_bwd_kernel(
-    const float* __restrict__ entries, const int* __restrict__ counts,
+    Rows rows, const int* __restrict__ counts,
     const int* __restrict__ done, const float* __restrict__ rgb,
     const float* __restrict__ tfin,
     const float* __restrict__ grad_rgb, const float* __restrict__ grad_alpha,
-    float* __restrict__ grad_entries, int k, int tile, int tw, int th, int h,
-    int w) {
+    int k, int tile, int tw, int th, int h, int w) {
   extern __shared__ __align__(16) float smem[];
   const int n_warps = blockDim.x >> 5;
   float* sh = smem;                              // 2 x kBatch * kAttr
@@ -103,6 +117,7 @@ __global__ void composite_bwd_kernel(
   unsigned* mask = reinterpret_cast<unsigned*>(
       red + static_cast<size_t>(n_warps) * kBatch * kAttr);
   unsigned* warp_bits = mask + n_warps * kWords; // per entry: warps in it
+  int* ring = reinterpret_cast<int*>(warp_bits + kBatch);
 
   const int ct = blockIdx.x;
   const int t_per_cam = tw * th;
@@ -138,28 +153,18 @@ __global__ void composite_bwd_kernel(
 
   const int count = min(max(counts[ct], 0), k);
   const int n_batches = min(done[ct], (count + kBatch - 1) / kBatch);
-  const float* src = entries + static_cast<size_t>(ct) * k * kAttr;
-  float* dst = grad_entries + static_cast<size_t>(ct) * k * kAttr;
   float* my_red = red + static_cast<size_t>(warp) * kBatch * kAttr;
 
-  if (n_batches > 0) stage_batch(sh, src, min(kBatch, count));
+  rows.begin(ct, count, n_batches, sh, ring);
   for (int bt = 0; bt < n_batches; ++bt) {
     const int start = bt * kBatch;
     const int n = min(kBatch, count - start);
     const float* cur = sh + (bt & 1) * kBatch * kAttr;
-    // the buffer written here held batch bt - 1, whose readers (its masks
-    // and its walk) finished before the barrier ahead of its pass
-    if (bt + 1 < n_batches) {
-      stage_batch(sh + ((bt + 1) & 1) * kBatch * kAttr,
-                  src + static_cast<size_t>(start + kBatch) * kAttr,
-                  min(kBatch, count - start - kBatch));
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // the batch has landed, and the previous pass is done with red, the
-    // masks and the warp sets
-    __syncthreads();
+    // the buffer staged into here held batch bt - 1, whose readers (its
+    // masks and its walk) finished before the barrier ahead of its pass;
+    // after advance the batch has landed, and the previous pass is done
+    // with red, the masks, the warp sets and its indices
+    rows.advance(bt, sh + ((bt + 1) & 1) * kBatch * kAttr);
     build_masks(cur, n, tile, static_cast<float>(ox), static_cast<float>(oy),
                 lay.warps_x, n_warps, mask, warp_bits);
     __syncthreads();
@@ -206,26 +211,51 @@ __global__ void composite_bwd_kernel(
       }
     });
     __syncthreads();
-    float* bdst = dst + static_cast<size_t>(start) * kAttr;
     for (int i = threadIdx.x; i < n * kAttr; i += blockDim.x) {
       const int j = i / kAttr;
       unsigned bits = warp_bits[j];
+      if (Rows::kSkipsEmpty && bits == 0u) continue;
       float sum = 0.0f;
       while (bits != 0u) {
         const int q = __ffs(bits) - 1;
         bits &= bits - 1u;
         sum += red[(static_cast<size_t>(q) * kBatch) * kAttr + i];
       }
-      bdst[i] = sum;
+      rows.put(bt, j, i - j * kAttr, i, sum);
     }
   }
 }
 
+template <class Rows>
+int launch(Rows rows, const int* counts, const int* done, const float* rgb,
+           const float* tfin, const float* grad_rgb, const float* grad_alpha,
+           int n_tiles, int k, int tile, int tw, int th, int h, int w,
+           void* stream) {
+  if (n_tiles == 0) return static_cast<int>(cudaSuccess);
+  const int n_warps = warps_for(tile);
+  const size_t smem = smem_words(n_warps, Rows::kRingWords) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        composite_bwd_kernel<Rows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  composite_bwd_kernel<Rows><<<n_tiles, 32 * n_warps, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      rows, counts, done, rgb, tfin, grad_rgb, grad_alpha, k, tile, tw, th,
+      h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream); returns cudaGetLastError()
+// Launch on `stream` (PyTorch's current stream); return cudaGetLastError()
 // (or the error of raising the block's shared-memory limit) so the caller
 // can raise on a refused launch.
+//
+// The entries route: entries (C*T, K, 9) as the standalone gather
+// (gather_entries.cu) writes them; grad_entries (C*T, K, 9) zero-filled by
+// the caller.
 extern "C" int composite_bwd(const float* entries, const int* counts,
                              const int* done, const float* rgb,
                              const float* tfin,
@@ -233,18 +263,31 @@ extern "C" int composite_bwd(const float* entries, const int* counts,
                              float* grad_entries, int n_tiles, int k,
                              int tile, int tw, int th, int h, int w,
                              void* stream) {
-  if (n_tiles == 0) return static_cast<int>(cudaSuccess);
-  const int n_warps = warps_for(tile);
-  const size_t smem = smem_floats(n_warps) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  composite_bwd_kernel<<<n_tiles, 32 * n_warps, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      entries, counts, done, rgb, tfin, grad_rgb, grad_alpha, grad_entries, k,
-      tile, tw, th, h, w);
-  return static_cast<int>(cudaGetLastError());
+  EntryRows rows{};
+  rows.entries = entries;
+  rows.grad = grad_entries;
+  rows.k = k;
+  return launch(rows, counts, done, rgb, tfin, grad_rgb, grad_alpha, n_tiles,
+                k, tile, tw, th, h, w, stream);
+}
+
+// The packed route, the rasterizer's: rows staged from packed (C*N, 9)
+// through gidx (C*T, K) as the forward's packed route stages them, and the
+// entry gather's gradient scattered from the epilogue into grad_packed
+// (C*N, 9), zero-filled by the caller.
+extern "C" int composite_bwd_packed(const float* packed, const int* gidx,
+                                    const int* counts, const int* done,
+                                    const float* rgb, const float* tfin,
+                                    const float* grad_rgb,
+                                    const float* grad_alpha,
+                                    float* grad_packed, int n_tiles, int k,
+                                    int tile, int tw, int th, int h, int w,
+                                    void* stream) {
+  PackedRows rows{};
+  rows.packed = packed;
+  rows.gidx = gidx;
+  rows.grad = grad_packed;
+  rows.k = k;
+  return launch(rows, counts, done, rgb, tfin, grad_rgb, grad_alpha, n_tiles,
+                k, tile, tw, th, h, w, stream);
 }

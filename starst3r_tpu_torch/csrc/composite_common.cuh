@@ -12,6 +12,7 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace composite {
@@ -208,12 +209,14 @@ __device__ __forceinline__ void for_each_entry(const unsigned* warp_mask,
 
 // ---------------------------------------------------------------------------
 // Asynchronous staging (cp.async, sm_80+): every thread copies its share of
-// a batch's n * 9 floats from device to shared memory without passing
-// through registers, and commits them as one group; cp_async_wait<N> waits
-// until at most N of the thread's groups are still in flight. 16-byte
-// copies where the source is 16-byte aligned (tile ct's batch at `start`
-// begins (ct * K + start) * 36 bytes in: aligned whenever K % 4 == 0),
-// 4-byte ones otherwise and for the tail. `dst` must be 16-byte aligned.
+// a batch from device to shared memory without passing through registers,
+// and commits its copies as one group; cp_async_wait<N> waits until at
+// most N of the thread's groups are still in flight. `copy_words` copies n
+// contiguous 4-byte words: 16-byte copies where the source is 16-byte
+// aligned (tile ct's batch at `start` begins (ct * K + start) * 36 bytes
+// into the entries and (ct * K + start) * 4 bytes into the indices: aligned
+// whenever K % 4 == 0), 4-byte ones otherwise and for the tail. `dst` must
+// be 16-byte aligned.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
@@ -237,17 +240,163 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void stage_batch(float* dst, const float* src,
-                                            int n) {
-  const int n_floats = n * kAttr;
+__device__ __forceinline__ void copy_words(float* dst, const float* src,
+                                           int n_words) {
   int i = threadIdx.x;
   if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0u) {
-    const int n4 = n_floats >> 2;
+    const int n4 = n_words >> 2;
     for (; i < n4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
     i = (n4 << 2) + static_cast<int>(threadIdx.x);
   }
-  for (; i < n_floats; i += blockDim.x) cp_async4(dst + i, src + i);
+  for (; i < n_words; i += blockDim.x) cp_async4(dst + i, src + i);
+}
+
+__device__ __forceinline__ void stage_batch(float* dst, const float* src,
+                                            int n) {
+  copy_words(dst, src, n * kAttr);
   cp_async_commit();
 }
+
+// The row gather as a staging step: row idx[j] of the (rows, 9) table
+// `packed` to dst + 9 j, for j < n, with `idx` already in shared memory.
+// A 36-byte row at a 36-byte stride is only 4-byte aligned (and always
+// spans two 32-byte sectors), so 4-byte copies, the batch's n * 9 of them
+// spread over the block's threads; neighbouring threads copy neighbouring
+// words of a row. Issues the copies and does not commit them.
+__device__ __forceinline__ void copy_rows(float* dst, const float* packed,
+                                          const int* idx, int n) {
+  for (int i = threadIdx.x; i < n * kAttr; i += blockDim.x) {
+    const int j = i / kAttr;
+    cp_async4(dst + i, packed + static_cast<size_t>(idx[j]) * kAttr +
+                           (i - j * kAttr));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Where a tile's batches come from. Both kernels are templates on this, so
+// the two routes share every line of the masks, the walk, the early exit
+// and the per-pixel arithmetic; only the staging, and the backward's
+// epilogue (`put`), differ. A source stages batch 0 in `begin` and, in
+// `advance(b, next)`, makes batch b land where every thread of the block
+// sees it while batch b + 1 is staged into `next` (the other buffer, whose
+// readers finished before a barrier). Batch j holds min(128, count - 128 j)
+// entries; `n_batches` is the most the kernel walks. Every thread calls
+// `begin` and `advance`.
+//
+// EntryRows: the gathered entries (C*T, K, 9), tile ct's batch at `start`
+// the n * 9 contiguous floats at (ct * K + start) * 9.
+struct EntryRows {
+  static constexpr int kRingWords = 0;   // shared ints it needs
+  static constexpr bool kSkipsEmpty = false;
+  const float* entries;
+  float* grad;            // the backward's (C*T, K, 9) output, or null
+  int k;
+  size_t tile;            // the tile's first float in entries and grad
+  const float* src;
+  int count, n_batches;
+
+  __device__ __forceinline__ void begin(int ct, int count_, int n_batches_,
+                                        float* buf, int* /*ring*/) {
+    count = count_;
+    n_batches = n_batches_;
+    tile = static_cast<size_t>(ct) * k * kAttr;
+    src = entries + tile;
+    if (n_batches > 0) stage_batch(buf, src, min(kBatch, count));
+  }
+
+  __device__ __forceinline__ void advance(int b, float* next) {
+    const int start = (b + 1) * kBatch;
+    if (b + 1 < n_batches) {
+      stage_batch(next, src + static_cast<size_t>(start) * kAttr,
+                  min(kBatch, count - start));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+
+  // the backward's epilogue: element i (entry j, attribute q) of batch b's
+  // gradients, stored whether or not any warp contributed
+  __device__ __forceinline__ void put(int b, int /*j*/, int /*q*/, int i,
+                                     float sum) {
+    grad[tile + static_cast<size_t>(b) * kBatch * kAttr + i] = sum;
+  }
+};
+
+// PackedRows: rows of the projected table `packed` (C*N, 9) through the
+// binning's indices gidx (C*T, K), slot k < count of tile ct being row
+// gidx[ct * K + k] (slots at or past count are never read: the binning's
+// ent_valid is exactly k < count). Indices are staged two batches ahead
+// into a ring of three 128-int buffers in shared memory, so the row copies
+// of batch b + 1 are issued from indices that landed with batch b and no
+// thread waits on a global load before it walks: in advance(b), batch b's
+// rows and batch b + 1's indices land (one group, issued a batch earlier),
+// then batch b + 2's indices and batch b + 1's rows are issued as one
+// group. Batch b's indices stay in ring slot b % 3 through the batch, for
+// the backward's epilogue, which adds each sum into its table row.
+struct PackedRows {
+  static constexpr int kRingWords = 3 * kBatch;
+  static constexpr bool kSkipsEmpty = true;
+  const float* packed;
+  const int* gidx;
+  float* grad;            // the backward's (C*N, 9) output, or null
+  int k;
+  const int* idx;
+  int* ring;
+  int count, n_batches;
+
+  __device__ __forceinline__ int batch_size(int b) const {
+    return min(kBatch, count - b * kBatch);
+  }
+
+  __device__ __forceinline__ void stage_index(int b) {
+    copy_words(reinterpret_cast<float*>(ring + (b % 3) * kBatch),
+               reinterpret_cast<const float*>(idx + b * kBatch),
+               batch_size(b));
+  }
+
+  __device__ __forceinline__ void begin(int ct, int count_, int n_batches_,
+                                        float* buf, int* ring_) {
+    count = count_;
+    n_batches = n_batches_;
+    ring = ring_;
+    idx = gidx + static_cast<size_t>(ct) * k;
+    if (n_batches <= 0) return;
+    stage_index(0);
+    cp_async_commit();
+    if (n_batches > 1) stage_index(1);
+    cp_async_commit();
+    // the first batch's indices: the one wait on a global load before a
+    // walk, once per tile
+    cp_async_wait<1>();
+    __syncthreads();
+    copy_rows(buf, packed, ring, batch_size(0));
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ void advance(int b, float* next) {
+    cp_async_wait<0>();
+    __syncthreads();
+    // ring slot (b + 2) % 3 held batch b - 1's indices, whose last reader
+    // (the epilogue of b - 1) finished before the barrier above
+    if (b + 1 < n_batches) {
+      if (b + 2 < n_batches) stage_index(b + 2);
+      copy_rows(next, packed, ring + ((b + 1) % 3) * kBatch,
+                batch_size(b + 1));
+      cp_async_commit();
+    }
+  }
+
+  // the backward's epilogue: one reduction add (red.global.add.f32, the
+  // result unused) per attribute of an entry some warp contributed to; an
+  // entry with an empty warp set would add an exact zero and is skipped
+  __device__ __forceinline__ void put(int b, int j, int q, int /*i*/,
+                                      float sum) {
+    atomicAdd(grad + static_cast<size_t>(ring[(b % 3) * kBatch + j]) * kAttr +
+                  q,
+              sum);
+  }
+};
 
 }  // namespace composite

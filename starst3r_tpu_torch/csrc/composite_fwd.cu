@@ -18,6 +18,16 @@
 //     4.6 KB), double-buffered in shared memory: while the block composites
 //     batch b, cp.async copies batch b + 1 into the other buffer, so the
 //     load overlaps the arithmetic;
+//   - on the rasterizer's route (composite_fwd_packed) that copy is the
+//     entry gather itself (the counterpart of the six Mosaic gather probes,
+//     tools/probe_mosaic_gather*.py): each entry's row comes straight from
+//     the projected table through the binning's index, from indices staged
+//     a batch earlier (composite_common.cuh::PackedRows), so no gathered
+//     (C*T, K, 9) entries tensor is written and read back, and slots past
+//     the tile's count, ~85% of them on the trained scene, are never
+//     touched. The kernel body is a template on its source of rows; the
+//     entries route (composite_fwd) stays for the standalone gather's
+//     output and as the yardstick the packed route equals bit for bit;
 //   - most splats cover a few pixels of one or two warps (on the trained
 //     scene ~9 of a tile's 256 pixels pass an entry's culls), so after a
 //     batch lands, one lane per entry computes its cull box (the pixel
@@ -42,12 +52,13 @@
 // 16 operations per pair for the falloff and the culls, 9 more per pair
 // that passes them, and the box of every entry walked; or the bytes, the
 // entries walked read once and the outputs written once, whichever is
-// larger (chip_smoke.py counts both from the run's data).
+// larger (chip_smoke.py counts both from the run's data; on the packed
+// route an entry walked reads its 4-byte index and its 36-byte row).
 //
-// Layouts: entries (C*T, K, 9) float32 [mx, my, a, b, c, r, g, b, op];
-// counts (C*T,) int32. Outputs: rgb (C, H, W, 3) and alpha (C, H, W) in image
-// layout (pixels outside the H x W image are computed, take part in the
-// vote, and are not written), tfin (C*T, tile*tile) final transmittance per
+// Layouts: entries (C*T, K, 9) float32 [mx, my, a, b, c, r, g, b, op], or
+// packed (C*N, 9) and gidx (C*T, K) int32; counts (C*T,) int32. Outputs:
+// rgb (C, H, W, 3) and alpha (C, H, W) in image layout (pixels outside the
+// H x W image are computed, take part in the vote, and are not written), tfin (C*T, tile*tile) final transmittance per
 // tile pixel, done (C*T,) int32 batches processed.
 
 #include <cuda_runtime.h>
@@ -58,13 +69,16 @@ namespace {
 
 using namespace composite;
 
+template <class Rows>
 __global__ void composite_fwd_kernel(
-    const float* __restrict__ entries, const int* __restrict__ counts,
+    Rows rows, const int* __restrict__ counts,
     float* __restrict__ rgb, float* __restrict__ alpha_out,
     float* __restrict__ tfin, int* __restrict__ done,
     int k, int tile, int tw, int th, int h, int w) {
   __shared__ __align__(16) float sh[2][kBatch * kAttr];
   __shared__ unsigned mask[kMaxWarps * kWords];
+  __shared__ __align__(16) int ring[Rows::kRingWords > 0 ? Rows::kRingWords
+                                                          : 4];
 
   const int ct = blockIdx.x;
   const int t_per_cam = tw * th;
@@ -80,27 +94,18 @@ __global__ void composite_fwd_kernel(
   const unsigned* my_mask = mask + (threadIdx.x >> 5) * kWords;
 
   const int count = min(max(counts[ct], 0), k);
-  const float* src = entries + static_cast<size_t>(ct) * k * kAttr;
 
   float T = 1.0f;
   float r = 0.0f, g = 0.0f, b = 0.0f;
   int batches = 0;
-  if (count > 0) stage_batch(sh[0], src, min(kBatch, count));
+  rows.begin(ct, count, (count + kBatch - 1) / kBatch, sh[0], ring);
   for (int start = 0; start < count; start += kBatch) {
     // the vote is also the barrier after which the buffer of the previous
     // batch, and the masks, may be overwritten
     if (!__syncthreads_or(lay.inside && T > kTExit)) break;
     const int n = min(kBatch, count - start);
     const float* cur = sh[batches & 1];
-    if (start + kBatch < count) {
-      stage_batch(sh[(batches + 1) & 1],
-                  src + static_cast<size_t>(start + kBatch) * kAttr,
-                  min(kBatch, count - start - kBatch));
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    rows.advance(batches, sh[(batches + 1) & 1]);
     build_masks(cur, n, tile, static_cast<float>(ox), static_cast<float>(oy),
                 lay.warps_x, n_warps, mask, nullptr);
     __syncthreads();
@@ -135,17 +140,49 @@ __global__ void composite_fwd_kernel(
   }
 }
 
+template <class Rows>
+int launch(Rows rows, const int* counts, float* rgb, float* alpha,
+           float* tfin, int* done, int n_tiles, int k, int tile, int tw,
+           int th, int h, int w, void* stream) {
+  if (n_tiles == 0) return static_cast<int>(cudaSuccess);
+  composite_fwd_kernel<Rows><<<n_tiles, 32 * warps_for(tile), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      rows, counts, rgb, alpha, tfin, done, k, tile, tw, th, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream); returns cudaGetLastError()
+// Launch on `stream` (PyTorch's current stream); return cudaGetLastError()
 // so the caller can raise on a refused launch.
+//
+// The entries route: entries (C*T, K, 9) as the standalone gather
+// (gather_entries.cu) writes them.
 extern "C" int composite_fwd(const float* entries, const int* counts,
                              float* rgb, float* alpha, float* tfin,
                              int* done, int n_tiles, int k, int tile, int tw,
                              int th, int h, int w, void* stream) {
-  if (n_tiles == 0) return static_cast<int>(cudaSuccess);
-  composite_fwd_kernel<<<n_tiles, 32 * warps_for(tile), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      entries, counts, rgb, alpha, tfin, done, k, tile, tw, th, h, w);
-  return static_cast<int>(cudaGetLastError());
+  EntryRows rows{};
+  rows.entries = entries;
+  rows.k = k;
+  return launch(rows, counts, rgb, alpha, tfin, done, n_tiles, k, tile, tw,
+                th, h, w, stream);
+}
+
+// The packed route, the rasterizer's: the gather is the kernel's staging.
+// packed (C*N, 9) float32 projected attributes, gidx (C*T, K) int32 rows of
+// packed; slot k of tile ct is row gidx[ct * K + k] for k < counts[ct].
+// Same outputs as the entries route on the entries the gather would give,
+// bit for bit.
+extern "C" int composite_fwd_packed(const float* packed, const int* gidx,
+                                    const int* counts, float* rgb,
+                                    float* alpha, float* tfin, int* done,
+                                    int n_tiles, int k, int tile, int tw,
+                                    int th, int h, int w, void* stream) {
+  PackedRows rows{};
+  rows.packed = packed;
+  rows.gidx = gidx;
+  rows.k = k;
+  return launch(rows, counts, rgb, alpha, tfin, done, n_tiles, k, tile, tw,
+                th, h, w, stream);
 }

@@ -10,7 +10,8 @@ from typing import List
 import numpy as np
 import torch
 
-from .composite import composite_tiles, composite_tiles_plain
+from .composite import (composite_packed, composite_tiles,
+                        composite_tiles_plain)
 from .gather import gather_entries
 from .mcmc import MCMCConfig, add_position_noise, relocate_dead
 from .rasterize import (Bins, bin_gaussians, project_gaussians, rasterize,
@@ -22,8 +23,9 @@ __all__ = (
     "init_3dgs", "render_3dgs", "render_3dgs_original", "run_3dgs_optim",
     "GSState", "init_gaussians", "render", "run_optim", "train_step",
     "rasterize", "project_gaussians", "sh_eval", "tile_entries", "Bins",
-    "bin_gaussians", "composite_tiles", "composite_tiles_plain",
-    "gather_entries", "MCMCConfig", "relocate_dead", "add_position_noise",
+    "bin_gaussians", "composite_packed", "composite_tiles",
+    "composite_tiles_plain", "gather_entries", "MCMCConfig", "relocate_dead",
+    "add_position_noise",
 )
 
 

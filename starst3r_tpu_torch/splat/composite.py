@@ -22,15 +22,33 @@ package's Pallas `_fwd_kernel`, and `csrc/composite_bwd.cu`, replacing
   - `composite_tiles_cuda` / `composite_tiles_bwd_cuda`: launch the forward
     and the backward kernel on the current stream (built on first use by
     `splat.kernels`) and count their launches in ``.launches``.
-  - `composite_tiles`: the rasterizer's entry. CPU tensors take the plain
-    version; CUDA tensors go through `CompositeTiles`, a
+  - `composite_tiles`: compositing of gathered entries. CPU tensors take
+    the plain version; CUDA tensors go through `CompositeTiles`, a
     torch.autograd.Function whose forward is the forward kernel and whose
     backward is the backward kernel (the non-finite elements of the
     gradients it hands back are counted, on the device, in
-    ``CompositeTiles.nonfinite``), or raise.
+    ``CompositeTiles.nonfinite``), or raise. `tile_entries`' callers, the
+    tests and chip_smoke.py use it; the rasterizer does not.
+  - the packed routes, the rasterizer's: the same kernels with the entry
+    gather as their staging (`csrc/composite_common.cuh::PackedRows`), so
+    no (C, T, K, 9) entries or entry gradients are materialised.
+    `composite_packed_cuda` / `composite_packed_bwd_cuda` launch them (the
+    backward adds each entry's gradient into its row of a (C*N, 9) table,
+    zero-filled here) and count their launches in ``.launches``;
+    `composite_packed_bwd_plain` is the backward's yardstick (an
+    ``index_add_`` of `composite_tiles_bwd_plain` into the table);
+    `composite_packed`, the rasterizer's entry, takes the plain chain
+    ``composite_tiles_plain(gather_entries_plain(...))`` for CPU tensors
+    (autograd differentiates it) and `CompositePacked` for CUDA tensors
+    (non-finite gradient elements counted in
+    ``CompositePacked.nonfinite``), or raises.
 
 Inputs: entries (C, T, K, 9) float32 [mx, my, conic a, b, c, r, g, b, op],
 depth-ordered per tile, zero past each tile's count; counts (C, T) int32.
+The packed routes take packed (C*N, 9) float32 rows of those attributes and
+gidx (C, T, K) int32 rows of packed (the binning's, offset by camera)
+instead of entries: slot k of tile t is row gidx[c, t, k] for
+k < counts[c, t], which is exactly the binning's ent_valid.
 """
 
 from __future__ import annotations
@@ -39,11 +57,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from .gather import gather_entries_plain
 from .kernels import launch
 
-__all__ = ("CompositeTiles", "composite_tiles", "composite_tiles_bwd_cuda",
-           "composite_tiles_bwd_plain", "composite_tiles_cuda",
-           "composite_tiles_plain", "cull_boxes_plain", "done_plain")
+__all__ = ("CompositePacked", "CompositeTiles", "composite_packed",
+           "composite_packed_bwd_cuda", "composite_packed_bwd_plain",
+           "composite_packed_cuda", "composite_tiles",
+           "composite_tiles_bwd_cuda", "composite_tiles_bwd_plain",
+           "composite_tiles_cuda", "composite_tiles_plain",
+           "cull_boxes_plain", "done_plain", "slot_valid")
 
 BATCH = 128     # the kernels' batch of entries (the TPU kernels' chunk)
 
@@ -197,27 +219,62 @@ def cull_boxes_plain(entries: torch.Tensor, tile: int, tw: int, th: int
     return torch.where(none[..., None], empty, box)
 
 
-def _check_inputs(name: str, entries: torch.Tensor, counts: torch.Tensor,
-                  h: int, w: int, tile: int, tw: int, th: int) -> None:
-    """What both kernels take: raise ValueError on anything else."""
-    if not entries.is_cuda:
-        raise ValueError(f"{name} needs CUDA tensors")
-    if entries.dtype != torch.float32 or entries.dim() != 4 \
-            or entries.shape[-1] != 9 or not entries.is_contiguous():
-        raise ValueError("entries must be contiguous float32 (C, T, K, 9), "
-                         f"got {entries.dtype} {tuple(entries.shape)}")
-    c, t_total = entries.shape[:2]
+def _check_tiles(c: int, t_total: int, counts: torch.Tensor, device,
+                 h: int, w: int, tile: int, tw: int, th: int) -> None:
+    """The tile grid and counts every kernel route takes."""
     if t_total != tw * th or h > th * tile or w > tw * tile:
         raise ValueError(f"{t_total} tiles do not cover {h}x{w} at "
                          f"{tw}x{th} tiles of {tile}")
     if not 1 <= tile * tile <= 1024:
         raise ValueError(f"tile {tile}: one thread per pixel needs "
                          "tile*tile <= 1024")
-    if counts.device != entries.device or counts.dtype != torch.int32 \
+    if counts.device != device or counts.dtype != torch.int32 \
             or tuple(counts.shape) != (c, t_total) \
             or not counts.is_contiguous():
         raise ValueError("counts must be contiguous int32 (C, T) on the "
-                         "entries' device")
+                         "kernel's device")
+
+
+def _check_forward_outputs(device, c: int, t_total: int, rgb, tfin, done,
+                           grad_rgb, grad_alpha, h: int, w: int,
+                           tile: int) -> None:
+    """The forward's outputs and the pixel gradients a backward route
+    takes."""
+    for name, x, shape, dtype in (
+            ("rgb", rgb, (c, h, w, 3), torch.float32),
+            ("tfin", tfin, (c * t_total, tile * tile), torch.float32),
+            ("done", done, (c * t_total,), torch.int32),
+            ("grad_rgb", grad_rgb, (c, h, w, 3), torch.float32),
+            ("grad_alpha", grad_alpha, (c, h, w), torch.float32)):
+        if x.device != device or x.dtype != dtype \
+                or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
+                             f"the kernel's device, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
+def _check_inputs(name: str, entries: torch.Tensor, counts: torch.Tensor,
+                  h: int, w: int, tile: int, tw: int, th: int) -> None:
+    """What both kernels' entries routes take: raise ValueError on anything
+    else."""
+    if not entries.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+    if entries.dtype != torch.float32 or entries.dim() != 4 \
+            or entries.shape[-1] != 9 or not entries.is_contiguous():
+        raise ValueError("entries must be contiguous float32 (C, T, K, 9), "
+                         f"got {entries.dtype} {tuple(entries.shape)}")
+    _check_tiles(*entries.shape[:2], counts, entries.device, h, w, tile, tw,
+                 th)
+
+
+def _fwd_outputs(dev, c: int, t_total: int, h: int, w: int, tile: int):
+    """The forward kernel's outputs, uninitialised: rgb, alpha, tfin,
+    done."""
+    return (torch.empty((c, h, w, 3), dtype=torch.float32, device=dev),
+            torch.empty((c, h, w), dtype=torch.float32, device=dev),
+            torch.empty((c * t_total, tile * tile), dtype=torch.float32,
+                        device=dev),
+            torch.empty((c * t_total,), dtype=torch.int32, device=dev))
 
 
 def composite_tiles_cuda(entries: torch.Tensor, counts: torch.Tensor,
@@ -228,11 +285,7 @@ def composite_tiles_cuda(entries: torch.Tensor, counts: torch.Tensor,
                   th)
     c, t_total, k, _ = entries.shape
     dev = entries.device
-    rgb = torch.empty((c, h, w, 3), dtype=torch.float32, device=dev)
-    alpha = torch.empty((c, h, w), dtype=torch.float32, device=dev)
-    tfin = torch.empty((c * t_total, tile * tile), dtype=torch.float32,
-                       device=dev)
-    done = torch.empty((c * t_total,), dtype=torch.int32, device=dev)
+    rgb, alpha, tfin, done = _fwd_outputs(dev, c, t_total, h, w, tile)
     with torch.cuda.device(dev):
         launch("composite_fwd", entries.data_ptr(), counts.data_ptr(),
                rgb.data_ptr(), alpha.data_ptr(), tfin.data_ptr(),
@@ -281,17 +334,8 @@ def composite_tiles_bwd_cuda(entries: torch.Tensor, counts: torch.Tensor,
                   tw, th)
     c, t_total, k, _ = entries.shape
     dev = entries.device
-    for name, x, shape, dtype in (
-            ("rgb", rgb, (c, h, w, 3), torch.float32),
-            ("tfin", tfin, (c * t_total, tile * tile), torch.float32),
-            ("done", done, (c * t_total,), torch.int32),
-            ("grad_rgb", grad_rgb, (c, h, w, 3), torch.float32),
-            ("grad_alpha", grad_alpha, (c, h, w), torch.float32)):
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
-                or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
-                             f"the entries' device, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+    _check_forward_outputs(dev, c, t_total, rgb, tfin, done, grad_rgb,
+                           grad_alpha, h, w, tile)
     grad = torch.zeros_like(entries)
     with torch.cuda.device(dev):
         launch("composite_bwd", entries.data_ptr(), counts.data_ptr(),
@@ -351,3 +395,163 @@ def composite_tiles(entries: torch.Tensor, counts: torch.Tensor, h: int,
         return composite_tiles_plain(entries, counts, h, w, tile, tw, th,
                                      chunk)
     raise ValueError(f"no compositing for device {entries.device}")
+
+
+# ---------------------------------------------------------------------------
+# The packed routes: the entry gather as the kernels' staging.
+
+def slot_valid(gidx: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """(C, T, K) bool: slot k of tile t holds an entry, k < counts[c, t];
+    the binning's ent_valid, exactly (its counts are the occupancies capped
+    at K)."""
+    k = gidx.shape[-1]
+    return (torch.arange(k, device=gidx.device)
+            < counts.to(gidx.device).long()[..., None])
+
+
+def _check_packed(name: str, packed: torch.Tensor, gidx: torch.Tensor,
+                  counts: torch.Tensor, h: int, w: int, tile: int, tw: int,
+                  th: int) -> None:
+    """What both packed routes take: raise ValueError on anything else."""
+    if not packed.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+    if packed.dtype != torch.float32 or packed.dim() != 2 \
+            or packed.shape[1] != 9 or not packed.is_contiguous():
+        raise ValueError("packed must be contiguous float32 (R, 9), got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    if gidx.device != packed.device or gidx.dtype != torch.int32 \
+            or gidx.dim() != 3 or not gidx.is_contiguous():
+        raise ValueError("gidx must be contiguous int32 (C, T, K) on "
+                         f"packed's device, got {gidx.dtype} "
+                         f"{tuple(gidx.shape)} on {gidx.device}")
+    _check_tiles(*gidx.shape[:2], counts, packed.device, h, w, tile, tw, th)
+
+
+def composite_packed_cuda(packed: torch.Tensor, gidx: torch.Tensor,
+                          counts: torch.Tensor, h: int, w: int, tile: int,
+                          tw: int, th: int):
+    """Launch the forward kernel's packed route. Returns rgb (C, H, W, 3),
+    alpha (C, H, W), tfin (C*T, tile*tile) and done (C*T,) int32, equal bit
+    for bit to `composite_tiles_cuda` on the gathered entries."""
+    _check_packed("composite_packed_cuda", packed, gidx, counts, h, w, tile,
+                  tw, th)
+    c, t_total, k = gidx.shape
+    dev = packed.device
+    rgb, alpha, tfin, done = _fwd_outputs(dev, c, t_total, h, w, tile)
+    with torch.cuda.device(dev):
+        launch("composite_fwd_packed", packed.data_ptr(), gidx.data_ptr(),
+               counts.data_ptr(), rgb.data_ptr(), alpha.data_ptr(),
+               tfin.data_ptr(), done.data_ptr(), c * t_total, k, tile, tw,
+               th, h, w, torch.cuda.current_stream(dev).cuda_stream)
+    composite_packed_cuda.launches += 1
+    return rgb, alpha, tfin, done
+
+
+composite_packed_cuda.launches = 0
+
+
+def composite_packed_bwd_plain(packed: torch.Tensor, gidx: torch.Tensor,
+                               counts: torch.Tensor, done: torch.Tensor,
+                               grad_rgb: torch.Tensor,
+                               grad_alpha: torch.Tensor, h: int, w: int,
+                               tile: int, tw: int, th: int,
+                               chunk: int = BATCH) -> torch.Tensor:
+    """The packed backward's plain version: `composite_tiles_bwd_plain` on
+    the gathered entries (zero at the slots the forward kernel did not
+    process, per ``done``), ``index_add_``-ed into a (C*N, 9) zero table at
+    the rows the valid slots came from. Returns (C*N, 9)."""
+    valid = slot_valid(gidx, counts)
+    entries = gather_entries_plain(packed.detach(), gidx, valid)
+    grad = composite_tiles_bwd_plain(entries, counts, done, grad_rgb,
+                                     grad_alpha, h, w, tile, tw, th, chunk)
+    out = torch.zeros_like(packed, dtype=torch.float32)
+    out.index_add_(0, gidx.reshape(-1),
+                   (grad * valid[..., None]).reshape(-1, 9))
+    return out
+
+
+def composite_packed_bwd_cuda(packed: torch.Tensor, gidx: torch.Tensor,
+                              counts: torch.Tensor, rgb: torch.Tensor,
+                              tfin: torch.Tensor, done: torch.Tensor,
+                              grad_rgb: torch.Tensor,
+                              grad_alpha: torch.Tensor, h: int, w: int,
+                              tile: int, tw: int, th: int) -> torch.Tensor:
+    """Launch the backward kernel's packed route on the forward's outputs
+    (rgb (C, H, W, 3), tfin (C*T, tile*tile), done (C*T,)) and the pixel
+    gradients grad_rgb (C, H, W, 3), grad_alpha (C, H, W). Returns
+    grad_packed (C*N, 9): each processed entry's gradient added into the
+    row it came from (in no fixed order)."""
+    _check_packed("composite_packed_bwd_cuda", packed, gidx, counts, h, w,
+                  tile, tw, th)
+    c, t_total, k = gidx.shape
+    dev = packed.device
+    _check_forward_outputs(dev, c, t_total, rgb, tfin, done, grad_rgb,
+                           grad_alpha, h, w, tile)
+    grad = torch.zeros_like(packed)
+    with torch.cuda.device(dev):
+        launch("composite_bwd_packed", packed.data_ptr(), gidx.data_ptr(),
+               counts.data_ptr(), done.data_ptr(), rgb.data_ptr(),
+               tfin.data_ptr(), grad_rgb.data_ptr(), grad_alpha.data_ptr(),
+               grad.data_ptr(), c * t_total, k, tile, tw, th, h, w,
+               torch.cuda.current_stream(dev).cuda_stream)
+    composite_packed_bwd_cuda.launches += 1
+    return grad
+
+
+composite_packed_bwd_cuda.launches = 0
+
+
+class CompositePacked(torch.autograd.Function):
+    """The rasterizer's compositing on the card with its gradient: the
+    forward kernel's packed route, which gathers each entry's row from the
+    projected table as it stages it, and the backward kernel's packed
+    route, which walks the same batches again and adds each entry's
+    gradient into its table row. Nothing of size (C, T, K, 9) is saved or
+    made."""
+
+    nonfinite = 0
+
+    @staticmethod
+    def forward(ctx, packed, gidx, counts, h, w, tile, tw, th):
+        rgb, alpha, tfin, done = composite_packed_cuda(packed, gidx, counts,
+                                                       h, w, tile, tw, th)
+        ctx.save_for_backward(packed, gidx, counts, rgb, tfin, done)
+        ctx.shape = (h, w, tile, tw, th)
+        return rgb, alpha
+
+    @staticmethod
+    def backward(ctx, grad_rgb: Optional[torch.Tensor],
+                 grad_alpha: Optional[torch.Tensor]):
+        packed, gidx, counts, rgb, tfin, done = ctx.saved_tensors
+        h, w, tile, tw, th = ctx.shape
+        c = gidx.shape[0]
+        if grad_rgb is None:
+            grad_rgb = packed.new_zeros((c, h, w, 3))
+        if grad_alpha is None:
+            grad_alpha = packed.new_zeros((c, h, w))
+        grad = composite_packed_bwd_cuda(
+            packed, gidx, counts, rgb, tfin, done,
+            grad_rgb.float().contiguous(), grad_alpha.float().contiguous(),
+            h, w, tile, tw, th)
+        # a 0-dim device tensor once added to: no wait for the card
+        CompositePacked.nonfinite += (~torch.isfinite(grad)).sum()
+        return grad, None, None, None, None, None, None, None
+
+
+def composite_packed(packed: torch.Tensor, gidx: torch.Tensor,
+                     counts: torch.Tensor, h: int, w: int, tile: int,
+                     tw: int, th: int, chunk: int = BATCH
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """rgb (C, H, W, 3), alpha (C, H, W) of the entries ``packed[gidx]``
+    (slots below each tile's count), differentiable in ``packed``: the
+    packed CUDA routes for CUDA tensors, the plain gather and compositing
+    for CPU tensors."""
+    if packed.is_cuda:
+        return CompositePacked.apply(packed, gidx, counts, h, w, tile, tw,
+                                     th)
+    if packed.device.type == "cpu":
+        entries = gather_entries_plain(packed, gidx,
+                                       slot_valid(gidx, counts))
+        return composite_tiles_plain(entries, counts, h, w, tile, tw, th,
+                                     chunk)
+    raise ValueError(f"no compositing for device {packed.device}")

@@ -1,13 +1,19 @@
-"""The rasterizer's tile-entry gather: the hand-written CUDA kernel
-(`csrc/gather_entries.cu`, the counterpart of the six Mosaic gather probes
-in the JAX package's `tools/probe_mosaic_gather*.py`) and its plain torch
-version.
+"""The tile-entry gather as a standalone kernel: the hand-written CUDA
+kernel (`csrc/gather_entries.cu`, the counterpart of the six Mosaic gather
+probes in the JAX package's `tools/probe_mosaic_gather*.py`) and its plain
+torch version.
 
     entries[c, t, k] = packed[gidx[c, t, k]] if ent_valid[c, t, k] else 0
 
 packed (C*N, 9) float32 projected attributes, gidx (C, T, K) int32 rows of
 packed (already offset by camera), ent_valid (C, T, K) bool. Returns
 (C, T, K, 9) float32.
+
+The rasterizer does not launch it: on its path the compositing kernels
+stage each entry's row from ``packed`` themselves and their backward adds
+the gradients into ``packed``'s rows (`splat.composite.composite_packed`).
+`rasterize.tile_entries` still gathers here, for `composite_tiles`' callers,
+the tests and chip_smoke.py, which holds the kernel to its plain version.
 
   - `gather_entries_plain`: ``packed[gidx] * ent_valid[..., None]``; the CPU
     path (autograd differentiates it) and the kernel's yardstick.

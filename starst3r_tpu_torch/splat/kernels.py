@@ -3,13 +3,14 @@
 Each source is compiled on first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -shared`` into `starst3r_tpu_torch/_build/`
 (the file name carries a hash of the source and of the shared headers, so
-an edited source builds anew) and loaded with ctypes. Each exports one C
-function named after its file, which launches its kernel on the stream it
-is given and returns the CUDA error code; `launch` raises on a non-zero
-code. `build` compiles several sources at once, one `nvcc` each, all
-started together. `build` and `library` also take another directory of
-the same sources (another revision of `csrc/`), which chip_smoke.py uses
-to time a parent commit's kernels beside these with the same nvcc line.
+an edited source builds anew) and loaded with ctypes. Each exports C
+functions (one named after its file, the compositing sources also a
+``_packed`` route) that launch a kernel on the stream they are given and
+return the CUDA error code; `launch` raises on a non-zero code. `build`
+compiles several sources at once, one `nvcc` each, all started together.
+`build` and `library` also take another directory of the same sources
+(another revision of `csrc/`), which chip_smoke.py uses to time a parent
+commit's kernels beside these with the same nvcc line.
 """
 
 from __future__ import annotations
@@ -32,13 +33,18 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# exported function (named after its source file) -> its argument types
-_SIGNATURES = {
-    "composite_fwd": [_P] * 6 + [_I] * 7 + [_P],
-    "composite_bwd": [_P] * 8 + [_I] * 7 + [_P],
-    "gather_entries": [_P] * 4 + [ctypes.c_int64, _P],
+# source file (csrc/<name>.cu) -> {exported function: its argument types}.
+# Another revision's source may lack a function (a parent commit's has no
+# packed routes); the existing names keep their argument lists.
+_EXPORTS = {
+    "composite_fwd": {"composite_fwd": [_P] * 6 + [_I] * 7 + [_P],
+                      "composite_fwd_packed": [_P] * 7 + [_I] * 7 + [_P]},
+    "composite_bwd": {"composite_bwd": [_P] * 8 + [_I] * 7 + [_P],
+                      "composite_bwd_packed": [_P] * 9 + [_I] * 7 + [_P]},
+    "gather_entries": {"gather_entries": [_P] * 4 + [ctypes.c_int64, _P]},
 }
-KERNELS = tuple(_SIGNATURES)
+KERNELS = tuple(_EXPORTS)
+_SOURCE_OF = {fn: name for name, fns in _EXPORTS.items() for fn in fns}
 
 
 def _find_nvcc() -> str:
@@ -96,23 +102,27 @@ def build(names: Optional[Iterable[str]] = None, csrc: Path = _CSRC
 
 @functools.lru_cache(maxsize=None)
 def library(name: str, csrc: Path = _CSRC) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` built from the sources in
-    ``csrc``, built first if need be."""
-    if name not in _SIGNATURES:
-        raise KeyError(f"no CUDA kernel named {name!r}")
+    """The loaded library of source ``name`` built from the sources in
+    ``csrc``, built first if need be, with the argument types of the
+    functions it exports set."""
+    if name not in _EXPORTS:
+        raise KeyError(f"no CUDA kernel source named {name!r}")
     csrc = Path(csrc)
     so = _so_path(name, csrc)
     if not so.exists():
         build([name], csrc)
     lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _EXPORTS[name].items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s launcher; raise if CUDA refused the launch."""
-    err = getattr(library(name), name)(*args)
+def launch(fn_name: str, *args) -> None:
+    """Call the exported launcher ``fn_name``; raise if CUDA refused the
+    launch."""
+    err = getattr(library(_SOURCE_OF[fn_name]), fn_name)(*args)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")

@@ -15,13 +15,17 @@ info).
      every camera's entries; with the entries laid out by Gaussian id, the
      stable sort breaks depth ties by id, as the JAX package's two-key sort
      does. Entries past ``max_per_tile`` are counted in info["tile_overflow"].
-  3. the (tile, slot) -> attributes gather from a packed (C*N, 9) matrix:
-     `splat.gather.gather_entries` — the hand-written CUDA kernel for CUDA
-     tensors (its backward an ``index_add_``), plain indexing for CPU
-     tensors.
-  4. compositing: `splat.composite.composite_tiles` — the hand-written CUDA
-     forward and backward kernels for CUDA tensors, the plain torch version
-     (differentiated by autograd) for CPU tensors.
+  3. the (tile, slot) -> attributes gather from a packed (C*N, 9) matrix
+     and the compositing, in one: `splat.composite.composite_packed`. For
+     CUDA tensors the hand-written forward and backward kernels stage each
+     entry's row from the packed matrix through the binning's indices, and
+     the backward adds each entry's gradient straight into its row; no
+     (C, T, K, 9) entries tensor is made. For CPU tensors, plain indexing
+     and the plain compositing, differentiated by autograd.
+
+`tile_entries` stops after the gather (`splat.gather.gather_entries`, the
+standalone gather kernel on the card) and returns the entries, for
+`splat.composite.composite_tiles`; the tests and chip_smoke.py use it.
 
 Training reuses the binning across steps: `bin_gaussians` returns the
 index structure (`Bins`) and `rasterize(..., bins=...)` projects every
@@ -35,7 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .composite import composite_tiles
+from .composite import composite_packed
 from .gather import gather_entries
 
 __all__ = ("Bins", "Projected", "bin_gaussians", "max_bbox_area",
@@ -287,18 +291,13 @@ def pack_attributes(proj: Projected) -> torch.Tensor:
     return packed.reshape(-1, 9).float().contiguous()
 
 
-def tile_entries(means, quats, scales, opacities, sh, viewmats, Ks,
-                 width: int, height: int, sh_degree: int = 1,
-                 tile_size: int = 16, max_tiles_per_gaussian: int = 16,
-                 max_per_tile: int = 1024, bins: Optional[Bins] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-    """Project, bin and gather: the compositing input. With ``bins`` (a
-    `bin_gaussians` result for the same cameras and budgets) the binning
-    is reused and only the projection runs.
-
-    Returns (entries (C, T, K, 9) float32 [mean x, mean y, conic a, b, c,
-    r, g, b, opacity], depth-ordered per tile and zero past each tile's
-    count; counts (C, T) int32; info dict)."""
+def _project_and_bin(means, quats, scales, opacities, sh, viewmats, Ks,
+                     width: int, height: int, sh_degree: int,
+                     tile_size: int, max_tiles_per_gaussian: int,
+                     max_per_tile: int, bins: Optional[Bins]):
+    """Project, and bin unless ``bins`` is given. Returns (packed (C*N, 9),
+    gidx (C, T, K) int32, ent_valid (C, T, K), counts (C, T) int32, info
+    dict), all contiguous."""
     tw, th = _tile_grid(width, height, tile_size)
     proj = project_gaussians(means, quats, scales, opacities, sh, viewmats,
                              Ks, sh_degree)
@@ -309,12 +308,30 @@ def tile_entries(means, quats, scales, opacities, sh, viewmats, Ks,
                 max_per_tile)
     else:
         gidx, ent_valid, counts, overflow, n_clip, _ = bins
-    entries = gather_entries(pack_attributes(proj), gidx.contiguous(),
-                             ent_valid.contiguous())
     info = {"means2d": proj.means2d, "radii": proj.radii,
             "depths": proj.depths, "n_tiles_clipped": n_clip,
             "tile_overflow": overflow, "width": width, "height": height}
-    return entries, counts.to(torch.int32).contiguous(), info
+    return (pack_attributes(proj), gidx.contiguous(), ent_valid.contiguous(),
+            counts.to(torch.int32).contiguous(), info)
+
+
+def tile_entries(means, quats, scales, opacities, sh, viewmats, Ks,
+                 width: int, height: int, sh_degree: int = 1,
+                 tile_size: int = 16, max_tiles_per_gaussian: int = 16,
+                 max_per_tile: int = 1024, bins: Optional[Bins] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Project, bin and gather: the input of `composite_tiles`. With
+    ``bins`` (a `bin_gaussians` result for the same cameras and budgets)
+    the binning is reused and only the projection runs. Not the
+    rasterizer's path, which gathers inside the compositing kernels.
+
+    Returns (entries (C, T, K, 9) float32 [mean x, mean y, conic a, b, c,
+    r, g, b, opacity], depth-ordered per tile and zero past each tile's
+    count; counts (C, T) int32; info dict)."""
+    packed, gidx, ent_valid, counts, info = _project_and_bin(
+        means, quats, scales, opacities, sh, viewmats, Ks, width, height,
+        sh_degree, tile_size, max_tiles_per_gaussian, max_per_tile, bins)
+    return gather_entries(packed, gidx, ent_valid), counts, info
 
 
 def rasterize(means, quats, scales, opacities, sh, viewmats, Ks,
@@ -331,9 +348,10 @@ def rasterize(means, quats, scales, opacities, sh, viewmats, Ks,
     Returns (rgb (C,H,W,3), alpha (C,H,W,1), info) with info["tile_overflow"]
     and info["n_tiles_clipped"] per camera."""
     tw, th = _tile_grid(width, height, tile_size)
-    entries, counts, info = tile_entries(
+    packed, gidx, _, counts, info = _project_and_bin(
         means, quats, scales, opacities, sh, viewmats, Ks, width, height,
         sh_degree, tile_size, max_tiles_per_gaussian, max_per_tile, bins)
-    rgb, alpha = composite_tiles(entries, counts, height, width, tile_size,
-                                 tw, th, chunk=min(chunk, max_per_tile))
+    rgb, alpha = composite_packed(packed, gidx, counts, height, width,
+                                  tile_size, tw, th,
+                                  chunk=min(chunk, max_per_tile))
     return rgb, alpha[..., None], info

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the compositing forward (`composite_fwd.cu`) and backward
-(`composite_bwd.cu`), the entry gather (`gather_entries.cu`), and a
-training step on the card against the same step on the CPU.
+(`composite_bwd.cu`), on both routes (the gathered entries, and the
+rasterizer's packed route, which stages each entry's row through the
+binning's index and scatters the gradient into the table), the entry
+gather (`gather_entries.cu`), and a training step on the card against the
+same step on the CPU.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): each is
 marked `cuda` and skips when `torch.cuda.is_available()` is false. The file
@@ -24,6 +27,11 @@ Tolerances:
     batch where the kernel stops at the forward's early exit (those terms
     are below T = 1e-6);
   - the gather: exact;
+  - the packed forward against the entries route on the entries the
+    gather gives: bit for bit (the same walk and arithmetic, only the
+    staging differs); the packed backward against ``index_add_`` of the
+    entries route's gradient: 1e-6 of each attribute's largest value (the
+    same per-entry sums, added into the rows in another order);
   - a training step on the card against the CPU: the loss to 1e-4
     relative (other summation orders, and the kernels' own rounding), and
     each parameter's gradient (Adam's first moment after one step, 0.1
@@ -40,13 +48,15 @@ from starst3r_tpu_torch.config import SplatConfig
 from starst3r_tpu_torch.splat import composite as comp
 from starst3r_tpu_torch.splat import gather as gat
 from starst3r_tpu_torch.splat import train as train_mod
-from starst3r_tpu_torch.splat.rasterize import (bin_gaussians, rasterize,
+from starst3r_tpu_torch.splat.rasterize import (_project_and_bin,
+                                                bin_gaussians, rasterize,
                                                 tile_entries)
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-4
 BWD_SCALED_TOL = 2e-3
+PACKED_SCALED_TOL = 1e-6
 
 
 @pytest.fixture
@@ -413,19 +423,41 @@ def test_kernels_tile_not_multiple_of_footprint(dev, tile, h, w, k):
 
 
 def test_composite_autograd_launches_both_kernels(dev):
-    ent, counts = _case_entries("multichunk")
-    e = ent.to(dev).requires_grad_(True)
-    counts = counts.to(dev)
-    fwd, bwd = (comp.composite_tiles_cuda.launches,
-                comp.composite_tiles_bwd_cuda.launches)
-    nonfinite = int(comp.CompositeTiles.nonfinite)
+    """CompositeTiles (entries route) and CompositePacked (packed route)
+    each launch their forward and backward kernel once, and the packed
+    route's gradient is the index_add_ of the entries route's."""
+    packed, gidx, valid, counts, _ = _project_and_bin(
+        *[a.to(dev) for a in _case_args("multichunk")], 32, 32, 1, 16,
+        **_bin_kw("multichunk"))
+    ent = gat.gather_entries_plain(packed, gidx, valid)
+    e = ent.detach().requires_grad_(True)
+    p = packed.detach().requires_grad_(True)
+    launches = (comp.composite_tiles_cuda.launches,
+                comp.composite_tiles_bwd_cuda.launches,
+                comp.composite_packed_cuda.launches,
+                comp.composite_packed_bwd_cuda.launches,
+                gat.gather_entries_cuda.launches)
+    nonfinite = (int(comp.CompositeTiles.nonfinite),
+                 int(comp.CompositePacked.nonfinite))
     rgb, alpha = comp.composite_tiles(e, counts, 32, 32, 16, 2, 2)
     (rgb.square().sum() + alpha.sum()).backward()
+    rgb_p, alpha_p = comp.composite_packed(p, gidx, counts, 32, 32, 16, 2, 2)
+    (rgb_p.square().sum() + alpha_p.sum()).backward()
     torch.cuda.synchronize()
-    assert comp.composite_tiles_cuda.launches == fwd + 1
-    assert comp.composite_tiles_bwd_cuda.launches == bwd + 1
+    assert (comp.composite_tiles_cuda.launches,
+            comp.composite_tiles_bwd_cuda.launches,
+            comp.composite_packed_cuda.launches,
+            comp.composite_packed_bwd_cuda.launches,
+            gat.gather_entries_cuda.launches) == tuple(
+                x + 1 for x in launches[:4]) + launches[4:]
     assert e.grad.shape == e.shape and bool(torch.isfinite(e.grad).all())
-    assert int(comp.CompositeTiles.nonfinite) == nonfinite
+    assert p.grad.shape == p.shape and bool(torch.isfinite(p.grad).all())
+    assert (int(comp.CompositeTiles.nonfinite),
+            int(comp.CompositePacked.nonfinite)) == nonfinite
+    assert torch.equal(rgb_p, rgb) and torch.equal(alpha_p, alpha)
+    want = torch.zeros_like(packed).index_add_(
+        0, gidx.reshape(-1), (e.grad * valid[..., None]).reshape(-1, 9))
+    _assert_packed_grad(p.grad, want)
 
 
 def test_gather_matches_indexing(dev):
@@ -453,10 +485,158 @@ def test_gather_matches_indexing(dev):
                                atol=1e-5)
 
 
+def _bin_kw(case):
+    kw = CASE_KW[case]
+    return dict(max_tiles_per_gaussian=kw["max_tiles_per_gaussian"],
+                max_per_tile=kw["max_per_tile"], bins=None)
+
+
+def _as_packed(ent, counts, seed=0):
+    """A (C*T*K + 7, 9) table whose rows, read through gidx at the slots
+    below each tile's count, are the entries, in a shuffled order; the
+    other slots point at rows of garbage (opaque splats over the whole
+    tile), which a kernel that reads past a count would composite."""
+    rng = np.random.default_rng(seed)
+    c, t, k, _ = ent.shape
+    rows = c * t * k + 7
+    table = np.zeros((rows, 9), np.float32)
+    table[:, 0:2] = 8.0
+    table[:, 2] = table[:, 4] = 1e-3
+    table[:, 5:9] = 0.9
+    perm = rng.permutation(rows)[:c * t * k].reshape(c, t, k)
+    live = (np.arange(k)[None, None] < counts.numpy()[..., None])
+    table[perm[live]] = ent.numpy()[live]
+    return torch.from_numpy(table), torch.from_numpy(perm.astype(np.int32))
+
+
+def _packed_case(case, dev):
+    """(packed, gidx, counts, tile, h, w, tw, th) on the card: the binning's
+    own for the rasterizer's scenes, a shuffled table for the synthetic
+    entries."""
+    if case in CASE_KW:
+        packed, gidx, _, counts, _ = _project_and_bin(
+            *[a.to(dev) for a in _case_args(case)], 32, 32, 1, 16,
+            **_bin_kw(case))
+        return packed.detach(), gidx, counts, 16, 32, 32, 2, 2
+    if case == "empty_tiles":
+        ent, counts, tw, th = _random_entries(16, 40, 24, 200)
+        tile, h, w = 16, 40, 24
+    else:
+        tile, h, w, tw, th = 16, 32, 32, 2, 2
+        if case == "translucent":
+            ent, counts = _small_splats(11, k=512)
+        elif case == "opaque":
+            ent, counts = _small_splats(12, k=1024, opaque=True)
+        elif case == "adversarial":
+            ent, counts, _ = _adversarial_entries()
+        else:                                   # partial_129, partial_385
+            k = int(case.split("_")[1])
+            ent, counts = _small_splats(31 + k // 128, k=k)
+            counts = counts.clone()
+            counts[0, 0], counts[0, 1], counts[1, 0], counts[1, 1] = (
+                k, 129, 1, 0)
+    packed, gidx = _as_packed(ent, counts)
+    return (packed.to(dev), gidx.to(dev), counts.to(dev).contiguous(), tile,
+            h, w, tw, th)
+
+
+PACKED_CASES = ["scene", "wall", "multichunk", "translucent", "opaque",
+                "adversarial", "partial_129", "partial_385", "empty_tiles"]
+
+
+def _assert_packed_grad(got, want):
+    assert bool(torch.isfinite(got).all())
+    for a in range(9):
+        scale = max(float(want[:, a].abs().max()), 1e-12)
+        err = float((got[:, a] - want[:, a]).abs().max()) / scale
+        assert err <= PACKED_SCALED_TOL, (a, err)
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_fwd_equals_entries_route(dev, case):
+    """The packed route's rgb, alpha, tfin and done equal, bit for bit, the
+    entries route's on the entries the gather gives: K of 129 and 385
+    (index and row batches that are not 16-byte aligned), empty tiles,
+    tiles that stop early, non-finite and degenerate entries, and slots
+    past the counts whose indices point at garbage rows."""
+    packed, gidx, counts, tile, h, w, tw, th = _packed_case(case, dev)
+    ent = gat.gather_entries_plain(packed, gidx,
+                                   comp.slot_valid(gidx, counts))
+    before = comp.composite_packed_cuda.launches
+    got = comp.composite_packed_cuda(packed, gidx, counts, h, w, tile, tw, th)
+    want = comp.composite_tiles_cuda(ent, counts, h, w, tile, tw, th)
+    torch.cuda.synchronize()
+    assert comp.composite_packed_cuda.launches == before + 1
+    for name, a, b in zip(("rgb", "alpha", "tfin", "done"), got, want):
+        assert torch.equal(a, b), name
+    if case in ("wall", "opaque"):
+        assert int(got[3].max()) < (int(counts.max()) + 127) // 128
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_bwd_matches_index_add_of_entries_route(dev, case):
+    """The packed backward's grad_packed against index_add_ of the entries
+    route's gradient into the table, within 1e-6 of each attribute's
+    largest value; rows that no slot below a count points at stay 0."""
+    packed, gidx, counts, tile, h, w, tw, th = _packed_case(case, dev)
+    valid = comp.slot_valid(gidx, counts)
+    ent = gat.gather_entries_plain(packed, gidx, valid)
+    rgb, _, tfin, done = comp.composite_tiles_cuda(ent, counts, h, w, tile,
+                                                   tw, th)
+    c = counts.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g_rgb = torch.randn((c, h, w, 3), generator=gen, device=dev)
+    g_alpha = torch.randn((c, h, w), generator=gen, device=dev)
+    grad_e = comp.composite_tiles_bwd_cuda(ent, counts, rgb, tfin, done,
+                                           g_rgb, g_alpha, h, w, tile, tw, th)
+    want = torch.zeros_like(packed).index_add_(
+        0, gidx.reshape(-1), (grad_e * valid[..., None]).reshape(-1, 9))
+    before = comp.composite_packed_bwd_cuda.launches
+    got = comp.composite_packed_bwd_cuda(packed, gidx, counts, rgb, tfin,
+                                         done, g_rgb, g_alpha, h, w, tile,
+                                         tw, th)
+    torch.cuda.synchronize()
+    assert comp.composite_packed_bwd_cuda.launches == before + 1
+    _assert_packed_grad(got, want)
+    unused = torch.ones(packed.shape[0], dtype=torch.bool, device=dev)
+    unused[gidx[valid].long()] = False
+    if bool(unused.any()):
+        assert float(got[unused].abs().max()) == 0.0
+
+
+def test_packed_wrappers_reject_bad_inputs(dev):
+    packed = torch.zeros((10, 9), device=dev)
+    gidx = torch.zeros((1, 4, 8), dtype=torch.int32, device=dev)
+    counts = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    fwd = comp.composite_packed_cuda
+    with pytest.raises(ValueError):
+        fwd(packed.double(), gidx, counts, 32, 32, 16, 2, 2)
+    with pytest.raises(ValueError):
+        fwd(packed, gidx.long(), counts, 32, 32, 16, 2, 2)
+    with pytest.raises(ValueError):
+        fwd(packed, gidx[0], counts, 32, 32, 16, 2, 2)
+    with pytest.raises(ValueError):
+        fwd(packed, gidx, counts[:, :2], 32, 32, 16, 2, 2)
+    with pytest.raises(ValueError):
+        fwd(packed[:, :8], gidx, counts, 32, 32, 16, 2, 2)
+    rgb = torch.zeros((1, 32, 32, 3), device=dev)
+    tfin = torch.ones((4, 256), device=dev)
+    done = torch.ones((4,), dtype=torch.int32, device=dev)
+    g_a = torch.zeros((1, 32, 32), device=dev)
+    bwd = comp.composite_packed_bwd_cuda
+    with pytest.raises(ValueError):
+        bwd(packed, gidx, counts, rgb, tfin, done.long(), rgb, g_a, 32, 32,
+            16, 2, 2)
+    with pytest.raises(ValueError):
+        bwd(packed, gidx, counts, rgb, tfin, done, rgb, g_a.cpu(), 32, 32,
+            16, 2, 2)
+
+
 def test_train_step_on_cuda_matches_cpu(dev):
-    """One train_step on the card (gather, forward and backward kernels)
-    against the same step on the CPU (plain versions): the loss, and the
-    gradients that reached Adam, which the loss alone does not show."""
+    """One train_step on the card (the packed forward and backward
+    kernels, no standalone gather) against the same step on the CPU (plain
+    versions): the loss, and the gradients that reached Adam, which the
+    loss alone does not show."""
     rng = np.random.default_rng(0)
     n, c = 512, 2
     pts = rng.normal(size=(n, 3)).astype(np.float32)
@@ -470,8 +650,8 @@ def test_train_step_on_cuda_matches_cpu(dev):
     cfg = SplatConfig()
     losses, moments = {}, {}
     launches = (gat.gather_entries_cuda.launches,
-                comp.composite_tiles_cuda.launches,
-                comp.composite_tiles_bwd_cuda.launches)
+                comp.composite_packed_cuda.launches,
+                comp.composite_packed_bwd_cuda.launches)
     for d in ("cpu", dev):
         state = train_mod.init_gaussians(pts, cols, cfg, device=d)
         state, loss = train_mod.train_step(state, gt.to(d), w2c.to(d),
@@ -481,9 +661,9 @@ def test_train_step_on_cuda_matches_cpu(dev):
         assert all(bool(torch.isfinite(v).all())
                    for v in state.params.values())
     assert (gat.gather_entries_cuda.launches,
-            comp.composite_tiles_cuda.launches,
-            comp.composite_tiles_bwd_cuda.launches) == tuple(
-                x + 1 for x in launches)
+            comp.composite_packed_cuda.launches,
+            comp.composite_packed_bwd_cuda.launches) == (
+                launches[0], launches[1] + 1, launches[2] + 1)
     np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
     for k, want in moments["cpu"].items():
         got = moments[str(dev)][k]
@@ -496,14 +676,21 @@ def test_train_step_on_cuda_matches_cpu(dev):
 
 
 def test_rasterize_on_cuda_matches_cpu(dev):
+    """The rasterizer on the card goes through the packed forward route
+    and launches no standalone gather."""
     args = _scene()
     kw = dict(width=32, height=32, sh_degree=1, tile_size=16,
               max_tiles_per_gaussian=9, max_per_tile=128)
     rgb_c, a_c, info_c = rasterize(*args, **kw)
-    before = comp.composite_tiles_cuda.launches
+    before = (comp.composite_packed_cuda.launches,
+              gat.gather_entries_cuda.launches,
+              comp.composite_tiles_cuda.launches)
     rgb_g, a_g, info_g = rasterize(*(a.to(dev) for a in args), **kw)
     torch.cuda.synchronize()
-    assert comp.composite_tiles_cuda.launches == before + 1
+    assert (comp.composite_packed_cuda.launches,
+            gat.gather_entries_cuda.launches,
+            comp.composite_tiles_cuda.launches) == (before[0] + 1,
+                                                     before[1], before[2])
     assert rgb_g.is_cuda
     np.testing.assert_allclose(rgb_g.cpu().numpy(), rgb_c.numpy(), atol=ATOL)
     np.testing.assert_allclose(a_g.cpu().numpy(), a_c.numpy(), atol=ATOL)
@@ -571,7 +758,7 @@ def test_scene_defaults_to_cuda(dev):
     scene.add_images(model, imgs[2:])
     scene.init_3dgs()
     assert scene.gs_state.params["means"].is_cuda
-    before = comp.composite_tiles_cuda.launches
+    before = comp.composite_packed_cuda.launches
     rgb, alpha, _ = scene.render_3dgs_original(64, 64)
-    assert comp.composite_tiles_cuda.launches == before + 1
+    assert comp.composite_packed_cuda.launches == before + 1
     assert rgb.shape == (3, 64, 64, 3) and bool(torch.isfinite(rgb).all())
