@@ -55,7 +55,26 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
   8. with --parent-csrc, the compositing kernels of another revision of
      starst3r_tpu_torch/csrc (a parent commit's, unpacked with git
      archive), built with the same nvcc line, held to these and timed
-     beside them in turns on the render's and the trained scene's entries.
+     beside them in turns on the render's and the trained scene's entries;
+  9. `[checkpoint]`: Scene.save of the trained scene and Scene.load on the
+     card (every array equal bit for bit), 10 training steps on the loaded
+     scene (finite losses); save_pretrained of the large model and
+     from_pretrained on the card (every tensor equal bit for bit, one pair
+     through both models within tests/test_torch_model.py's tolerances),
+     after checking the temporary directory has room for its ~2.75 GB;
+ 10. `[register]`: Scene.register_camera of a seventh view (only its new
+     pairs go through the network, the pair cache holds the rest): the six
+     frozen cameras' chain parameters within 1e-6 of before, a finite
+     (4, 4) c2w, seven cameras;
+ 11. `[polish]`: reconstruct_scene on the six views through the pair cache
+     with spectral low-rank depth and the LM polish, then with the Schur
+     polish: the stage seconds, the polish's cost sequence (never rising,
+     the last at most the first), finite poses and focals. The random
+     network's match confidences leave the polish's correspondences with
+     weight 0 there, so both refiners also run on a planted problem of the
+     same size (six cameras, 784 core points each, every pair matched),
+     where they must bring the cost below 1e-4 of its first value and the
+     poses within 1e-2 of the planted ones.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -134,6 +153,24 @@ BOX_OPS = 48
 # the kernels' warp footprint over a tile (composite_common.cuh), for the
 # share of (warp, entry) pairs the per-warp masks skip
 WARP_W, WARP_H = 8, 4
+# register_camera: how far a frozen camera's chain parameters may move (the
+# per-step quaternion renormalisation's rounding; tests/test_integration.py)
+REGISTER_TOL = 1e-6
+# a model loaded from its checkpoint against the one saved: one pair's
+# outputs within tests/test_torch_model.py's tolerances (and rtol 2e-3)
+OUT_ATOL = {"pts1": 5e-4, "pts2": 5e-4, "conf1": 1e-3, "conf2": 1e-3,
+            "desc1": 1e-3, "desc2": 1e-3, "desc_conf1": 1e-3,
+            "desc_conf2": 1e-3}
+# the two polished reconstructions of `[polish]`, at the GA's defaults
+# otherwise. The polish weights each correspondence by its confidence
+# times its pair's matching flag (best match confidence above
+# GAConfig.matching_conf_thr); on the random network's views no pair
+# passes, so `planted_polish` gives the refiners a problem of this size
+POLISH = {
+    "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
+                    lm_mode="lm"),
+    "schur": dict(refine_lm=True, lm_mode="schur"),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -1138,6 +1175,251 @@ def side_by_side(parent_csrc, render_in, real):
               f"|new - parent| {max(errs):.3e}", flush=True)
 
 
+def register_phase(model, scene):
+    """`[register]`: one more view registered against the trained scene
+    with every earlier camera frozen. Returns the host seconds."""
+    view = make_views(N_VIEWS + 1, HW)[N_VIEWS]
+    before = {k: getattr(scene.optim_params, k).clone()
+              for k in ("quats", "trans", "core_depth")}
+    n_rec = len(scene.logger.records)
+    t = time.perf_counter()
+    c2w_new = scene.register_camera(model, view, conf_thres=1.0)
+    secs = time.perf_counter() - t
+    (rec,) = [r for r in scene.logger.records[n_rec:]
+              if r["event"] == "reconstruct"]
+    moved = {k: float((getattr(scene.optim_params, k)[:N_VIEWS]
+                       - v).abs().max()) for k, v in before.items()}
+    print(f"[register] register_camera of a 7th view: {secs:.3f} s "
+          f"(inference {rec['inference']:.3f} s for the new pairs, ga "
+          f"{rec['ga']:.3f} s); the frozen cameras' chain parameters moved "
+          f"by at most {moved} (limit {REGISTER_TOL}); the new camera's "
+          f"centre {np.round(c2w_new[:3, 3], 6).tolist()}", flush=True)
+    check(rec["n_pairs"] == N_VIEWS * (N_VIEWS + 1),
+          f"register_camera ran {rec['n_pairs']} pairs")
+    check(isinstance(c2w_new, np.ndarray) and c2w_new.shape == (4, 4)
+          and np.isfinite(c2w_new).all(), "the new camera's c2w")
+    check(np.asarray(scene.c2w).shape == (N_VIEWS + 1, 4, 4),
+          f"scene.c2w {np.asarray(scene.c2w).shape}")
+    check(np.isfinite(scene.c2w).all() and np.isfinite(
+        scene.intrinsics).all(), "poses or intrinsics not finite")
+    for k, v in moved.items():
+        check(v <= REGISTER_TOL, f"frozen {k} moved by {v}")
+    check(scene.optim_params.quats.is_cuda, "the GA left the card")
+    return {"register_ga": rec["ga"], "register_total": secs}
+
+
+def _free_bytes(path):
+    import shutil
+    return shutil.disk_usage(path).free
+
+
+def checkpoint_phase(stt, model, scene, work_dir):
+    """`[checkpoint]`: the trained scene and the large model through
+    save/load on the card, bit for bit, and 10 training steps on the
+    loaded scene. Returns the seconds of each operation."""
+    import torch
+    secs = {}
+    path = os.path.join(work_dir, "scene.ckpt")
+    t = time.perf_counter()
+    scene.save(path)
+    secs["scene_save"] = time.perf_counter() - t
+    t = time.perf_counter()
+    back = stt.Scene.load(path, config=scene.config, device="cuda")
+    torch.cuda.synchronize()
+    secs["scene_load"] = time.perf_counter() - t
+    scene_bytes = os.path.getsize(path)
+    check(back.device.type == "cuda", f"loaded scene on {back.device}")
+    for name in ("c2w", "intrinsics"):
+        check(np.array_equal(getattr(back, name), getattr(scene, name)),
+              f"loaded {name} differs")
+    for name in ("raw_imgs", "imgs"):
+        check(np.array_equal(np.stack(getattr(back, name)),
+                             np.stack(getattr(scene, name))),
+              f"loaded {name} differ")
+    for field, a, b in zip(scene.optim_params._fields, back.optim_params,
+                           scene.optim_params):
+        check(a.is_cuda and torch.equal(a, b), f"loaded optim_params.{field}")
+    for k, v in scene.gs_state.params.items():
+        got = back.gs_state.params[k]
+        check(got.is_cuda and torch.equal(got, v), f"loaded gaussians/{k}")
+    check(back.gs_state.n_alive == scene.gs_state.n_alive,
+          "loaded n_alive differs")
+    t = time.perf_counter()
+    losses = back.run_3dgs_optim(10, enable_pruning=True)
+    torch.cuda.synchronize()
+    secs["train_10_after_load"] = time.perf_counter() - t
+    check(len(losses) == 10 and all(np.isfinite(losses)),
+          f"losses after load: {losses}")
+    del back
+
+    n_bytes = 4 * sum(p.numel() for p in model.net.parameters())
+    free = _free_bytes(work_dir)
+    check(free > 1.5 * n_bytes, f"save_pretrained needs ~{n_bytes} bytes "
+          f"in {work_dir}, {free} are free: give the run a TMPDIR with "
+          "room for the large model")
+    base = os.path.join(work_dir, "model")
+    t = time.perf_counter()
+    model.save_pretrained(base)
+    secs["model_save"] = time.perf_counter() - t
+    model_bytes = os.path.getsize(base + ".npz")
+    t = time.perf_counter()
+    loaded = stt.Mast3rModel.from_pretrained(base + ".npz", device="cuda")
+    torch.cuda.synchronize()
+    secs["model_load"] = time.perf_counter() - t
+    os.remove(base + ".npz")
+    want, got = model.state_dict(), loaded.state_dict()
+    check(sorted(got) == sorted(want), "loaded model's keys differ")
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    check(not unequal, f"loaded weights differ: {unequal[:5]}")
+    views = make_views(2, HW, seed=1)
+    img1, img2 = (torch.from_numpy(np.ascontiguousarray(
+        v.transpose(1, 2, 0)[None])).cuda() for v in views)
+    a = model.infer_pair_batch(img1, img2)
+    b = loaded.infer_pair_batch(img1, img2)
+    err = {k: float((a[k] - b[k]).abs().max()) for k in OUT_ATOL}
+    for k, atol in OUT_ATOL.items():
+        check(torch.allclose(b[k], a[k], atol=atol, rtol=2e-3),
+              f"loaded model's {k} differs by {err[k]}")
+    del loaded
+    torch.cuda.empty_cache()
+    print(f"[checkpoint] scene.ckpt {scene_bytes} B: save "
+          f"{secs['scene_save']:.3f} s, load {secs['scene_load']:.3f} s, "
+          "every array equal bit for bit; 10 training steps on the loaded "
+          f"scene {secs['train_10_after_load']:.3f} s, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}", flush=True)
+    print(f"[checkpoint] model.npz {model_bytes} B: save_pretrained "
+          f"{secs['model_save']:.3f} s, from_pretrained "
+          f"{secs['model_load']:.3f} s, {len(want)} tensors equal bit for "
+          f"bit; one pair through both models: max |difference| {err}",
+          flush=True)
+    return {f"checkpoint_{k}": v for k, v in secs.items()}
+
+
+def polish_phase(stt, model, views, dev, cache_dir):
+    """`[polish]`: reconstruct_scene on the six views (every pair from the
+    cache) with spectral low-rank depth and the LM polish, then with the
+    Schur polish. Returns the stage seconds."""
+    import dataclasses
+    from starst3r_tpu_torch.utils.metrics import MetricsLogger
+    secs = {}
+    for name, ga in POLISH.items():
+        cfg = stt.default_config()
+        cfg = dataclasses.replace(cfg, ga=dataclasses.replace(cfg.ga, **ga))
+        logger = MetricsLogger()
+        rec, params = stt.reconstruct_scene(model, views, device=dev,
+                                            tmpdir=cache_dir, config=cfg,
+                                            logger=logger)
+        (lm,) = [r for r in logger.records if r["event"] == "lm_refine"]
+        (summary,) = [r for r in logger.records
+                      if r["event"] == "reconstruct"]
+        costs = lm["costs"]
+        lowered = sum(b < a for a, b in zip(costs, costs[1:]))
+        stages = {k: summary[k] for k in ("inference", "lora_basis", "ga",
+                                          "lm_refine") if k in summary}
+        secs.update({f"{name}_{k}": v for k, v in stages.items()})
+        focals = rec.intrinsics[:, 0, 0]
+        print(f"[polish] {name} ({ga}): " + " ".join(
+            f"{k}={v:.3f}s" for k, v in stages.items())
+            + f"; GA loss {rec.losses}; cost first {costs[0]:.6g} last "
+            f"{costs[-1]:.6g} over {len(costs)} iterations, {lowered} "
+            "steps after the first lowered it"
+            + (" (no correspondence has weight: every pair's best match "
+               "confidence is below matching_conf_thr)"
+               if max(costs) == 0 else "") + "; focals "
+            f"{np.round(focals, 3).tolist()}; core depth "
+            f"{tuple(params.core_depth.shape)}", flush=True)
+        check(summary["n_pairs"] == N_VIEWS * (N_VIEWS - 1),
+              f"{name}: {summary['n_pairs']} pairs")
+        check(all(b <= a for a, b in zip(costs, costs[1:])),
+              f"{name}: the polish's cost rose: {costs}")
+        check(costs[-1] <= costs[0], f"{name}: last cost above the first")
+        check(np.isfinite(rec.cam2w).all() and np.isfinite(focals).all(),
+              f"{name}: poses or focals not finite")
+        if cfg.ga.lora_depth:
+            check(tuple(params.core_depth.shape) == (N_VIEWS, cfg.ga.lora_k),
+                  f"{name}: lora coefficients {params.core_depth.shape}")
+    secs.update(planted_polish(dev))
+    return secs
+
+
+def planted_ba(rng, c, npts, f=250.0):
+    """A planted polish problem at the main path's size: c cameras on a
+    path observing npts shared world points, each camera's exact pixels
+    and depths in its own section of the core grid, every pair of cameras
+    matched (zero residual at the planted poses), and a perturbed start
+    with camera 0 kept."""
+    def rotz(a):
+        return np.array([[np.cos(a), -np.sin(a), 0],
+                         [np.sin(a), np.cos(a), 0], [0, 0, 1]], np.float32)
+    pps = np.full((c, 2), HW / 2, np.float32)
+    cam2w = np.tile(np.eye(4, dtype=np.float32)[None], (c, 1, 1))
+    for i in range(c):
+        cam2w[i, :3, :3] = rotz(0.03 * i)
+        cam2w[i, :3, 3] = [0.15 * i, 0.03 * i, -0.05 * i]
+    world = rng.uniform(-1.5, 1.5, size=(npts, 3)).astype(np.float32)
+    world[:, 2] += 6.0
+    core_pix = np.zeros((c * npts, 2), np.float32)
+    depths = np.ones((c, c * npts), np.float32)
+    for i in range(c):
+        w2c = np.linalg.inv(cam2w[i])
+        p = world @ w2c[:3, :3].T + w2c[:3, 3]
+        sl = slice(i * npts, (i + 1) * npts)
+        core_pix[sl] = p[:, :2] / p[:, 2:3] * f + pps[i]
+        depths[i, sl] = p[:, 2]
+    pairs = [(i, j) for i in range(c) for j in range(i + 1, c)]
+    ar = np.arange(npts)
+    corr = [np.concatenate(x).astype(np.int32) for x in zip(*[
+        (np.full(npts, i), i * npts + ar, np.full(npts, j), j * npts + ar)
+        for i, j in pairs])]
+    noisy = cam2w.copy()
+    for i in range(1, c):
+        noisy[i, :3, :3] = rotz(rng.normal() * 0.03) @ noisy[i, :3, :3]
+        noisy[i, :3, 3] += rng.normal(size=3) * 0.08
+    return (cam2w, noisy, np.full(c, f, np.float32), pps, depths, core_pix,
+            corr, np.ones(len(corr[0]), np.float32))
+
+
+def planted_polish(dev):
+    """The polish's numbers on the card at the main path's size (six
+    cameras, 784 core points each, every pair matched): both refiners
+    from a perturbed start must bring the cost below 1e-4 of its first
+    value and the poses within 1e-2 of the planted ones
+    (tests/test_lm.py's bounds). Returns the seconds."""
+    import torch
+    from starst3r_tpu_torch.alignment.lm import lm_refine
+    from starst3r_tpu_torch.alignment.schur import build_tracks, schur_refine
+    gt, noisy, focals, pps, depths, core_pix, corr, conf = planted_ba(
+        np.random.default_rng(0), N_VIEWS, (HW // 8) ** 2)
+    tracks = build_tracks(*corr[:2], *corr[2:], conf, N_VIEWS,
+                          core_pix.shape[0], max_obs=8)
+    secs = {}
+    for name, run in (
+            ("lm", lambda: lm_refine(noisy, focals, pps, depths, core_pix,
+                                     *corr, conf, iters=12, device=dev)),
+            ("schur", lambda: schur_refine(noisy, focals, pps, depths,
+                                           core_pix, tracks, iters=12,
+                                           device=dev))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, f_out, costs = run()
+        secs[f"planted_{name}"] = time.perf_counter() - t
+        t_err = float(np.abs(out[:, :3, 3] - gt[:, :3, 3]).max())
+        r_err = float(np.abs(out[:, :3, :3] - gt[:, :3, :3]).max())
+        print(f"[polish] planted, {name}: {len(corr[0])} correspondences, "
+              f"{tracks.cam.shape[0]} tracks; {secs[f'planted_{name}']:.3f}"
+              f" s for 12 iterations; cost {costs[0]:.6g} -> "
+              f"{costs[-1]:.6g}; pose error translation {t_err:.3g}, "
+              f"rotation {r_err:.3g}; focal error "
+              f"{float(np.abs(f_out / focals - 1).max()):.3g}", flush=True)
+        check(all(b <= a for a, b in zip(costs, costs[1:])),
+              f"planted {name}: the cost rose: {costs}")
+        check(costs[-1] < 1e-4 * costs[0], f"planted {name}: cost "
+              f"{costs[0]} -> {costs[-1]}")
+        check(t_err < 1e-2 and r_err < 1e-2,
+              f"planted {name}: pose errors {t_err}, {r_err}")
+    return secs
+
+
 def main():
     import argparse
     import torch
@@ -1191,13 +1473,16 @@ def main():
           f"{model.cfg.dtype}, init {time.perf_counter() - t:.2f} s",
           flush=True)
 
+    # the pair cache and the checkpoints; removed at the end (and, after a
+    # failed check, when the interpreter exits)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    cache_dir = os.path.join(work.name, "pairs")
+
     # slice 1: reconstruct and render
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as cache_dir:
-        set_launches(0)
-        scene, orig, novel, secs = drive_main_path(stt, model, views, dev,
-                                                   N_NOVEL, cache_dir)
-        render_launches = read_launches()
-    del model
+    set_launches(0)
+    scene, orig, novel, secs = drive_main_path(stt, model, views, dev,
+                                               N_NOVEL, cache_dir)
+    render_launches = read_launches()
     print("[stages] " + " ".join(f"{k}={v:.3f}s" for k, v in secs.items()),
           flush=True)
     n_gauss = int(scene.gs_state.n_alive)
@@ -1286,6 +1571,18 @@ def main():
     fused = fused_phase(render_in, real, dev)
     if args.parent_csrc:
         side_by_side(args.parent_csrc, render_in, real)
+
+    # slice 5: checkpoints of the trained scene and the model, a held-out
+    # camera registered against the scene, the polished reconstructions
+    del real, render_in
+    torch.cuda.empty_cache()
+    more = checkpoint_phase(stt, model, scene, work.name)
+    more.update(register_phase(model, scene))
+    more.update(polish_phase(stt, model, views, dev, cache_dir))
+    print("[stages] slice 5: " + " ".join(f"{k}={v:.3f}s"
+                                          for k, v in more.items()),
+          flush=True)
+    work.cleanup()
 
     kernels_line = []
     # K1's and K2's rows are their packed routes, the functions the main

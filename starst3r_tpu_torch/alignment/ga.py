@@ -80,6 +80,9 @@ class GAState(NamedTuple):
     freeze: torch.Tensor         # (C,) bool
     min_focals: torch.Tensor     # (C,)
     max_focals: torch.Tensor     # (C,)
+    # lora_depth: params.core_depth holds (C, k) spectral coefficients and
+    # the core depth is basis @ coeffs inside the loss (alignment/spectral)
+    depth_basis: Optional[torch.Tensor] = None   # (C, S, k)
 
 
 def init_params(data: CondensedData, device="cuda") -> GAParams:
@@ -98,6 +101,7 @@ def init_params(data: CondensedData, device="cuda") -> GAParams:
 
 def make_state(data: CondensedData, mst: Tuple[int, Any], cfg: GAConfig,
                freeze: Optional[np.ndarray] = None,
+               depth_basis: Optional[np.ndarray] = None,
                device="cuda") -> GAState:
     c = data.pps.shape[0]
     root, edges = mst
@@ -131,7 +135,8 @@ def make_state(data: CondensedData, mst: Tuple[int, Any], cfg: GAConfig,
         root=int(root),
         freeze=torch.as_tensor(np.asarray(freeze, bool), device=device),
         min_focals=f32(cfg.min_focal_factor * diags),
-        max_focals=f32(cfg.max_focal_factor * diags))
+        max_focals=f32(cfg.max_focal_factor * diags),
+        depth_basis=None if depth_basis is None else f32(depth_basis))
 
 
 def make_K_cam_depth(params: GAParams, state: GAState,
@@ -184,9 +189,14 @@ def make_K_cam_depth(params: GAParams, state: GAState,
                                   new_trans[:, :, None]], -1),
                        cam2w_chain[:, 3:, :]], 1)
 
-    core = params.core_depth
+    core = params.core_depth                      # (C, S) or (C, k)
     if exp_depth:
+        # log-space depth: exp BEFORE the lora expansion (reference order)
         core = torch.exp(core)
+    if state.depth_basis is not None:
+        # lora_depth expansion: a signed k-term sum per core pixel, as an
+        # elementwise product and sum so no TF32 matmul can round it
+        core = torch.sum(state.depth_basis * core[:, None, :], dim=-1)
     if depth_mode == "add":
         depth = z_cameras[:, None] + (core - 1.0) * (
             state.median_depths * sizes)[:, None]
@@ -370,19 +380,27 @@ def run_global_alignment(
     cfg: GAConfig,
     prev_params: Optional[GAParams] = None,
     freeze: Optional[np.ndarray] = None,
+    depth_basis: Optional[np.ndarray] = None,
+    depth_coeffs: Optional[np.ndarray] = None,
     device="cuda",
 ) -> Tuple[GAResult, GAParams]:
     """Full two-phase GA with optional warm start: ``prev_params`` (from a
     previous call, possibly with fewer cameras) overwrites the first N
-    cameras' parameters. Runs on ``device`` (the card unless "cpu")."""
-    if cfg.lora_depth or cfg.refine_lm:
-        raise NotImplementedError(
-            "lora_depth and refine_lm are not ported to starst3r_tpu_torch "
-            "yet; use the default GAConfig")
+    cameras' parameters. ``depth_basis`` / ``depth_coeffs`` ((C, S, k),
+    (C, k), from `spectral.spectral_projection_of_depthmaps`) switch on the
+    lora_depth parameterisation. Runs on ``device`` (the card unless
+    "cpu")."""
     device = resolve_device(device)
-    state = make_state(data, mst, cfg, freeze, device=device)
+    state = make_state(data, mst, cfg, freeze, depth_basis=depth_basis,
+                       device=device)
     params = init_params(data, device=device)
+    if depth_basis is not None:
+        if depth_coeffs is None:
+            raise ValueError("depth_basis requires depth_coeffs")
+        params = params._replace(core_depth=torch.as_tensor(
+            np.asarray(depth_coeffs, np.float32), device=device))
     if cfg.exp_depth:
+        # log-space depth at init, AFTER the lora substitution
         params = params._replace(core_depth=torch.log(
             torch.clamp(params.core_depth, min=1e-4)))
     if prev_params is not None:
@@ -391,8 +409,9 @@ def run_global_alignment(
             raise ValueError(
                 "prev_params.core_depth trailing shape "
                 f"{tuple(prev_params.core_depth.shape[1:])} != current "
-                f"{tuple(params.core_depth.shape[1:])}: keep the GA depth "
-                "config fixed across add_images calls")
+                f"{tuple(params.core_depth.shape[1:])}: the previous run used "
+                "another depth parameterisation (lora_depth / lora_k); keep "
+                "the GA depth config fixed across add_images calls")
         params = GAParams(*[_prefix_overwrite(n, p)
                             for n, p in zip(params, prev_params)])
 

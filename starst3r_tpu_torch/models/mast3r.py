@@ -14,6 +14,7 @@ package computes in bfloat16 over float32 parameters.
 
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -23,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
+from ..utils.checkpoint import flatten
 from ..utils.device import resolve_device
 from ..ops.rope import rope_2d_freqs
 from .heads import DownstreamHead, postprocess_pointmap
@@ -135,7 +137,9 @@ class PairPrediction:
 
 def _init_weights_(net: nn.Module, gen: torch.Generator):
     """Random init from ``gen``: weights N(0, 1/fan_in) (the JAX package's
-    lecun-normal scale), biases 0, LayerNorm 1/0, mask token 0."""
+    lecun-normal scale), biases 0, LayerNorm 1/0; the weights dead at
+    inference (the mask token, refinenet4's resConfUnit1) 0, as the JAX
+    package's format carries neither and a loaded model holds zeros."""
     for mod in net.modules():
         if isinstance(mod, nn.LayerNorm):
             nn.init.ones_(mod.weight)
@@ -151,6 +155,9 @@ def _init_weights_(net: nn.Module, gen: torch.Generator):
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
     nn.init.zeros_(net.mask_token)
+    for head in (net.downstream_head1, net.downstream_head2):
+        for w in head.dpt.scratch.refinenet4.resConfUnit1.parameters():
+            nn.init.zeros_(w)
 
 
 class Mast3rModel:
@@ -174,6 +181,58 @@ class Mast3rModel:
         gen = torch.Generator(device=dev).manual_seed(seed)
         _init_weights_(net, gen)
         return cls(cfg, net, dev)
+
+    @classmethod
+    def from_pretrained(cls, path: str, cfg: Optional[ModelConfig] = None,
+                        device="cuda") -> "Mast3rModel":
+        """Load a checkpoint written by `save_pretrained` of either package
+        onto ``device`` (the card unless "cpu"). The geometry is read from
+        the file's ``__config__`` entry unless ``cfg`` is given. A weight
+        the network needs and the file lacks raises KeyError."""
+        # io imports the alignment and splat packages, which import this
+        from ..io.from_jax import mast3r_state_dict_from_jax
+        dev = resolve_device(device)
+        with np.load(path, allow_pickle=False) as data:
+            cfg_json = bytes(data["__config__"].tolist()).decode()
+            flat = {k: data[k] for k in data.files
+                    if not k.startswith("__")}
+        saved = {k: tuple(v) if isinstance(v, list) else v
+                 for k, v in json.loads(cfg_json).items()}
+        cfg = cfg or ModelConfig(**saved)
+        tree: Dict = {}
+        for key, arr in flat.items():
+            *parents, leaf = key.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = arr
+        with torch.device("meta"):
+            net = TwoViewNet(cfg)
+        net = net.to_empty(device=dev)
+        sd = mast3r_state_dict_from_jax(tree)
+        missing = sorted(set(net.state_dict()) - set(sd))
+        if missing:
+            raise KeyError(f"checkpoint {path!r} missing weights {missing}")
+        net.load_state_dict(sd, strict=True)
+        return cls(cfg, net, dev)
+
+    def save_pretrained(self, path: str):
+        """Write the weights in the JAX package's format: one ``.npz`` of
+        the flax parameter tree under "/"-joined keys, plus a
+        ``__config__`` uint8 JSON of the `ModelConfig`. ``np.savez`` on the
+        path appends ".npz" when it is missing, as the JAX package's does."""
+        from ..io.torch_convert import convert_state_dict
+        sd = {k: v.detach().cpu().numpy()
+              for k, v in self.state_dict().items()}
+        params, unmapped = convert_state_dict(
+            sd, self.cfg.enc_depth, self.cfg.dec_depth, self.cfg.patch_size,
+            self.cfg.desc_dim)
+        if unmapped:
+            raise KeyError(f"state dict keys with no flax slot: {unmapped}")
+        cfg_json = json.dumps(self.cfg.__dict__)
+        np.savez(str(path), __config__=np.frombuffer(cfg_json.encode(),
+                                                     dtype=np.uint8),
+                 **flatten(params))
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return self.net.state_dict()

@@ -1,6 +1,8 @@
 """End-to-end reconstruction pipeline (port of `starst3r_tpu/reconstruct.py`):
 pairwise inference -> matching -> canonical views -> MST -> condensation ->
-two-phase global alignment (reference: starster/reconstruct.py:19-113).
+two-phase global alignment (reference: starster/reconstruct.py:19-113),
+optionally with spectral low-rank depth (``GAConfig.lora_depth``) and an
+LM / Schur polish of the poses after it (``GAConfig.refine_lm``).
 
 Complete symmetric pair graph, disk-cached pairwise inference, canonical
 per-image depth, maximum-spanning-tree pose chain, condensed tensors, the
@@ -11,6 +13,7 @@ the bookkeeping between them (MST, condensation) is host-side numpy.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -21,11 +24,15 @@ from .alignment import (build_canonical_views, condense, max_spanning_tree,
                         run_global_alignment)
 from .alignment.canonical import CanonicalView
 from .alignment.ga import GAParams
-from .config import Config, default_config
+from .alignment.lm import lm_refine
+from .alignment.schur import build_tracks, schur_refine
+from .alignment.spectral import spectral_projection_of_depthmaps
+from .config import Config, GAConfig, default_config
 from .imaging import make_pair_indices, make_sliding_window_pairs
 from .io.cache import PairCache, content_key
 from .models.mast3r import _OUT_KEYS, Mast3rModel, PairPrediction
-from .ops.matching import PairMatches, match_pair, refine_matches
+from .ops.matching import (PairMatches, match_pair, refine_matches,
+                           subsample_grid_indices)
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger, Timer
 from .utils.se3 import se3_inverse
@@ -131,10 +138,6 @@ def reconstruct_scene(
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(f"model lives on {model.device}, not {dev}")
-    if cfg.ga.lora_depth or cfg.ga.refine_lm:
-        raise NotImplementedError(
-            "lora_depth and refine_lm are not ported to starst3r_tpu_torch "
-            "yet; use the default GAConfig")
     timer = Timer()
     n = len(imgs)
     if n < 2:
@@ -186,11 +189,44 @@ def reconstruct_scene(
                         max_corres_per_pair=cfg.matching.max_corres_per_pair,
                         refined=refined)
 
+    depth_basis = depth_coeffs = None
+    if cfg.ga.lora_depth:
+        if not cfg.ga.opt_depth:
+            warnings.warn(
+                "lora_depth without opt_depth freezes the spectral "
+                "coefficients: depth is only replaced by its lossy rank-k "
+                "approximation. Set GAConfig.opt_depth=True.", stacklevel=2)
+        # spectral low-rank depth: a basis from the images' appearance on
+        # the core grid, the initial coefficients by least squares against
+        # the canonical core depth (host numpy and scipy)
+        with timer("lora_basis"):
+            grid, hs, ws = subsample_grid_indices(h, w, sub)
+            grid = grid.numpy()
+            core_colors = np.stack([im.reshape(3, h * w).T[grid]
+                                    for im in imgs])          # (C, S, 3)
+            depth_coeffs, depth_basis = spectral_projection_of_depthmaps(
+                core_colors, np.asarray(data.core_depth), (hs, ws),
+                k=cfg.ga.lora_k, gamma=cfg.ga.lora_gamma,
+                min_norm=cfg.ga.lora_min_norm)
+
     with timer("ga"):
         result, params = run_global_alignment(
             data, mst, cfg.ga, prev_params=optim_params, freeze=freeze,
-            device=dev)
+            depth_basis=depth_basis, depth_coeffs=depth_coeffs, device=dev)
         cam2w_out = result.cam2w.cpu().numpy()
+    K_out = result.K.cpu().numpy()
+
+    if cfg.ga.refine_lm:
+        # LM / Gauss-Newton polish over absolute poses around the GA's
+        # optimum (alignment/lm.py), on the device
+        with timer("lm_refine"):
+            cam2w_out, K_out, lm_costs = _refine_lm(
+                cfg.ga, data, freeze, cam2w_out, K_out,
+                result.depth.cpu().numpy(), n, dev)
+        if logger is not None and lm_costs:
+            logger.log("lm_refine", cost_first=lm_costs[0],
+                       cost_last=lm_costs[-1], iters=len(lm_costs),
+                       costs=list(lm_costs))
 
     if logger is not None:
         logger.log("reconstruct", n_images=n, n_pairs=len(pairs),
@@ -200,11 +236,42 @@ def reconstruct_scene(
     display = [np.clip(im.transpose(1, 2, 0) * 0.5 + 0.5, 0, 1)
                for im in imgs]
     rec = Reconstruction(
-        imgs=display, cam2w=cam2w_out, intrinsics=result.K.cpu().numpy(),
+        imgs=display, cam2w=cam2w_out, intrinsics=K_out,
         core_depth=result.depth.cpu().numpy(), views=views, subsample=sub,
         ga_params=params, losses=(result.loss_coarse, result.loss_fine),
         device=dev)
     return rec, params
+
+
+def _refine_lm(ga: GAConfig, data, freeze, cam2w, K, depth, n: int, dev):
+    """The post-GA polish: correspondences weighted by confidence times
+    their pair's matching flag, pairs of two frozen cameras dropped;
+    ``ga.lm_mode`` "lm" (pairwise) or "schur" (tracks). Returns (cam2w,
+    K with the refined focals, the cost after each iteration)."""
+    img1, idx1 = data.corr_img1, data.corr_idx1
+    img2, idx2 = data.corr_img2, data.corr_idx2
+    conf = data.corr_conf * data.pair_matching_ok[data.corr_pair]
+    if freeze is not None:
+        freeze = np.asarray(freeze, bool)
+        conf = conf * ~(freeze[img1] & freeze[img2])
+    conf = conf.astype(np.float32)
+    if ga.lm_mode == "schur":
+        tracks = build_tracks(img1, idx1, img2, idx2, conf, n,
+                              data.core_pix.shape[0], max_obs=ga.lm_max_obs)
+        cam2w, focals, costs = schur_refine(
+            cam2w, K[:, 0, 0], K[:, :2, 2], depth, data.core_pix, tracks,
+            iters=ga.lm_iters, damping=ga.lm_damping, device=dev)
+    elif ga.lm_mode == "lm":
+        cam2w, focals, costs = lm_refine(
+            cam2w, K[:, 0, 0], K[:, :2, 2], depth, data.core_pix, img1, idx1,
+            img2, idx2, conf, iters=ga.lm_iters, damping=ga.lm_damping,
+            device=dev)
+    else:
+        raise ValueError(f"lm_mode {ga.lm_mode!r}")
+    K = K.copy()
+    K[:, 0, 0] = focals
+    K[:, 1, 1] = focals
+    return cam2w, K, costs
 
 
 def _model_tag(model: Mast3rModel) -> str:

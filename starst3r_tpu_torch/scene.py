@@ -2,7 +2,9 @@
 starster/scene.py:18-183): the incremental reconstruction (images, poses,
 intrinsics, dense points) and the 3DGS state, with the reference's
 surface: `add_images`, `init_3dgs`, `render_3dgs`, `render_3dgs_original`,
-`run_3dgs_optim`, `dense_pts_flat`, `dense_cols_flat`, `w2c`.
+`run_3dgs_optim`, `dense_pts_flat`, `dense_cols_flat`, `w2c`, the held-out
+camera registration `register_camera`, and checkpoints (`save`, `load`) in
+the JAX package's file format.
 
 `add_images` re-runs reconstruction over ALL images, warm-starting the GA
 from the previous `optim_params`, then replaces poses and points wholesale;
@@ -17,9 +19,11 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from .alignment.ga import GAParams
 from .config import Config, default_config
 from .models.mast3r import Mast3rModel
 from .reconstruct import Reconstruction, reconstruct_scene
+from .utils.checkpoint import group_flat, load_flat, save_pytree
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger
 from .utils.se3 import se3_inverse
@@ -74,10 +78,36 @@ class Scene:
         """Add processed (3, H, W) [-1, 1] images and solve poses and dense
         points (reference scene.py:97-155)."""
         self.raw_imgs.extend([np.asarray(im, np.float32) for im in imgs])
+        self._reconstruct(model, conf_thres, pair_graph, freeze=None)
+
+    def register_camera(self, model: Mast3rModel, img,
+                        conf_thres: float = 1.5,
+                        pair_graph: str = "complete") -> np.ndarray:
+        """Register ONE new image against the existing reconstruction
+        without moving it: every earlier camera (pose, intrinsics, depth) is
+        frozen and only the new camera's parameters are optimised; the
+        held-out camera primitive (a novel view whose image never entered
+        training). `add_images` re-optimises every camera jointly, which
+        shifts the gauge; freezing keeps the frame, so Gaussians trained in
+        it stay valid. Returns the new camera's c2w (4, 4)."""
+        n_prev = len(self.raw_imgs)
+        if n_prev < 2:
+            raise RuntimeError("register_camera needs an existing scene")
+        self.raw_imgs.append(np.asarray(img, np.float32))
+        freeze = np.zeros(n_prev + 1, bool)
+        freeze[:n_prev] = True
+        self._reconstruct(model, conf_thres, pair_graph, freeze=freeze)
+        return np.asarray(self.c2w[-1])
+
+    def _reconstruct(self, model: Mast3rModel, conf_thres: float,
+                     pair_graph: str, freeze: Optional[np.ndarray]):
+        """Reconstruct over all images, warm-started, and replace poses,
+        intrinsics and the dense lists wholesale."""
         rec, optim_params = reconstruct_scene(
             model, self.raw_imgs, device=self.device,
             optim_params=self.optim_params, tmpdir=self.cache_dir,
-            config=self.config, pair_graph=pair_graph, logger=self.logger)
+            config=self.config, pair_graph=pair_graph, freeze=freeze,
+            logger=self.logger)
         self.optim_params = optim_params
         self.reconstruction = rec
         self.imgs.extend(rec.imgs[len(self.imgs):])
@@ -116,3 +146,67 @@ class Scene:
         from .splat import run_3dgs_optim
         return run_3dgs_optim(self, iters, enable_pruning, loss_ssim_fac,
                               loss_opacity_fac, loss_scale_fac, verbose)
+
+    def save(self, path: str):
+        """Checkpoint the scene (poses, intrinsics, the processed images
+        exactly, the GA's warm-start params, the Gaussians) in the JAX
+        package's format (`starst3r_tpu/scene.py:203-225`)."""
+        gs = self.gs_state
+        state = {
+            "c2w": self.c2w, "intrinsics": self.intrinsics,
+            # the processed images bit for bit: a loaded scene trains
+            # against the same targets and derives the same pair-cache keys
+            "raw_imgs": (np.stack(self.raw_imgs).astype(np.float32)
+                         if self.raw_imgs else np.zeros((0,), np.float32)),
+            "imgs": (np.stack(self.imgs).astype(np.float32)
+                     if self.imgs else np.zeros((0,), np.float32)),
+            "optim_params": (tuple(self.optim_params)
+                             if self.optim_params is not None else ()),
+            "gaussians": dict(gs.params) if gs is not None else {},
+            "gs_n_alive": np.asarray(gs.n_alive if gs is not None else 0,
+                                     np.int32),
+        }
+        save_pytree(path, state)
+
+    @classmethod
+    def load(cls, path: str, cache_dir: Optional[str] = None,
+             config: Optional[Config] = None, device="cuda") -> "Scene":
+        """Restore a scene written by `save` (by either package) on
+        ``device`` (the card unless "cpu"): poses, intrinsics, images, the
+        GA's warm-start params and, if present, the Gaussians with a fresh
+        Adam state and a generator seeded 0."""
+        from .splat.train import GSState, adam_init
+
+        scene = cls(cache_dir=cache_dir, device=device, config=config)
+        dev = scene.device
+        flat = load_flat(path)
+        scene.c2w = np.asarray(flat["c2w"])
+        scene.intrinsics = np.asarray(flat["intrinsics"])
+        imgs = np.asarray(flat.get("imgs", np.zeros((0,))), np.float32)
+        if imgs.ndim == 4:
+            scene.imgs = [imgs[i] for i in range(imgs.shape[0])]
+        raw = np.asarray(flat.get("raw_imgs", np.zeros((0,))), np.float32)
+        if raw.ndim == 4:
+            scene.raw_imgs = [raw[i] for i in range(raw.shape[0])]
+        elif imgs.ndim == 4:
+            # a checkpoint without raw_imgs: rebuild them (approximately)
+            scene.raw_imgs = [im.transpose(2, 0, 1) * 2.0 - 1.0
+                              for im in scene.imgs]
+        op = group_flat(flat, "optim_params")
+        if op:
+            scene.optim_params = GAParams(*[
+                torch.as_tensor(op[str(i)], device=dev)
+                for i in range(len(GAParams._fields))])
+        gauss = group_flat(flat, "gaussians")
+        if gauss:
+            params = {k: torch.as_tensor(v, device=dev)
+                      for k, v in gauss.items()}
+            n_alive = flat.get("gs_n_alive", None)
+            if n_alive is None or int(n_alive) <= 0:
+                n_alive = params["means"].shape[0]
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            scene.gs_state = GSState(params=params,
+                                     opt_state=adam_init(params), step=0,
+                                     generator=gen, n_alive=int(n_alive))
+        return scene

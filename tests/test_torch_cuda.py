@@ -4,7 +4,10 @@ card: the compositing forward (`composite_fwd.cu`) and backward
 rasterizer's packed route, which stages each entry's row through the
 binning's index and scatters the gradient into the table), the entry
 gather (`gather_entries.cu`), and a training step on the card against the
-same step on the CPU.
+same step on the CPU. Also the stock-PyTorch stages that must run in full
+float32 on the card: the LM and Schur polish and the GA with spectral
+low-rank depth, each on the card against the same call on the CPU; and the
+scene and model checkpoints, round trips on the card.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): each is
 marked `cuda` and skips when `torch.cuda.is_available()` is false. The file
@@ -36,7 +39,23 @@ Tolerances:
     relative (other summation orders, and the kernels' own rounding), and
     each parameter's gradient (Adam's first moment after one step, 0.1
     times the gradient) within 2e-3 of the CPU's largest magnitude, the
-    backward kernel's own tolerance.
+    backward kernel's own tolerance;
+  - the polish on the card against the CPU, on planted problems (the
+    construction of tests/test_lm.py and tests/test_schur.py): the normal
+    equations and the Schur system at the perturbed start within 1e-5 of
+    their largest entry (the same products, added with atomics in another
+    order), the cost to 1e-5 relative; the refined poses within 1e-3 of
+    the CPU's, and the JAX tests' own bounds against the planted poses
+    (1e-2 LM, 2e-2 Schur; the cost below 1e-4 of the first). The cost
+    sequences are not compared: the damped system's condition number
+    reaches ~1e7 (each quaternion's radial direction is held only by the
+    damping), so float32 sums in another order move the first steps by a
+    few percent (the CPU's float32 and float64 sequences differ by 0.6%
+    at the first step);
+  - the lora GA on the card against the CPU on a planted sphere scene:
+    1e-4, tests/test_torch_ga.py's tolerance, poses in the root camera's
+    frame (the GA's free rigid motion);
+  - checkpoints: bit for bit.
 """
 
 import numpy as np
@@ -762,3 +781,278 @@ def test_scene_defaults_to_cuda(dev):
     rgb, alpha, _ = scene.render_3dgs_original(64, 64)
     assert comp.composite_packed_cuda.launches == before + 1
     assert rgb.shape == (3, 64, 64, 3) and bool(torch.isfinite(rgb).all())
+
+
+def _rotz(a):
+    return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1]], np.float32)
+
+
+def _planted_ba(rng, c, npts, window, f=100.0, rot=0.03, tr=0.08):
+    """Cameras on a path observing shared world points, each camera's
+    exact pixels and depths in its own section of the core grid (zero
+    residual at the planted poses), correspondences between cameras up to
+    ``window`` apart, and a perturbed start with camera 0 kept."""
+    pps = np.full((c, 2), 64.0, np.float32)
+    cam2w = np.tile(np.eye(4, dtype=np.float32)[None], (c, 1, 1))
+    for i in range(c):
+        cam2w[i, :3, :3] = _rotz(0.03 * i)
+        cam2w[i, :3, 3] = [0.15 * i, 0.03 * i, -0.05 * i]
+    world = rng.uniform(-1.5, 1.5, size=(npts, 3)).astype(np.float32)
+    world[:, 2] += 6.0
+    s = c * npts
+    core_pix = np.zeros((s, 2), np.float32)
+    depths = np.ones((c, s), np.float32)
+    for i in range(c):
+        w2c = np.linalg.inv(cam2w[i])
+        p = world @ w2c[:3, :3].T + w2c[:3, 3]
+        sl = slice(i * npts, (i + 1) * npts)
+        core_pix[sl] = p[:, :2] / p[:, 2:3] * f + pps[i]
+        depths[i, sl] = p[:, 2]
+    img1, idx1, img2, idx2 = [], [], [], []
+    for i in range(c):
+        for j in range(i + 1, min(c, i + window + 1)):
+            img1 += [i] * npts
+            idx1 += list(range(i * npts, (i + 1) * npts))
+            img2 += [j] * npts
+            idx2 += list(range(j * npts, (j + 1) * npts))
+    noisy = cam2w.copy()
+    for i in range(1, c):
+        noisy[i, :3, :3] = _rotz(rng.normal() * rot) @ noisy[i, :3, :3]
+        noisy[i, :3, 3] += rng.normal(size=3) * tr
+    i32 = lambda x: np.array(x, np.int32)
+    return dict(cam2w=cam2w, noisy=noisy, focals=np.full(c, f, np.float32),
+                pps=pps, depths=depths, core_pix=core_pix, img1=i32(img1),
+                idx1=i32(idx1), img2=i32(img2), idx2=i32(idx2),
+                conf=np.ones(len(img1), np.float32))
+
+
+def _to(dv, *arrays):
+    """numpy arrays as tensors on ``dv``: integers as int64, floats as
+    float32."""
+    return tuple(torch.as_tensor(np.asarray(
+        a, np.int64 if np.asarray(a).dtype.kind in "iu" else np.float32),
+        device=dv) for a in arrays)
+
+
+def _thetas(cam2w, focals):
+    """The polish's packed (C, 8) parameters, as the refiners build them."""
+    from starst3r_tpu_torch.utils.se3 import rotmat_to_quat
+    c2w = torch.as_tensor(cam2w)
+    return torch.cat([rotmat_to_quat(c2w[:, :3, :3]), c2w[:, :3, 3],
+                      torch.log(torch.as_tensor(focals))[:, None]], dim=1)
+
+
+def _assert_system(dev, fn, thetas, data):
+    """A normal-equation builder on the card against the CPU at one point:
+    the matrix and the gradient within 1e-5 of their largest entries (the
+    same products, summed with atomics in another order), the cost to
+    1e-5 relative."""
+    want = fn(thetas, *_to("cpu", *data))
+    got = fn(thetas.to(dev), *_to(dev, *data))
+    for g, w in zip(got[:2], want[:2]):
+        assert g.is_cuda
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("opt_focal", [False, True])
+def test_lm_refine_on_cuda_matches_cpu(dev, opt_focal):
+    from starst3r_tpu_torch.alignment import lm
+    d = _planted_ba(np.random.default_rng(0), c=6, npts=40, window=5)
+    _assert_system(dev, lm._normal_eqs, _thetas(d["noisy"], d["focals"]),
+                   [d[k] for k in ("img1", "idx1", "img2", "idx2", "conf",
+                                   "core_pix", "pps", "depths")])
+    args = (d["noisy"], d["focals"], d["pps"], d["depths"], d["core_pix"],
+            d["img1"], d["idx1"], d["img2"], d["idx2"], d["conf"])
+    (co, cf, cc), (go, gf, gc) = (
+        lm.lm_refine(*args, iters=12, opt_focal=opt_focal, device=dv)
+        for dv in ("cpu", dev))
+    assert len(gc) == 12 and gc[-1] < 1e-4 * gc[0]
+    assert all(b <= a for a, b in zip(gc, gc[1:]))
+    np.testing.assert_allclose(go, co, atol=1e-3)
+    np.testing.assert_allclose(gf, cf, rtol=1e-3)
+    assert np.abs(go[:, :3, 3] - d["cam2w"][:, :3, 3]).max() < 1e-2
+    assert np.abs(go[:, :3, :3] - d["cam2w"][:, :3, :3]).max() < 1e-2
+
+
+def test_schur_refine_on_cuda_matches_cpu(dev):
+    from starst3r_tpu_torch.alignment import schur
+    d = _planted_ba(np.random.default_rng(1), c=30, npts=16, window=3,
+                    rot=0.02, tr=0.05)
+    tracks = schur.build_tracks(d["img1"], d["idx1"], d["img2"], d["idx2"],
+                                d["conf"], 30, d["core_pix"].shape[0],
+                                max_obs=8)
+    _assert_system(dev, schur._reduced_system,
+                   _thetas(d["noisy"], d["focals"]),
+                   [tracks.cam, tracks.pt, tracks.w, d["core_pix"],
+                    d["pps"], d["depths"]])
+    args = (d["noisy"], d["focals"], d["pps"], d["depths"], d["core_pix"],
+            tracks)
+    (co, cf, cc), (go, gf, gc) = (
+        schur.schur_refine(*args, iters=15, opt_focal=False, device=dv)
+        for dv in ("cpu", dev))
+    assert len(gc) == 15 and gc[-1] < 1e-4 * gc[0]
+    assert all(b <= a for a, b in zip(gc, gc[1:]))
+    np.testing.assert_allclose(go, co, atol=1e-3)
+    t_err = np.linalg.norm(go[:, :3, 3] - d["cam2w"][:, :3, 3], axis=1)
+    assert t_err.max() < 2e-2
+
+
+def _planted_ga_scene(n_cams=4, hw=64, sub=8, focal=90.0):
+    """Cameras on an arc facing a sphere, core-grid correspondences snapped
+    to the grid (the construction of the JAX package's
+    `utils/synthetic.py::synthetic_ga_scene`)."""
+    from starst3r_tpu_torch.alignment.condense import CondensedData
+    sph_c, sph_r = np.array([0.0, 0.0, 4.0]), 2.0
+    gt = []
+    for k in range(n_cams):
+        ang = (k - (n_cams - 1) / 2) * 0.25
+        m = np.eye(4)
+        m[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                     [-np.sin(ang), 0, np.cos(ang)]]
+        m[:3, 3] = [1.2 * np.sin(ang), 0.25 * k, 0.5 * (1 - np.cos(ang))]
+        gt.append(m)
+    K = np.array([[focal, 0, hw / 2], [0, focal, hw / 2], [0, 0, 1]])
+    ax = np.arange(sub // 2, hw, sub)
+    gs = len(ax)
+    core_pix = np.stack(np.meshgrid(ax, ax), -1).reshape(-1, 2).astype(
+        np.float64)
+    rays = np.stack([(core_pix[:, 0] - K[0, 2]) / focal,
+                     (core_pix[:, 1] - K[1, 2]) / focal,
+                     np.ones(len(core_pix))], -1)
+    depths, pts = [], []
+    for m in gt:
+        d_w = rays @ m[:3, :3].T
+        oc = m[:3, 3] - sph_c
+        b = (d_w * oc).sum(-1)
+        a = (d_w * d_w).sum(-1)
+        disc = np.maximum(b * b - a * ((oc * oc).sum() - sph_r ** 2), 1e-9)
+        z = (-b - np.sqrt(disc)) / a
+        depths.append(z)
+        pts.append((rays * z[:, None]) @ m[:3, :3].T + m[:3, 3])
+    depths = np.stack(depths)
+    pairs = [(i, j) for i in range(n_cams) for j in range(n_cams) if i != j]
+    s = len(core_pix)
+    cols = {k: [] for k in ("i1", "x1", "i2", "x2", "cf", "cp")}
+    for k, (i, j) in enumerate(pairs):
+        w2c = np.linalg.inv(gt[j])
+        cam = pts[i] @ w2c[:3, :3].T + w2c[:3, 3]
+        uv = cam[:, :2] / cam[:, 2:3] * focal + K[:2, 2]
+        g = np.clip(np.round((uv - sub // 2) / sub), 0, gs - 1)
+        inside = ((uv > 1) & (uv < hw - 2)).all(-1) & (cam[:, 2] > 0.1)
+        cols["i1"].append(np.full(s, i))
+        cols["x1"].append(np.arange(s))
+        cols["i2"].append(np.full(s, j))
+        cols["x2"].append(g[:, 1] * gs + g[:, 0])
+        cols["cf"].append(inside.astype(np.float32))
+        cols["cp"].append(np.full(s, k))
+    cat = {k: np.concatenate(v) for k, v in cols.items()}
+    med = np.median(depths, axis=1)
+    p = len(pairs)
+    data = CondensedData(
+        imsizes=np.tile(np.array([[hw, hw]], np.float32), (n_cams, 1)),
+        pps=np.full((n_cams, 2), 0.5, np.float32),
+        base_focals=np.full(n_cams, focal, np.float32),
+        core_depth=(depths / med[:, None]).astype(np.float32),
+        median_depths=med.astype(np.float32),
+        core_pix=core_pix.astype(np.float32),
+        corr_img1=cat["i1"].astype(np.int32),
+        corr_idx1=cat["x1"].astype(np.int32),
+        corr_img2=cat["i2"].astype(np.int32),
+        corr_idx2=cat["x2"].astype(np.int32),
+        corr_conf=cat["cf"], corr_pair=cat["cp"].astype(np.int32),
+        pair_img1=np.array([a for a, _ in pairs], np.int32),
+        pair_img2=np.array([b for _, b in pairs], np.int32),
+        pair_matching_ok=np.ones(p, bool),
+        preds21_pts=np.zeros((p, s, 3), np.float32),
+        preds21_conf=np.zeros((p, s), np.float32))
+    return data, (0, [(i, i + 1) for i in range(n_cams - 1)]), (gs, gs)
+
+
+def test_lora_ga_on_cuda_matches_cpu(dev):
+    """The GA with spectral low-rank depth (the basis expansion in full
+    float32 on the card) against the same GA on the CPU."""
+    from starst3r_tpu_torch.alignment.ga import run_global_alignment
+    from starst3r_tpu_torch.alignment.spectral import (
+        spectral_projection_of_depthmaps)
+    data, mst, grid = _planted_ga_scene()
+    rng = np.random.default_rng(2)
+    colors = rng.uniform(size=(4, grid[0] * grid[1], 3)).astype(np.float32)
+    coeffs, basis = spectral_projection_of_depthmaps(
+        colors, data.core_depth, grid, k=16)
+    cfg = stt.GAConfig(niter1=15, niter2=8, opt_depth=True, lora_depth=True,
+                       lora_k=16)
+    res = {}
+    for dv in ("cpu", dev):
+        r, par = run_global_alignment(data, mst, cfg, depth_basis=basis,
+                                      depth_coeffs=coeffs, device=dv)
+        assert par.core_depth.shape == (4, 16)
+        assert r.depth.device.type == torch.device(dv).type
+        res[str(dv)] = r
+    c, g = res["cpu"], res[str(dev)]
+    rel = lambda m: np.linalg.inv(m[0].astype(np.float64))[None] @ m
+    np.testing.assert_allclose(rel(g.cam2w.cpu().numpy()),
+                               rel(c.cam2w.numpy()), atol=1e-4)
+    np.testing.assert_allclose(g.K.cpu().numpy(), c.K.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(g.depth.cpu().numpy(), c.depth.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(g.loss_coarse, c.loss_coarse, rtol=1e-4)
+    np.testing.assert_allclose(g.loss_fine, c.loss_fine, rtol=1e-4)
+
+
+def test_scene_checkpoint_round_trip_on_cuda(dev, tmp_path):
+    from starst3r_tpu_torch.alignment.ga import GAParams
+    rng = np.random.default_rng(3)
+    scene = stt.Scene()
+    scene.c2w = rng.normal(size=(2, 4, 4)).astype(np.float32)
+    scene.intrinsics = rng.normal(size=(2, 3, 3)).astype(np.float32)
+    scene.raw_imgs = [rng.uniform(-1, 1, (3, 8, 8)).astype(np.float32)
+                      for _ in range(2)]
+    scene.imgs = [rng.uniform(0, 1, (8, 8, 3)).astype(np.float32)
+                  for _ in range(2)]
+    scene.optim_params = GAParams(*[
+        torch.randn(shape, device=dev) for shape in
+        ((2, 2), (2,), (2, 4), (2, 3), (2,), (2, 16))])
+    state = train_mod.init_gaussians(
+        rng.normal(size=(40, 3)).astype(np.float32),
+        rng.uniform(size=(40, 3)).astype(np.float32), SplatConfig(),
+        pool_size=64)
+    scene.gs_state = state._replace(n_alive=33)
+    path = str(tmp_path / "scene.ckpt")
+    scene.save(path)
+    back = stt.Scene.load(path)
+    assert back.device.type == "cuda"
+    for a, b in zip(back.optim_params, scene.optim_params):
+        assert a.is_cuda and torch.equal(a, b)
+    for k, v in scene.gs_state.params.items():
+        got = back.gs_state.params[k]
+        assert got.is_cuda and torch.equal(got, v), k
+    assert back.gs_state.n_alive == 33 and back.gs_state.step == 0
+    assert back.gs_state.generator.device.type == "cuda"
+    np.testing.assert_array_equal(np.stack(back.raw_imgs),
+                                  np.stack(scene.raw_imgs))
+    np.testing.assert_array_equal(back.c2w, scene.c2w)
+
+
+def test_model_checkpoint_round_trip_on_cuda(dev, tmp_path):
+    model = stt.Mast3rModel.init_random(stt.ModelConfig.tiny(), seed=4)
+    path = str(tmp_path / "model")
+    model.save_pretrained(path)
+    back = stt.Mast3rModel.from_pretrained(path + ".npz")
+    assert back.device.type == "cuda"
+    want = model.state_dict()
+    got = back.state_dict()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].is_cuda and torch.equal(got[k], want[k]), k
+    rng = np.random.default_rng(5)
+    imgs = [torch.from_numpy(rng.uniform(-1, 1, (1, 64, 64, 3)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    a = model.infer_pair_batch(*imgs)
+    b = back.infer_pair_batch(*imgs)
+    for k in a:
+        np.testing.assert_allclose(b[k].cpu().numpy(), a[k].cpu().numpy(),
+                                   atol=1e-6, err_msg=k)

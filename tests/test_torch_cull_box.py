@@ -13,6 +13,7 @@ where rounding decides.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from starst3r_tpu_torch.splat import composite as comp
 from starst3r_tpu_torch.splat.rasterize import tile_entries

@@ -17,11 +17,10 @@ package on two backends) therefore place the scene under different rigid
 motions; everything measured relative to the root agrees.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 
@@ -31,6 +30,8 @@ from starst3r_tpu.utils.synthetic import synthetic_ga_scene
 
 from starst3r_tpu_torch.alignment.condense import CondensedData
 from starst3r_tpu_torch.alignment.ga import run_global_alignment as t_run_ga
+from starst3r_tpu_torch.alignment.lm import lm_refine
+from starst3r_tpu_torch.alignment.schur import build_tracks, schur_refine
 from starst3r_tpu_torch.config import GAConfig as TGAConfig
 from starst3r_tpu_torch.io.from_jax import ga_params_from_jax
 
@@ -124,8 +125,22 @@ def test_warm_start_and_freeze_match_jax():
 
 
 def test_unported_options_raise():
+    """lora_depth and refine_lm are ported (tests/test_torch_lm.py,
+    tests/test_torch_polish.py); the polish's ``mesh`` (correspondences or
+    tracks sharded over devices, ROADMAP.md queue 1 item 5) is not, and
+    raises."""
     data, mst = _scene(3)
-    for kw in (dict(lora_depth=True), dict(refine_lm=True)):
-        cfg = dataclasses.replace(TGAConfig(**FAST), **kw)
-        with pytest.raises(NotImplementedError):
-            t_run_ga(_port_data(data), mst, cfg, device="cpu")
+    c2w = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    f = np.full(3, 90.0, np.float32)
+    pps = np.full((3, 2), 32.0, np.float32)
+    depth = np.ones((3, data.core_pix.shape[0]), np.float32)
+    tracks = build_tracks(data.corr_img1, data.corr_idx1, data.corr_img2,
+                          data.corr_idx2, data.corr_conf, 3,
+                          data.core_pix.shape[0])
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        lm_refine(c2w, f, pps, depth, data.core_pix, data.corr_img1,
+                  data.corr_idx1, data.corr_img2, data.corr_idx2,
+                  data.corr_conf, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        schur_refine(c2w, f, pps, depth, data.core_pix, tracks,
+                     mesh=object(), device="cpu")

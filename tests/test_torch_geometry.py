@@ -10,6 +10,7 @@ and condensation at 1e-5, fed the same pair predictions.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

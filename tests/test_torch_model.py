@@ -9,6 +9,7 @@ those of tests/test_torch_parity.py (float32 on the CPU, TF32 off).
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

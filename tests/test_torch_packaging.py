@@ -2,7 +2,9 @@
 
   1. no module of the port imports jax, flax, optax or starst3r_tpu (AST
      scan of every import, at any scope);
-  2. importing the port in a fresh interpreter loads none of them;
+  2. importing the port in a fresh interpreter loads none of them (and
+     not scipy, which `alignment/spectral.py` imports only to build a
+     basis);
   3. entry points default to the card: without a GPU they raise unless the
      caller passes device="cpu".
 """
@@ -18,6 +20,8 @@ import torch
 
 import starst3r_tpu_torch as stt
 from starst3r_tpu_torch.alignment.ga import run_global_alignment
+from starst3r_tpu_torch.alignment.lm import lm_refine
+from starst3r_tpu_torch.alignment.schur import Tracks, schur_refine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "starst3r_tpu_torch")
@@ -60,10 +64,18 @@ def test_port_has_no_jax_or_reference_imports():
     assert bad == [], bad
 
 
+PORT_MODULES = ("starst3r_tpu_torch", "starst3r_tpu_torch.splat",
+                "starst3r_tpu_torch.utils.checkpoint",
+                "starst3r_tpu_torch.io.torch_convert",
+                "starst3r_tpu_torch.alignment.lm",
+                "starst3r_tpu_torch.alignment.schur",
+                "starst3r_tpu_torch.alignment.spectral")
+
+
 def test_import_port_loads_no_jax():
-    code = ("import sys, starst3r_tpu_torch, starst3r_tpu_torch.splat; "
-            "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'flax', 'optax', 'starst3r_tpu')))")
+    code = (f"import sys, {', '.join(PORT_MODULES)}; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'starst3r_tpu', 'scipy')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
@@ -84,5 +96,18 @@ def test_entry_points_default_to_cuda():
                               stt.SplatConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         run_global_alignment(None, (0, []), stt.GAConfig())
+    z = np.zeros(1, np.int32)
+    c2w = np.eye(4, dtype=np.float32)[None]
+    one = np.ones(1, np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_refine(c2w, one, np.zeros((1, 2)), np.ones((1, 1)),
+                  np.zeros((1, 2)), z, z, z, z, one)
+    with pytest.raises(RuntimeError, match="cuda"):
+        schur_refine(c2w, one, np.zeros((1, 2)), np.ones((1, 1)),
+                     np.zeros((1, 2)), Tracks(z[None], z[None], one[None]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        stt.Scene.load(os.path.join(ROOT, "no_such.ckpt"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        stt.Mast3rModel.from_pretrained(os.path.join(ROOT, "no_such.npz"))
     scene = stt.Scene(device="cpu")
     assert scene.device.type == "cpu"

@@ -17,6 +17,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

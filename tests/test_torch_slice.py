@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 

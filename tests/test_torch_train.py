@@ -35,6 +35,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp
