@@ -61,7 +61,8 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      scene (finite losses); save_pretrained of the large model and
      from_pretrained on the card (every tensor equal bit for bit, one pair
      through both models within tests/test_torch_model.py's tolerances),
-     after checking the temporary directory has room for its ~2.75 GB;
+     after checking the temporary directory has room for its ~2.75 GB
+     (the file stays there for `[cli]`);
  10. `[register]`: Scene.register_camera of a seventh view (only its new
      pairs go through the network, the pair cache holds the rest): the six
      frozen cameras' chain parameters within 1e-6 of before, a finite
@@ -74,7 +75,37 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      weight 0 there, so both refiners also run on a planted problem of the
      same size (six cameras, 784 core points each, every pair matched),
      where they must bring the cost below 1e-4 of its first value and the
-     poses within 1e-2 of the planted ones.
+     poses within 1e-2 of the planted ones;
+ 12. `[k2-margin]` (printed after step 5's checks): at the entries where the
+     backward kernel and its plain version disagree most on the trained
+     scene, both against the float64 autograd gradient of the plain
+     forward on those entries' tiles, to tell which of the two is off
+     (and how many of those entries the float64 forward culls);
+ 13. `[cli]`: the port's command line, the way its users start it, at full
+     width: the six views written as PNG files, then in process
+     `reconstruct --preset large --model <[checkpoint]'s model.npz> --res
+     224 --incremental-batch 4 --gs-iters 50`, `train-gs --iters 50`,
+     `render-path --steps 8` and `export-ply`, with the launch counts set
+     to 0 just before and read just after each (the kernels launched
+     where a subcommand renders or trains; the images loaded through the
+     native C++ route; every output file written; the PLY's points the
+     scene's dense points; 8 finite, non-uniform frames); then
+     `python -m starst3r_tpu_torch info` (naming the card) and a
+     `--trace-dir` reconstruct (GA 30 + 10, 5 training steps) in
+     subprocesses (its inference/, ga/ and
+     splat_optim/ traces written; their device events reported, not
+     checked). The seconds are on a `[stages] cli:` line;
+ 14. `[planted-ga]`: the GA on the card recovers planted cameras
+     (`utils.synthetic`, `utils.eval`; tests/test_ga_groundtruth.py's
+     instances and bounds): ATE below 0.12 x the trajectory scale and RPE
+     below 8 degrees on the snapped scene, ATE below 0.001 x the scale on
+     the snap-free one;
+ 15. `[turntable]`: examples/turntable_torch.py's recipe at its defaults
+     (128 px, 8 cameras, GA 500 + 200, 600 training steps, 48 frames):
+     ATE below 0.12 x the scale, the loss falling, the training views'
+     PSNR at the recovered poses (printed), the kernels launched, the
+     orbit's frames. Steps 13-15's seconds and step 12's errors are on a
+     `[stages] slice 6:` line.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -166,6 +197,10 @@ OUT_ATOL = {"pts1": 5e-4, "pts2": 5e-4, "conf1": 1e-3, "conf2": 1e-3,
 # times its pair's matching flag (best match confidence above
 # GAConfig.matching_conf_thr); on the random network's views no pair
 # passes, so `planted_polish` gives the refiners a problem of this size
+# `[cli]`: the training steps of reconstruct --gs-iters and of train-gs
+CLI_STEPS = 50
+# the device events of a torch.profiler trace (its kernels, copies and fills)
+CUDA_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 POLISH = {
     "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
                     lm_mode="lm"),
@@ -768,10 +803,11 @@ def scaled_errors(got, want):
             / max(float(want[..., a].abs().max()), 1e-12) for a in range(9)]
 
 
-def bwd_case(name, x, route, g_rgb, g_alpha, timed):
+def bwd_case(name, x, route, g_rgb, g_alpha, timed, keep=False):
     """A backward route against its plain version on one input, on the
     forward kernel's outputs. Returns the scaled error and, when ``timed``,
-    the two times and the work the data needs."""
+    the two times and the work the data needs; when ``keep``, also the two
+    gradients and the forward's ``done`` (for `k2_margin`)."""
     import torch
 
     counts = x["counts"]
@@ -787,6 +823,8 @@ def bwd_case(name, x, route, g_rgb, g_alpha, timed):
     err = max(errs)
     out = {"case": name, "scaled_err": err,
            "max_abs_err": float((got - want).abs().max())}
+    if keep:
+        out.update(got=got, want=want, done=done)
     if timed:
         c, t = counts.shape
         p = tile * tile
@@ -865,7 +903,8 @@ def check_bwd_kernel(real, dev):
     import torch
 
     cases = [bwd_case("trained", real["x"], route, real["g_rgb"],
-                      real["g_alpha"], timed=route == "packed")
+                      real["g_alpha"], timed=route == "packed",
+                      keep=route == "entries")
              for route in ("packed", "entries")]
     gen = torch.Generator(device=dev).manual_seed(0)
     for kind in ("wall", "multi"):
@@ -1266,7 +1305,6 @@ def checkpoint_phase(stt, model, scene, work_dir):
     loaded = stt.Mast3rModel.from_pretrained(base + ".npz", device="cuda")
     torch.cuda.synchronize()
     secs["model_load"] = time.perf_counter() - t
-    os.remove(base + ".npz")
     want, got = model.state_dict(), loaded.state_dict()
     check(sorted(got) == sorted(want), "loaded model's keys differ")
     unequal = [k for k in want if not torch.equal(got[k], want[k])]
@@ -1420,6 +1458,325 @@ def planted_polish(dev):
     return secs
 
 
+def write_view_pngs(views, imgdir):
+    """The views as the PNG files a user would point the CLI at."""
+    from PIL import Image
+    from starst3r_tpu_torch.imaging import image_to_uint8
+    os.makedirs(imgdir, exist_ok=True)
+    for i, v in enumerate(views):
+        Image.fromarray(image_to_uint8(v)).save(
+            os.path.join(imgdir, f"view_{i}.png"))
+
+
+def cli_run(cli, args):
+    """One in-process CLI call with every launch count set to 0 just
+    before it. Returns (rc, seconds, launches)."""
+    import torch
+    set_launches(0)
+    t = time.perf_counter()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t, read_launches()
+
+
+def trace_device_events(trace_dir, label):
+    """The number of device events (kernels, copies, fills) in the traces
+    under ``<trace_dir>/<label>/``, and the number of trace files."""
+    path = os.path.join(trace_dir, label)
+    files = [f for f in os.listdir(path) if f.endswith(".json")] \
+        if os.path.isdir(path) else []
+    n = 0
+    for f in files:
+        with open(os.path.join(path, f)) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        n += sum(1 for e in events if e.get("cat") in CUDA_EVENT_CATS)
+    return n, len(files)
+
+
+def cli_phase(stt, views, model_npz, work_dir):
+    """`[cli]`: the port's command line the way its users start it, at
+    full width: reconstruct (the large model's checkpoint, the six views
+    as PNG files, fed 4 then 2 through add_images, 50 training steps),
+    train-gs, render-path and export-ply in process, with the launch
+    counts read around each; then `info` and a traced reconstruct through
+    `python -m starst3r_tpu_torch` in subprocesses. Returns the seconds."""
+    from PIL import Image
+    from starst3r_tpu_torch import cli
+    from starst3r_tpu_torch.io.ply import load_ply
+
+    root = os.path.join(work_dir, "cli")
+    imgdir, out = os.path.join(root, "views"), os.path.join(root, "out")
+    frames_dir = os.path.join(root, "frames")
+    write_view_pngs(views, imgdir)
+    ckpt = os.path.join(out, "scene.ckpt")
+    rec_args = ["--imgdir", imgdir, "--res", str(HW), "--preset", "large",
+                "--model", model_npz, "--conf-thres", "1.0"]
+    saved = []
+    save = stt.Scene.save
+
+    def keep(scene, path):
+        saved.append(scene)
+        return save(scene, path)
+
+    stt.Scene.save = keep
+    try:
+        runs = {
+            "reconstruct": ["reconstruct", "--out", out, "--incremental-batch",
+                            "4", "--gs-iters", str(CLI_STEPS)] + rec_args,
+            "train-gs": ["train-gs", "--scene", ckpt, "--iters",
+                         str(CLI_STEPS)],
+            "render-path": ["render-path", "--scene", ckpt, "--out",
+                            frames_dir, "--steps", str(N_NOVEL),
+                            "--cameras", f"0,{N_VIEWS - 1}"],
+            "export-ply": ["export-ply", "--scene", ckpt, "--out",
+                           os.path.join(root, "gaussians.ply")],
+        }
+        secs, launches = {}, {}
+        for name, args in runs.items():
+            rc, secs[name], launches[name] = cli_run(cli, args)
+            print(f"[cli] {name}: rc {rc}, {secs[name]:.3f} s, launches "
+                  f"{launches[name]}", flush=True)
+            check(rc == 0, f"cli {name} exited {rc}")
+    finally:
+        stt.Scene.save = save
+    scene = saved[0]
+    check(scene.device.type == "cuda", f"the CLI's scene on {scene.device}")
+    for f in ("scene.ckpt", "points.ply", "c2w.npy", "intrinsics.npy",
+              "metrics.jsonl"):
+        check(os.path.exists(os.path.join(out, f)), f"cli wrote no {f}")
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    (load,) = [r for r in records if r["event"] == "load_images"]
+    check(load["impl"] == "native", f"the CLI loaded its images through "
+          f"the {load['impl']} route, not the native one")
+    check([r["n_images"] for r in records if r["event"] == "reconstruct"]
+          == [4, N_VIEWS], "add_images did not run on 4, then 6 views")
+    pts, cols = load_ply(os.path.join(out, "points.ply"))
+    n_dense = scene.dense_pts_flat.shape[0]
+    check(pts.shape == (n_dense, 3) and cols is not None,
+          f"points.ply holds {pts.shape[0]} points, the scene {n_dense}")
+    check(np.isfinite(pts).all(), "points.ply not finite")
+    check(np.array_equal(np.load(os.path.join(out, "c2w.npy")), scene.c2w),
+          "c2w.npy differs from the scene's poses")
+    frames = sorted(f for f in os.listdir(frames_dir) if f.endswith(".png"))
+    check(len(frames) == N_NOVEL, f"render-path wrote {len(frames)} frames")
+    stack = np.stack([np.asarray(Image.open(os.path.join(frames_dir, f)))
+                      for f in frames])
+    check(stack.shape == (N_NOVEL, HW, HW, 3), f"frames {stack.shape}")
+    check(float(stack.std()) > 0, "render-path's frames are uniform")
+    gpts, _ = load_ply(os.path.join(root, "gaussians.ply"))
+    check(gpts.shape[0] > 0 and np.isfinite(gpts).all(),
+          "export-ply's points")
+    for name in ("reconstruct", "train-gs"):
+        for fn in ("composite_fwd_packed", "composite_bwd_packed"):
+            check(launches[name][fn] > 0, f"cli {name} did not launch {fn}")
+    check(launches["render-path"]["composite_fwd_packed"] > 0,
+          "cli render-path did not launch composite_fwd_packed")
+    for name, got in launches.items():
+        check(got["gather_entries"] == 0,
+              f"cli {name} launched the standalone gather")
+
+    # `python -m starst3r_tpu_torch`: info, and a traced reconstruct
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [here] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "starst3r_tpu_torch",
+                           "info"], capture_output=True, text=True,
+                          timeout=300, env=env, cwd=here)
+    secs["info"] = time.perf_counter() - t
+    check(proc.returncode == 0, f"info exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout)
+    import torch
+    card = torch.cuda.get_device_name(0)
+    check(any(card in d for d in info["devices"]),
+          f"info does not name the card: {info['devices']}")
+    print(f"[cli] info: {json.dumps(info)}", flush=True)
+    trace_dir = os.path.join(root, "trace")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "starst3r_tpu_torch", "--trace-dir",
+         trace_dir, "reconstruct", "--out", os.path.join(root, "traced"),
+         "--ga-iters1", "30", "--ga-iters2", "10", "--gs-iters", "5"]
+        + rec_args, capture_output=True, text=True, timeout=900, env=env,
+        cwd=here)
+    secs["traced_reconstruct"] = time.perf_counter() - t
+    check(proc.returncode == 0, f"the traced reconstruct exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    events = {}
+    for label in ("inference", "ga", "splat_optim"):
+        n, n_files = trace_device_events(trace_dir, label)
+        check(n_files > 0, f"no {label} trace under {trace_dir}")
+        events[label] = n
+    print(f"[cli] traced reconstruct (--trace-dir, in a subprocess): "
+          f"{secs['traced_reconstruct']:.3f} s; device events in the "
+          f"traces {events} (reported, not checked)", flush=True)
+    print(f"[cli] points.ply {pts.shape[0]} points = the scene's dense "
+          f"points; gaussians.ply {gpts.shape[0]} points; {len(frames)} "
+          f"frames, mean {float(stack.mean()):.3f} std "
+          f"{float(stack.std()):.3f}; images through the {load['impl']} "
+          "route", flush=True)
+    print("[stages] cli: " + " ".join(f"{k}={v:.3f}s"
+                                      for k, v in secs.items()), flush=True)
+    return {f"cli_{k}": v for k, v in secs.items()}
+
+
+def traj_scale(gt):
+    return float(np.linalg.norm(gt[:, :3, 3] - gt[:, :3, 3].mean(0),
+                                axis=1).max())
+
+
+def planted_ga_phase(dev):
+    """`[planted-ga]`: the GA on the card recovers planted cameras, with
+    the port's own planted scenes and trajectory metrics
+    (tests/test_ga_groundtruth.py's instances and bounds). Returns the
+    seconds."""
+    import torch
+    from starst3r_tpu_torch.alignment.ga import run_global_alignment
+    from starst3r_tpu_torch.config import GAConfig
+    from starst3r_tpu_torch.utils.eval import ate_rmse, rpe_rotation_deg
+    from starst3r_tpu_torch.utils.synthetic import synthetic_ga_scene
+    secs = {}
+    for name, kw, cfg, bound in (
+            ("snapped", {}, GAConfig(niter1=300, niter2=120), 0.12),
+            ("snap_free", {"snap_free": True},
+             GAConfig(niter1=500, niter2=0), 0.001)):
+        data, mst, gt, _ = synthetic_ga_scene(n_cams=4, hw=128, focal=180.0,
+                                              subsample=4, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res, _ = run_global_alignment(data, mst, cfg, device=dev)
+        pred = res.cam2w.cpu().numpy()
+        secs[f"planted_ga_{name}"] = time.perf_counter() - t
+        ate, rpe, scale = ate_rmse(pred, gt), rpe_rotation_deg(pred, gt), \
+            traj_scale(gt)
+        print(f"[planted-ga] {name}: GA {cfg.niter1} + {cfg.niter2} steps "
+              f"in {secs[f'planted_ga_{name}']:.3f} s; ATE {ate:.6g} = "
+              f"{ate / scale:.6g} x the trajectory scale {scale:.4f} "
+              f"(limit {bound}); RPE {rpe:.4f} deg", flush=True)
+        check(np.isfinite(pred).all(), f"planted {name}: poses not finite")
+        check(ate < bound * scale, f"planted {name}: ATE {ate} >= "
+              f"{bound} x {scale}")
+        if name == "snapped":
+            check(rpe < 8.0, f"planted {name}: RPE {rpe} deg >= 8")
+    return secs
+
+
+def turntable_phase():
+    """`[turntable]`: examples/turntable_torch.py's recipe at its defaults
+    on the card (128 px, 8 cameras, GA 500 + 200, 600 training steps, 48
+    frames), with the launch counts read around it. Returns the seconds."""
+    import importlib.util
+    from starst3r_tpu_torch.utils.eval import ate_rmse
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "turntable_torch", os.path.join(here, "examples",
+                                        "turntable_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    set_launches(0)
+    out = mod.turntable(hw=128, iters=600, frames=48, device="cuda")
+    launches = read_launches()
+    gt = out["gt_c2w"]
+    ate = ate_rmse(out["ga"].cam2w.cpu().numpy(), gt)
+    scale = traj_scale(gt)
+    losses = out["losses"]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    frames = out["frames"]
+    per_seg = 48 // 14 + 1
+    want_frames = per_seg + 13 * (per_seg - 1)
+    print(f"[turntable] GA 500 + 200 steps {out['ga_s']:.3f} s, ATE "
+          f"{ate:.6g} = {ate / scale:.6g} x the trajectory scale; 3DGS 600 "
+          f"steps {out['gs_s']:.3f} s, loss first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f} (mean of the first 20 {first:.6f}, of the "
+          f"last 20 {last:.6f}), n_alive {out['state'].n_alive}; "
+          f"training-view PSNR at the recovered poses {out['psnr']:.4f} dB;"
+          f" {len(frames)} orbit frames; launches {launches}", flush=True)
+    check(ate < 0.12 * scale, f"turntable: ATE {ate} >= 0.12 x {scale}")
+    check(all(np.isfinite(losses)) and len(losses) == 600,
+          "turntable: a loss is not finite")
+    check(last < first, f"turntable: the loss did not fall ({first} -> "
+          f"{last})")
+    check(np.isfinite(out["psnr"]), "turntable: PSNR not finite")
+    check(frames.shape == (want_frames, 128, 128, 3),
+          f"turntable: frames {frames.shape}")
+    check(float(frames.std()) > 0, "turntable: the frames are uniform")
+    for fn in ("composite_fwd_packed", "composite_bwd_packed"):
+        check(launches[fn] > 0, f"turntable did not launch {fn}")
+    return {"turntable_ga": out["ga_s"], "turntable_3dgs": out["gs_s"]}
+
+
+def k2_margin(case, x, g_rgb, g_alpha, top=16, max_tiles=4):
+    """`[k2-margin]`: which of K2 and the plain backward is off where they
+    disagree most on the trained scene. The entries of the largest scaled
+    |K2 - plain| errors (entries route, in at most ``max_tiles`` tiles)
+    have their tiles' gradients recomputed by float64 autograd through
+    `composite_tiles_plain` (the same early-exit mask). Where that
+    gradient is 0 and the plain float32 one is not, the float32 culls
+    passed on rounding noise (sigma of a near-degenerate conic);
+    elsewhere K2's and the plain backward's errors against it, scaled by
+    the plain gradient's largest magnitude per attribute as the gate is,
+    say which is off. Returns those errors and the count of each kind of
+    entry."""
+    import torch
+    from starst3r_tpu_torch.splat import composite as comp
+    got, want, done = case["got"], case["want"], case["done"]
+    c, t_total, k, _ = got.shape
+    done = done.reshape(c, t_total)
+    scale = want.abs().amax(dim=(0, 1, 2)).clamp(min=1e-12)
+    err = ((got - want).abs() / scale).reshape(-1)
+    worst = torch.topk(err, top).indices.tolist()
+    at = [(w // (t_total * k * 9), (w // (k * 9)) % t_total, (w // 9) % k,
+           w % 9) for w in worst]
+    tiles = list(dict.fromkeys((ci, ti) for ci, ti, _, _ in at))[:max_tiles]
+    h, w, tile, tw, th = geometry(x)
+    out = {"k2_vs_f64": 0.0, "plain_vs_f64": 0.0, "entries_f64": 0,
+           "entries_culled_in_f64": 0}
+    for ci, ti in tiles:
+        counts = torch.zeros_like(x["counts"][ci:ci + 1])
+        counts[0, ti] = x["counts"][ci, ti]
+        e = x["entries"][ci:ci + 1].double().requires_grad_(True)
+        with torch.enable_grad():
+            rgb, alpha = comp.composite_tiles_plain(e, counts, h, w, tile,
+                                                    tw, th)
+            (ref,) = torch.autograd.grad(
+                (rgb, alpha), e, (g_rgb[ci:ci + 1].double(),
+                                  g_alpha[ci:ci + 1].double()))
+        reached = (torch.arange(k, device=e.device)
+                   < int(done[ci, ti]) * comp.BATCH)
+        ref = ref[0, ti] * reached[:, None]
+        vals = []
+        for cc, tt, slot, a in at:
+            if (cc, tt) != (ci, ti):
+                continue
+            g, pl = float(got[ci, ti, slot, a]), float(want[ci, ti, slot, a])
+            r, s_a = float(ref[slot, a]), float(scale[a])
+            if r == 0.0 and pl != 0.0:
+                out["entries_culled_in_f64"] += 1
+            else:
+                out["entries_f64"] += 1
+                out["k2_vs_f64"] = max(out["k2_vs_f64"], abs(g - r) / s_a)
+                out["plain_vs_f64"] = max(out["plain_vs_f64"],
+                                          abs(pl - r) / s_a)
+            vals.append(f"slot {slot} attribute {a}: K2 {g:.7g}, plain "
+                        f"{pl:.7g}, float64 {r:.7g}")
+        print(f"[k2-margin] camera {ci} tile {ti} ({int(counts[0, ti])} "
+              f"entries, done {int(done[ci, ti])}): " + "; ".join(vals[:4]),
+              flush=True)
+    print(f"[k2-margin] the {top} largest scaled |K2 - plain| errors "
+          f"(largest {float(err.max()):.3e}, gate {BWD_SCALED_TOL}; the "
+          "plain gradient's largest magnitude per attribute "
+          f"{[f'{v:.3g}' for v in scale.tolist()]}), in {len(tiles)} tiles:"
+          f" at {out['entries_culled_in_f64']} entries the float64 "
+          "gradient is 0 (the float32 culls passed on rounding noise); at "
+          f"the other {out['entries_f64']} the scaled error against float64"
+          f" is K2 {out['k2_vs_f64']:.3e}, plain {out['plain_vs_f64']:.3e}",
+          flush=True)
+    return out
+
+
 def main():
     import argparse
     import torch
@@ -1567,6 +1924,10 @@ def main():
           f"{real['scfg'].max_tiles_per_gaussian}, max_per_tile "
           f"{real['scfg'].max_per_tile}", flush=True)
     bwd_cases = check_bwd_kernel(real, dev)
+    margin = k2_margin(bwd_cases[1], real["x"], real["g_rgb"],
+                       real["g_alpha"])
+    for key in ("got", "want", "done"):
+        del bwd_cases[1][key]
     gather = check_gather_kernel(real)
     fused = fused_phase(render_in, real, dev)
     if args.parent_csrc:
@@ -1582,7 +1943,19 @@ def main():
     print("[stages] slice 5: " + " ".join(f"{k}={v:.3f}s"
                                           for k, v in more.items()),
           flush=True)
+
+    # slice 6: the command line, the GA on planted cameras, the turntable
+    torch.cuda.empty_cache()
+    six = cli_phase(stt, views, os.path.join(work.name, "model.npz"),
+                    work.name)
     work.cleanup()
+    six.update(planted_ga_phase(dev))
+    six.update(turntable_phase())
+    print("[stages] slice 6: " + " ".join(f"{k}={v:.3f}s"
+                                          for k, v in six.items())
+          + "; k2-margin: " + " ".join(f"{k}={v:.3g}"
+                                       for k, v in margin.items()),
+          flush=True)
 
     kernels_line = []
     # K1's and K2's rows are their packed routes, the functions the main

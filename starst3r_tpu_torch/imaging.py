@@ -1,17 +1,18 @@
-"""Image loading and preprocessing (port of `starst3r_tpu/imaging.py`, PIL
-route only).
+"""Image loading and preprocessing (port of `starst3r_tpu/imaging.py`).
 
 Behavioral spec (reference: starster/image.py:25-139): PIL load, EXIF
 transpose, RGB; bicubic resize so the longest edge is ``size``; center-crop
 H and W down to a multiple of ``crop_multiple``; normalise with mean/std 0.5
 to [-1, 1]. Images stay host-side numpy (3, H, W) float32; the pipeline moves
-them to the device once per batch.
+them to the device once per batch. `load_images` resizes, crops and
+normalises either in the C++ host runtime (`native`, on a thread pool) or
+with PIL and numpy.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 from PIL import Image
@@ -23,6 +24,8 @@ __all__ = (
     "process_image",
     "load_image",
     "load_images",
+    "image_route",
+    "image_to_uint8",
 )
 
 
@@ -86,7 +89,42 @@ def load_image(path: Union[str, Path], size: int = 224,
     return process_image(np.asarray(img), size, crop_multiple=crop_multiple)
 
 
+def image_route(impl: Optional[str] = None) -> str:
+    """The route `load_images` takes for ``impl``: None picks "native" when
+    the C++ library builds here, else "pil" (the JAX package's "auto");
+    "native" and "pil" are taken as given."""
+    if impl is None:
+        from . import native
+        return "native" if native.available() else "pil"
+    if impl not in ("native", "pil"):
+        raise ValueError(f"impl must be None, 'native' or 'pil', not "
+                         f"{impl!r}")
+    return impl
+
+
 def load_images(paths: Sequence[Union[str, Path]], size: int = 224,
-                crop_multiple: int = 16) -> List[np.ndarray]:
-    """Load a list of files (reference: starster/image.py:105-110)."""
+                crop_multiple: int = 16,
+                impl: Optional[str] = None) -> List[np.ndarray]:
+    """Load a list of files (reference: starster/image.py:105-110).
+
+    impl: "native" decodes with PIL and resizes, crops and normalises in the
+    C++ host runtime (`native.preprocess_batch`), and raises RuntimeError
+    when that library cannot be built; "pil" is the pure-Python route; None
+    picks as `image_route` says."""
+    if image_route(impl) == "native":
+        from . import native
+        raws = [np.asarray(exif_transpose(Image.open(p)).convert("RGB"))
+                for p in paths]
+        return native.preprocess_batch(raws, size, crop_mult=crop_multiple)
     return [load_image(p, size, crop_multiple=crop_multiple) for p in paths]
+
+
+def image_to_uint8(img: np.ndarray, mean: float = 0.5,
+                   std: float = 0.5) -> np.ndarray:
+    """Invert the normalisation: (3, H, W) or (H, W, 3) float -> (H, W, 3)
+    uint8."""
+    arr = np.asarray(img)
+    if arr.ndim == 3 and arr.shape[0] == 3:
+        arr = arr.transpose(1, 2, 0)
+    arr = arr * std + mean
+    return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)

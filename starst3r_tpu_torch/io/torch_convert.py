@@ -1,6 +1,9 @@
 """The public MASt3R ``.pth`` state-dict layout -> the JAX package's flax
-parameter tree (port of the mapping half of
-`starst3r_tpu/io/torch_convert.py`; numpy only: no CLI, no `.pth` loading).
+parameter tree (port of `starst3r_tpu/io/torch_convert.py`): the mapping
+(`convert_state_dict`), a state dict of that layout at any geometry
+(`synthetic_state_dict`), and the conversion of a ``.pth`` file into the
+``.npz`` both packages' `from_pretrained` read (`convert_file`; run as
+``python -m starst3r_tpu_torch.io.torch_convert PTH OUT``).
 
 The port's `TwoViewNet.state_dict()` has the ``.pth`` layout
 (patch_embed / enc_blocks / enc_norm / decoder_embed / dec_blocks /
@@ -22,11 +25,13 @@ Layout details (mast3r catmlp_dpt_head.py, croco dpt_block.py):
 
 from __future__ import annotations
 
+import argparse
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
-__all__ = ("convert_state_dict",)
+__all__ = ("convert_state_dict", "synthetic_state_dict", "convert_file",
+           "main")
 
 
 class _Rec:
@@ -212,3 +217,196 @@ def convert_state_dict(sd: Dict[str, Any], enc_depth: int, dec_depth: int,
 
     unmapped = sorted(k for k in sd if k not in rec.used)
     return {"params": params}, unmapped
+
+
+def synthetic_state_dict(cfg, zeros: bool = False, seed: int = 0
+                         ) -> Dict[str, np.ndarray]:
+    """A state dict with the public MASt3R checkpoint layout (key naming
+    per mast3r/catmlp_dpt_head.py + croco lineage) at ``cfg`` geometry.
+
+    Lets the converter be checked against the real checkpoint's key naming
+    at any geometry, `ModelConfig.large()` (the published
+    MASt3R_ViTLarge_BaseDecoder layout) included, without the 2 GB file.
+    ``zeros=True`` allocates zero arrays (cheap at large geometry; naming
+    and shape checks only).
+    """
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape):
+        if zeros:
+            return np.zeros(shape, np.float32)
+        return rng.normal(size=shape).astype(np.float32)
+
+    sd: Dict[str, np.ndarray] = {}
+
+    def add(key, *shape):
+        sd[key] = arr(*shape)
+
+    p = cfg.patch_size
+    add("patch_embed.proj.weight", cfg.enc_dim, 3, p, p)
+    add("patch_embed.proj.bias", cfg.enc_dim)
+    add("enc_norm.weight", cfg.enc_dim)
+    add("enc_norm.bias", cfg.enc_dim)
+    for i in range(cfg.enc_depth):
+        pfx = f"enc_blocks.{i}"
+        for n in ("norm1", "norm2"):
+            add(f"{pfx}.{n}.weight", cfg.enc_dim)
+            add(f"{pfx}.{n}.bias", cfg.enc_dim)
+        add(f"{pfx}.attn.qkv.weight", 3 * cfg.enc_dim, cfg.enc_dim)
+        add(f"{pfx}.attn.qkv.bias", 3 * cfg.enc_dim)
+        add(f"{pfx}.attn.proj.weight", cfg.enc_dim, cfg.enc_dim)
+        add(f"{pfx}.attn.proj.bias", cfg.enc_dim)
+        hid = int(cfg.enc_dim * cfg.mlp_ratio)
+        add(f"{pfx}.mlp.fc1.weight", hid, cfg.enc_dim)
+        add(f"{pfx}.mlp.fc1.bias", hid)
+        add(f"{pfx}.mlp.fc2.weight", cfg.enc_dim, hid)
+        add(f"{pfx}.mlp.fc2.bias", cfg.enc_dim)
+
+    dd = cfg.dec_dim
+    add("decoder_embed.weight", dd, cfg.enc_dim)
+    add("decoder_embed.bias", dd)
+    add("dec_norm.weight", dd)
+    add("dec_norm.bias", dd)
+    for blocks in ("dec_blocks", "dec_blocks2"):
+        for i in range(cfg.dec_depth):
+            pfx = f"{blocks}.{i}"
+            for n in ("norm1", "norm2", "norm3", "norm_y"):
+                add(f"{pfx}.{n}.weight", dd)
+                add(f"{pfx}.{n}.bias", dd)
+            add(f"{pfx}.attn.qkv.weight", 3 * dd, dd)
+            add(f"{pfx}.attn.qkv.bias", 3 * dd)
+            add(f"{pfx}.attn.proj.weight", dd, dd)
+            add(f"{pfx}.attn.proj.bias", dd)
+            for n in ("projq", "projk", "projv", "proj"):
+                add(f"{pfx}.cross_attn.{n}.weight", dd, dd)
+                add(f"{pfx}.cross_attn.{n}.bias", dd)
+            hid = int(dd * cfg.mlp_ratio)
+            add(f"{pfx}.mlp.fc1.weight", hid, dd)
+            add(f"{pfx}.mlp.fc1.bias", hid)
+            add(f"{pfx}.mlp.fc2.weight", dd, hid)
+            add(f"{pfx}.mlp.fc2.bias", dd)
+
+    fd = cfg.dpt_feature_dim
+    ld = cfg.dpt_layer_dims
+    last = cfg.dpt_last_dim
+    idim = cfg.enc_dim + dd
+    dims_tokens = (cfg.enc_dim, dd, dd, dd)
+    for v in ("1", "2"):
+        dpt = f"downstream_head{v}.dpt"
+        for i in range(4):
+            add(f"{dpt}.act_postprocess.{i}.0.weight",
+                ld[i], dims_tokens[i], 1, 1)
+            add(f"{dpt}.act_postprocess.{i}.0.bias", ld[i])
+        add(f"{dpt}.act_postprocess.0.1.weight", ld[0], ld[0], 4, 4)
+        add(f"{dpt}.act_postprocess.0.1.bias", ld[0])
+        add(f"{dpt}.act_postprocess.1.1.weight", ld[1], ld[1], 2, 2)
+        add(f"{dpt}.act_postprocess.1.1.bias", ld[1])
+        add(f"{dpt}.act_postprocess.3.1.weight", ld[3], ld[3], 3, 3)
+        add(f"{dpt}.act_postprocess.3.1.bias", ld[3])
+        for j in range(1, 5):
+            add(f"{dpt}.scratch.layer{j}_rn.weight", fd, ld[j - 1], 3, 3)
+            rp = f"{dpt}.scratch.refinenet{j}"
+            for unit in ("resConfUnit1", "resConfUnit2"):
+                for conv in ("conv1", "conv2"):
+                    add(f"{rp}.{unit}.{conv}.weight", fd, fd, 3, 3)
+                    add(f"{rp}.{unit}.{conv}.bias", fd)
+            add(f"{rp}.out_conv.weight", fd, fd, 1, 1)
+            add(f"{rp}.out_conv.bias", fd)
+        add(f"{dpt}.head.0.weight", fd // 2, fd, 3, 3)
+        add(f"{dpt}.head.0.bias", fd // 2)
+        add(f"{dpt}.head.2.weight", last, fd // 2, 3, 3)
+        add(f"{dpt}.head.2.bias", last)
+        add(f"{dpt}.head.4.weight", 4, last, 1, 1)
+        add(f"{dpt}.head.4.bias", 4)
+        lf = f"downstream_head{v}.head_local_features"
+        hid = int(cfg.desc_hidden_factor * idim)
+        add(f"{lf}.fc1.weight", hid, idim)
+        add(f"{lf}.fc1.bias", hid)
+        add(f"{lf}.fc2.weight", (cfg.desc_dim + 1) * p * p, hid)
+        add(f"{lf}.fc2.bias", (cfg.desc_dim + 1) * p * p)
+
+    add("mask_token", 1, 1, dd)
+    return sd
+
+
+def _overwrite(dst: Dict[str, Any], src: Dict[str, Any], path: str = ""
+               ) -> List[str]:
+    """Write every leaf of ``src`` into ``dst`` where ``dst`` has a leaf of
+    that shape; return the others, named as the JAX package names them."""
+    bad = []
+    for k, v in src.items():
+        if isinstance(v, dict):
+            if k in dst and isinstance(dst[k], dict):
+                bad += _overwrite(dst[k], v, f"{path}/{k}")
+            else:
+                bad.append(f"{path}/{k} (missing in target)")
+        elif k in dst and tuple(np.shape(dst[k])) == tuple(v.shape):
+            dst[k] = np.asarray(v, np.float32)
+        else:
+            have = tuple(np.shape(dst.get(k, ()))) if k in dst else None
+            bad.append(f"{path}/{k} shape {v.shape} vs {have}")
+    return bad
+
+
+def convert_file(pth_path: str, out_path: str, preset: str = "large",
+                 verbose: bool = True, device="cuda") -> List[str]:
+    """Convert a public MASt3R ``.pth`` checkpoint into the ``.npz`` of
+    `Mast3rModel.save_pretrained` at the geometry of ``preset``.
+
+    Every leaf the mapping fills is the checkpoint's; the others keep a
+    random initialisation (seed 0, made on ``device``). Returns the leaves
+    whose shape did not match and the checkpoint keys nothing mapped, as
+    the JAX package's `convert_file` does."""
+    import torch
+
+    from ..config import model_preset
+    from ..models.mast3r import Mast3rModel
+    from .from_jax import mast3r_state_dict_from_jax
+
+    # a full training checkpoint pickles more than tensors; load only
+    # files from a source you trust
+    ckpt = torch.load(pth_path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model", ckpt)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    cfg = model_preset(preset)
+    mapped, unmapped = convert_state_dict(sd, cfg.enc_depth, cfg.dec_depth,
+                                          cfg.patch_size, cfg.desc_dim)
+    model = Mast3rModel.init_random(cfg, seed=0, device=device)
+    params, _ = convert_state_dict(
+        {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+        cfg.enc_depth, cfg.dec_depth, cfg.patch_size, cfg.desc_dim)
+    mismatches = _overwrite(params["params"], mapped["params"])
+    model.load_state_dict({k: v.to(model.device) for k, v in
+                           mast3r_state_dict_from_jax(params).items()})
+    model.save_pretrained(out_path)
+    if verbose:
+        print(f"converted -> {out_path}")
+        if mismatches:
+            print(f"{len(mismatches)} mismatched leaves (first 10):")
+            for m in mismatches[:10]:
+                print("  ", m)
+        if unmapped:
+            print(f"{len(unmapped)} unmapped torch keys (first 10):")
+            for m in unmapped[:10]:
+                print("  ", m)
+        if not mismatches and not unmapped:
+            print("all keys mapped (trunk + DPT + descriptor heads)")
+    return mismatches + unmapped
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="convert public MASt3R .pth weights to .npz")
+    ap.add_argument("pth")
+    ap.add_argument("out")
+    ap.add_argument("--preset", default="large")
+    ap.add_argument("--device", default="cuda",
+                    help="where the random initialisation of the unmapped "
+                    "leaves is made (cuda unless cpu)")
+    args = ap.parse_args(argv)
+    convert_file(args.pth, args.out, args.preset, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -35,6 +35,7 @@ from .ops.matching import (PairMatches, match_pair, refine_matches,
                            subsample_grid_indices)
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger, Timer
+from .utils.profiling import trace_if
 from .utils.se3 import se3_inverse
 
 __all__ = ("Reconstruction", "reconstruct_scene")
@@ -156,7 +157,7 @@ def reconstruct_scene(
     model_tag = _model_tag(model)
     sub = cfg.matching.subsample
 
-    with timer("inference"):
+    with timer("inference"), trace_if("inference"):
         preds = _cached_inference(model, imgs, pairs, cache, model_tag,
                                   batch_size=8)
         if dev.type == "cuda":
@@ -209,7 +210,7 @@ def reconstruct_scene(
                 k=cfg.ga.lora_k, gamma=cfg.ga.lora_gamma,
                 min_norm=cfg.ga.lora_min_norm)
 
-    with timer("ga"):
+    with timer("ga"), trace_if("ga"):
         result, params = run_global_alignment(
             data, mst, cfg.ga, prev_params=optim_params, freeze=freeze,
             depth_basis=depth_basis, depth_coeffs=depth_coeffs, device=dev)
@@ -219,7 +220,7 @@ def reconstruct_scene(
     if cfg.ga.refine_lm:
         # LM / Gauss-Newton polish over absolute poses around the GA's
         # optimum (alignment/lm.py), on the device
-        with timer("lm_refine"):
+        with timer("lm_refine"), trace_if("lm_refine"):
             cam2w_out, K_out, lm_costs = _refine_lm(
                 cfg.ga, data, freeze, cam2w_out, K_out,
                 result.depth.cpu().numpy(), n, dev)

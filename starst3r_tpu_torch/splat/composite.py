@@ -94,16 +94,19 @@ def composite_tiles_plain(entries: torch.Tensor, counts: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch compositing, no early exit. Chunks of ``chunk`` slots
     that lie wholly past a tile's count are skipped: their entries have
-    opacity 0 and change nothing. Returns rgb (C, H, W, 3), alpha
-    (C, H, W)."""
+    opacity 0 and change nothing. Computes in float32, or in float64 when
+    the entries are float64 (a reference for the float32 versions).
+    Returns rgb (C, H, W, 3), alpha (C, H, W)."""
     c, t_total, k, _ = entries.shape
-    e = entries.reshape(c * t_total, k, 9).float()
+    dt = torch.float64 if entries.dtype == torch.float64 else torch.float32
+    e = entries.reshape(c * t_total, k, 9).to(dt)
     cnt = counts.reshape(-1).to(e.device)
-    pix_x, pix_y = _tile_pix(tw, th, tile, e.device)
+    pix_x, pix_y = (p.to(dt) for p in _tile_pix(tw, th, tile, e.device))
     pix_x = pix_x.repeat(c, 1)[:, None, :]                    # (CT, 1, P)
     pix_y = pix_y.repeat(c, 1)[:, None, :]
-    acc_rgb = torch.zeros((c * t_total, tile * tile, 3), device=e.device)
-    acc_t = torch.ones((c * t_total, tile * tile), device=e.device)
+    acc_rgb = torch.zeros((c * t_total, tile * tile, 3), dtype=dt,
+                          device=e.device)
+    acc_t = torch.ones((c * t_total, tile * tile), dtype=dt, device=e.device)
     n_slots = min(k, int(cnt.max())) if cnt.numel() else 0
     for s in range(0, n_slots, chunk):
         act = torch.nonzero(cnt > s).squeeze(1)               # tiles reached

@@ -26,10 +26,11 @@ was.
 The JAX package jit-compiles its step with the config as a static argument
 and pins the host-only fields (`_graph_cfg`, `_NON_GRAPH_FIELDS`) so they
 do not force recompiles; the port runs eagerly and has neither. Its
-`run_optim` also takes no device mesh (sharded training is a later slice)
-and records no profiler trace of its own: the stages of a step (binning,
-render, loss, backward, adam, mcmc) are torch.profiler ranges named
-``3dgs/<stage>``, and CUDA events when `stage_events` is a list.
+`run_optim` also takes no device mesh (sharded training is a later slice).
+It traces its first three steps under `utils.profiling.trace_if` label
+``splat_optim`` when a trace directory is set; the stages of a step
+(binning, render, loss, backward, adam, mcmc) are torch.profiler ranges
+named ``3dgs/<stage>``, and CUDA events when `stage_events` is a list.
 
 Two faults of the reference are reproduced, not fixed, and the tests name
 them: `init_gaussians` takes the log of ``point_scales`` under the fixed
@@ -51,6 +52,7 @@ from torch.profiler import record_function
 from ..config import SplatConfig
 from ..ops.ssim import ssim_per_image
 from ..utils.device import resolve_device
+from ..utils.profiling import trace_if
 from .mcmc import MCMCConfig, add_position_noise, grow_target, relocate_dead
 from .rasterize import Bins, bin_gaussians, max_bbox_area, rasterize
 
@@ -401,41 +403,49 @@ def run_optim(state: GSState, gt_images, w2c, Ks, iters: int,
     # after every refine (for every Gaussian, as the reference does)
     anchors = (state.params["means"].clone()
                if cfg.loss_anchor_fac > 0.0 else None)
-    for it in range(iters):
-        if cb:
-            # minibatches change the cameras every step: no bin reuse
-            sel = torch.as_tensor(cam_rng.choice(c, size=cb, replace=False),
-                                  device=dev)
-            state, loss = train_step(state, gt[sel], w2c_t[sel], ks_t[sel],
-                                     w, h, scfg, cb, anchors=anchors)
-        else:
-            if bins is None or it % rebin == 0:
-                with _stage("binning"):
-                    bins = compute_bins(state.params, w2c_t, ks_t, w, h,
-                                        scfg, n_alive=state.n_alive)
-                    if cfg.auto_budget:
-                        scfg, bins = _grow_budget(state, bins, w2c_t, ks_t,
-                                                  w, h, scfg, cfg)
-            state, loss = train_step(state, gt, w2c_t, ks_t, w, h, scfg, c,
-                                     bins=bins, anchors=anchors)
-        if enable_pruning:
-            step = step0 + it + 1
-            do_refine = (mcfg.refine_start <= step < mcfg.refine_stop
-                         and step % mcfg.refine_every == 0)
-            # the noise scales with the means' learning rate, as gsplat's
-            # does with the means optimiser's
-            mean_lr = cfg.lr_means if cfg.lr_means is not None else cfg.lr
-            with _stage("mcmc"):
-                state = _mcmc_post_step(state, mean_lr, cfg, mcfg,
-                                        do_refine)
-            if do_refine:
-                bins = None   # relocated Gaussians jump: rebin
-                if anchors is not None:
-                    anchors = state.params["means"].clone()
-        losses_dev.append(loss)
-        if verbose and (it % 50 == 0 or it == iters - 1):
-            print(f"[3dgs] step {step0 + it + 1} loss={float(loss):.4f} "
-                  f"alive={state.n_alive}")
+    with contextlib.ExitStack() as trace:
+        trace.enter_context(trace_if("splat_optim"))
+        for it in range(iters):
+            if it == 3:
+                # trace only the first steps: a whole run's trace is large
+                # and the profiler slows every step it records
+                trace.close()
+            if cb:
+                # minibatches change the cameras every step: no bin reuse
+                sel = torch.as_tensor(
+                    cam_rng.choice(c, size=cb, replace=False), device=dev)
+                state, loss = train_step(state, gt[sel], w2c_t[sel],
+                                         ks_t[sel], w, h, scfg, cb,
+                                         anchors=anchors)
+            else:
+                if bins is None or it % rebin == 0:
+                    with _stage("binning"):
+                        bins = compute_bins(state.params, w2c_t, ks_t, w, h,
+                                            scfg, n_alive=state.n_alive)
+                        if cfg.auto_budget:
+                            scfg, bins = _grow_budget(state, bins, w2c_t,
+                                                      ks_t, w, h, scfg, cfg)
+                state, loss = train_step(state, gt, w2c_t, ks_t, w, h, scfg,
+                                         c, bins=bins, anchors=anchors)
+            if enable_pruning:
+                step = step0 + it + 1
+                do_refine = (mcfg.refine_start <= step < mcfg.refine_stop
+                             and step % mcfg.refine_every == 0)
+                # the noise scales with the means' learning rate, as
+                # gsplat's does with the means optimiser's
+                mean_lr = (cfg.lr_means if cfg.lr_means is not None
+                           else cfg.lr)
+                with _stage("mcmc"):
+                    state = _mcmc_post_step(state, mean_lr, cfg, mcfg,
+                                            do_refine)
+                if do_refine:
+                    bins = None   # relocated Gaussians jump: rebin
+                    if anchors is not None:
+                        anchors = state.params["means"].clone()
+            losses_dev.append(loss)
+            if verbose and (it % 50 == 0 or it == iters - 1):
+                print(f"[3dgs] step {step0 + it + 1} "
+                      f"loss={float(loss):.4f} alive={state.n_alive}")
     losses = torch.stack(losses_dev).tolist() if losses_dev else []
     return state, losses
 

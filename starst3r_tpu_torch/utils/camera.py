@@ -1,12 +1,32 @@
-"""Pinhole camera helpers on torch tensors (the part of
-`starst3r_tpu/utils/camera.py` the canonical views use): the pixel grid and
-the focal estimate from a pointmap."""
+"""Pinhole camera math on torch tensors (port of
+`starst3r_tpu/utils/camera.py`): intrinsics, the pixel grid, projection,
+unprojection and the focal estimate from a pointmap. The functions take
+leading batch dimensions and work on the device of their inputs."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ("pixel_grid", "estimate_focal_from_pointmap")
+__all__ = ("make_intrinsics", "pixel_grid", "unproject_depth",
+           "project_points", "reproj2d", "estimate_focal_from_pointmap")
+
+
+def make_intrinsics(focal, pp, dtype=torch.float32, device=None):
+    """focal (...,) or (..., 1); pp (..., 2) in pixels -> K (..., 3, 3) on
+    ``device`` (the inputs' device when they are tensors and it is None)."""
+    if device is None and isinstance(focal, torch.Tensor):
+        device = focal.device
+    focal = torch.as_tensor(focal, dtype=dtype, device=device)
+    if focal.ndim and focal.shape[-1] == 1:
+        focal = focal[..., 0]
+    pp = torch.as_tensor(pp, dtype=dtype, device=focal.device)
+    K = torch.zeros(focal.shape + (3, 3), dtype=dtype, device=focal.device)
+    K[..., 0, 0] = focal
+    K[..., 1, 1] = focal
+    K[..., 0, 2] = pp[..., 0]
+    K[..., 1, 2] = pp[..., 1]
+    K[..., 2, 2] = 1.0
+    return K
 
 
 def pixel_grid(h: int, w: int, dtype=torch.float32, device=None):
@@ -31,3 +51,55 @@ def estimate_focal_from_pointmap(pts3d, pp, conf=None, eps: float = 1e-8):
     wgt = conf if conf is not None else torch.ones_like(num)
     f = torch.sum(wgt * num) / torch.clamp(torch.sum(wgt * den), min=eps)
     return torch.clamp(f, min=eps)
+
+
+def unproject_depth(depth, K, c2w=None, pix=None):
+    """depth (..., N), K (..., 3, 3) and pixels (..., N, 2) -> camera-frame
+    points (..., N, 3), or world-frame ones when ``c2w`` (..., 4, 4) is
+    given."""
+    if pix is None:
+        raise ValueError("pix required (use pixel_grid)")
+    fx = K[..., 0, 0][..., None]
+    fy = K[..., 1, 1][..., None]
+    cx = K[..., 0, 2][..., None]
+    cy = K[..., 1, 2][..., None]
+    x = (pix[..., 0] - cx) / fx * depth
+    y = (pix[..., 1] - cy) / fy * depth
+    pts = torch.stack([x, y, depth], dim=-1)
+    if c2w is not None:
+        R = c2w[..., :3, :3]
+        t = c2w[..., :3, 3]
+        pts = torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+    return pts
+
+
+def project_points(pts, K, w2c=None, eps: float = 1e-8):
+    """Points (..., N, 3) -> (pixel coordinates (..., N, 2), depth
+    (..., N)); world-frame points when ``w2c`` is given, else camera-frame
+    ones."""
+    if w2c is not None:
+        R = w2c[..., :3, :3]
+        t = w2c[..., :3, 3]
+        pts = torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+    z = pts[..., 2]
+    signed_eps = torch.where(z < 0, torch.full_like(z, -eps),
+                             torch.full_like(z, eps))
+    zc = torch.where(torch.abs(z) < eps, signed_eps, z)
+    fx = K[..., 0, 0][..., None]
+    fy = K[..., 1, 1][..., None]
+    cx = K[..., 0, 2][..., None]
+    cy = K[..., 1, 2][..., None]
+    u = fx * pts[..., 0] / zc + cx
+    v = fy * pts[..., 1] / zc + cy
+    return torch.stack([u, v], dim=-1), z
+
+
+def reproj2d(proj_matrix, pts3d, eps: float = 1e-8):
+    """A 3x4 projection matrix (K @ w2c[:3]) applied to (N, 3) points ->
+    (N, 2) pixels (the reference helper `reproj2d`, call site
+    reconstruct.py:366)."""
+    homo = proj_matrix[..., :3, :3] @ pts3d[..., None]
+    homo = homo[..., 0] + proj_matrix[..., :3, 3]
+    z = homo[..., 2:3]
+    zc = torch.where(torch.abs(z) < eps, torch.full_like(z, eps), z)
+    return homo[..., :2] / zc

@@ -20,7 +20,8 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-__all__ = ("flatten", "save_pytree", "load_flat", "group_flat")
+__all__ = ("flatten", "save_pytree", "restore_pytree", "load_flat",
+           "group_flat")
 
 _SEP = "/"
 
@@ -70,6 +71,32 @@ def save_pytree(path: str, tree: Any) -> None:
         np.savez(f, __treedef__=np.frombuffer(treedef, dtype=np.uint8),
                  **flat)
     os.replace(tmp, path)
+
+
+def _rebuild(like, path: Tuple[str, ...], flat: Dict[str, np.ndarray],
+             name: str):
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _rebuild(v, path + (str(k),), flat, name)
+                for k, v in like.items()}
+    if _is_namedtuple(like):
+        return type(like)(*[_rebuild(v, path + (f,), flat, name)
+                            for f, v in zip(like._fields, like)])
+    if isinstance(like, (tuple, list)):
+        return type(like)(_rebuild(v, path + (str(i),), flat, name)
+                          for i, v in enumerate(like))
+    key = _SEP.join(path)
+    if key not in flat:
+        raise KeyError(f"checkpoint {name!r} missing leaf {key!r}")
+    return flat[key]
+
+
+def restore_pytree(path: str, like: Any) -> Any:
+    """Restore into the structure of ``like``: every leaf of ``like`` is
+    replaced by the saved numpy array under its path key (dtype and shape
+    as saved); a leaf the file lacks raises KeyError."""
+    return _rebuild(like, (), load_flat(path), path)
 
 
 def load_flat(path: str) -> Dict[str, np.ndarray]:

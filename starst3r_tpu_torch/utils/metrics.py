@@ -1,5 +1,5 @@
 """Structured metrics logging (jsonl) and wall-clock phase timers (port of
-`MetricsLogger` / `Timer` from `starst3r_tpu/utils/metrics.py`).
+`starst3r_tpu/utils/metrics.py`: `MetricsLogger`, `Timer`, `timed`).
 
 Timers read the host clock: a phase that ends in a host copy of its result
 (as every phase of `reconstruct_scene` does) has waited for the device."""
@@ -13,7 +13,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-__all__ = ("MetricsLogger", "Timer")
+__all__ = ("MetricsLogger", "Timer", "timed")
 
 
 class MetricsLogger:
@@ -60,3 +60,13 @@ class Timer:
 
     def summary(self) -> Dict[str, float]:
         return dict(self.totals)
+
+
+@contextlib.contextmanager
+def timed(label: str, logger: Optional[MetricsLogger] = None):
+    """Log the enclosed block's wall-clock seconds as a "timing" record."""
+    t0 = time.perf_counter()
+    yield
+    dt = time.perf_counter() - t0
+    if logger is not None:
+        logger.log("timing", label=label, seconds=dt)

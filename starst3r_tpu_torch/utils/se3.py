@@ -15,8 +15,11 @@ __all__ = (
     "quat_normalize",
     "quat_to_rotmat",
     "rotmat_to_quat",
+    "quat_mul",
     "quat_slerp",
+    "se3_from_quat_trans",
     "se3_inverse",
+    "se3_compose",
     "se3_apply",
     "interp_se3",
     "interp_se3_path",
@@ -73,6 +76,18 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return quat_normalize(q)
 
 
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions [w,x,y,z]."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], -1)
+
+
 def quat_slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     """Spherical interpolation of unit quaternions (shortest arc)."""
     a = quat_normalize(a)
@@ -90,6 +105,16 @@ def quat_slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     return quat_normalize(w_a * a + w_b * b)
 
 
+def se3_from_quat_trans(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternion and (..., 3) translation -> (..., 4, 4) SE3."""
+    R = quat_to_rotmat(q)
+    M = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    M[..., :3, :3] = R
+    M[..., :3, 3] = t
+    M[..., 3, 3] = 1.0
+    return M
+
+
 def se3_inverse(M: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of SE3 matrices (..., 4, 4)."""
     R = M[..., :3, :3]
@@ -99,6 +124,10 @@ def se3_inverse(M: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros_like(M[..., 3:, :])
     bottom[..., 0, 3] = 1.0
     return torch.cat([torch.cat([Rt, ti[..., None]], -1), bottom], -2)
+
+
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
 
 
 def se3_apply(M: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

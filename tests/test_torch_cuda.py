@@ -55,7 +55,11 @@ Tolerances:
   - the lora GA on the card against the CPU on a planted sphere scene:
     1e-4, tests/test_torch_ga.py's tolerance, poses in the root camera's
     frame (the GA's free rigid motion);
-  - checkpoints: bit for bit.
+  - checkpoints: bit for bit;
+  - the command line (`python -m starst3r_tpu_torch`) on the card at the
+    tiny preset: every subcommand exits 0 and writes its files, and the
+    subcommands that render or train launch the packed compositing kernels;
+    `utils.profiling.trace_if` writes a trace.
 """
 
 import numpy as np
@@ -900,84 +904,18 @@ def test_schur_refine_on_cuda_matches_cpu(dev):
     assert t_err.max() < 2e-2
 
 
-def _planted_ga_scene(n_cams=4, hw=64, sub=8, focal=90.0):
-    """Cameras on an arc facing a sphere, core-grid correspondences snapped
-    to the grid (the construction of the JAX package's
-    `utils/synthetic.py::synthetic_ga_scene`)."""
-    from starst3r_tpu_torch.alignment.condense import CondensedData
-    sph_c, sph_r = np.array([0.0, 0.0, 4.0]), 2.0
-    gt = []
-    for k in range(n_cams):
-        ang = (k - (n_cams - 1) / 2) * 0.25
-        m = np.eye(4)
-        m[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
-                     [-np.sin(ang), 0, np.cos(ang)]]
-        m[:3, 3] = [1.2 * np.sin(ang), 0.25 * k, 0.5 * (1 - np.cos(ang))]
-        gt.append(m)
-    K = np.array([[focal, 0, hw / 2], [0, focal, hw / 2], [0, 0, 1]])
-    ax = np.arange(sub // 2, hw, sub)
-    gs = len(ax)
-    core_pix = np.stack(np.meshgrid(ax, ax), -1).reshape(-1, 2).astype(
-        np.float64)
-    rays = np.stack([(core_pix[:, 0] - K[0, 2]) / focal,
-                     (core_pix[:, 1] - K[1, 2]) / focal,
-                     np.ones(len(core_pix))], -1)
-    depths, pts = [], []
-    for m in gt:
-        d_w = rays @ m[:3, :3].T
-        oc = m[:3, 3] - sph_c
-        b = (d_w * oc).sum(-1)
-        a = (d_w * d_w).sum(-1)
-        disc = np.maximum(b * b - a * ((oc * oc).sum() - sph_r ** 2), 1e-9)
-        z = (-b - np.sqrt(disc)) / a
-        depths.append(z)
-        pts.append((rays * z[:, None]) @ m[:3, :3].T + m[:3, 3])
-    depths = np.stack(depths)
-    pairs = [(i, j) for i in range(n_cams) for j in range(n_cams) if i != j]
-    s = len(core_pix)
-    cols = {k: [] for k in ("i1", "x1", "i2", "x2", "cf", "cp")}
-    for k, (i, j) in enumerate(pairs):
-        w2c = np.linalg.inv(gt[j])
-        cam = pts[i] @ w2c[:3, :3].T + w2c[:3, 3]
-        uv = cam[:, :2] / cam[:, 2:3] * focal + K[:2, 2]
-        g = np.clip(np.round((uv - sub // 2) / sub), 0, gs - 1)
-        inside = ((uv > 1) & (uv < hw - 2)).all(-1) & (cam[:, 2] > 0.1)
-        cols["i1"].append(np.full(s, i))
-        cols["x1"].append(np.arange(s))
-        cols["i2"].append(np.full(s, j))
-        cols["x2"].append(g[:, 1] * gs + g[:, 0])
-        cols["cf"].append(inside.astype(np.float32))
-        cols["cp"].append(np.full(s, k))
-    cat = {k: np.concatenate(v) for k, v in cols.items()}
-    med = np.median(depths, axis=1)
-    p = len(pairs)
-    data = CondensedData(
-        imsizes=np.tile(np.array([[hw, hw]], np.float32), (n_cams, 1)),
-        pps=np.full((n_cams, 2), 0.5, np.float32),
-        base_focals=np.full(n_cams, focal, np.float32),
-        core_depth=(depths / med[:, None]).astype(np.float32),
-        median_depths=med.astype(np.float32),
-        core_pix=core_pix.astype(np.float32),
-        corr_img1=cat["i1"].astype(np.int32),
-        corr_idx1=cat["x1"].astype(np.int32),
-        corr_img2=cat["i2"].astype(np.int32),
-        corr_idx2=cat["x2"].astype(np.int32),
-        corr_conf=cat["cf"], corr_pair=cat["cp"].astype(np.int32),
-        pair_img1=np.array([a for a, _ in pairs], np.int32),
-        pair_img2=np.array([b for _, b in pairs], np.int32),
-        pair_matching_ok=np.ones(p, bool),
-        preds21_pts=np.zeros((p, s, 3), np.float32),
-        preds21_conf=np.zeros((p, s), np.float32))
-    return data, (0, [(i, i + 1) for i in range(n_cams - 1)]), (gs, gs)
-
-
 def test_lora_ga_on_cuda_matches_cpu(dev):
     """The GA with spectral low-rank depth (the basis expansion in full
     float32 on the card) against the same GA on the CPU."""
     from starst3r_tpu_torch.alignment.ga import run_global_alignment
     from starst3r_tpu_torch.alignment.spectral import (
         spectral_projection_of_depthmaps)
-    data, mst, grid = _planted_ga_scene()
+    from starst3r_tpu_torch.utils.synthetic import synthetic_ga_scene
+    # cameras on an arc facing a sphere, correspondences snapped to the
+    # 8 x 8 core grid of a 64 px image
+    data, mst, _, _ = synthetic_ga_scene(n_cams=4, hw=64, focal=90.0,
+                                         subsample=8)
+    grid = (8, 8)
     rng = np.random.default_rng(2)
     colors = rng.uniform(size=(4, grid[0] * grid[1], 3)).astype(np.float32)
     coeffs, basis = spectral_projection_of_depthmaps(
@@ -1056,3 +994,77 @@ def test_model_checkpoint_round_trip_on_cuda(dev, tmp_path):
     for k in a:
         np.testing.assert_allclose(b[k].cpu().numpy(), a[k].cpu().numpy(),
                                    atol=1e-6, err_msg=k)
+
+
+def _launches():
+    return {"composite_fwd_packed": comp.composite_packed_cuda.launches,
+            "composite_bwd_packed": comp.composite_packed_bwd_cuda.launches}
+
+
+def test_cli_end_to_end_on_cuda(dev, tmp_path):
+    import json
+    import os
+
+    from PIL import Image
+    from starst3r_tpu_torch import cli
+    from starst3r_tpu_torch.io.ply import load_ply
+
+    imgdir = tmp_path / "imgs"
+    imgdir.mkdir()
+    rng = np.random.default_rng(6)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 256, size=(64, 64, 3)).astype(
+            np.uint8)).save(imgdir / f"im_{i}.png")
+    out = str(tmp_path / "out")
+    ckpt = os.path.join(out, "scene.ckpt")
+    runs = {
+        "reconstruct": ["reconstruct", "--imgdir", str(imgdir), "--out", out,
+                        "--res", "64", "--preset", "tiny", "--ga-iters1",
+                        "20", "--ga-iters2", "10", "--gs-iters", "5",
+                        "--conf-thres", "1.0", "--incremental-batch", "2"],
+        "train-gs": ["train-gs", "--scene", ckpt, "--iters", "5"],
+        "render-path": ["render-path", "--scene", ckpt, "--out",
+                        str(tmp_path / "frames"), "--steps", "4"],
+        "export-ply": ["export-ply", "--scene", ckpt, "--out",
+                       str(tmp_path / "g.ply")],
+    }
+    for name, args in runs.items():
+        before = _launches()
+        assert cli.main(args) == 0, name
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in _launches().items()}
+        if name in ("reconstruct", "train-gs"):
+            assert min(ran.values()) > 0, (name, ran)
+        elif name == "render-path":
+            assert ran["composite_fwd_packed"] > 0, ran
+    for f in ("scene.ckpt", "points.ply", "c2w.npy", "intrinsics.npy",
+              "metrics.jsonl"):
+        assert os.path.exists(os.path.join(out, f)), f
+    frames = sorted(os.listdir(tmp_path / "frames"))
+    assert len(frames) == 5
+    im = np.asarray(Image.open(tmp_path / "frames" / frames[0]))
+    assert im.shape == (64, 64, 3)
+    pts, _ = load_ply(os.path.join(out, "points.ply"))
+    assert pts.shape[0] > 0 and np.isfinite(pts).all()
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        (load,) = [r for r in map(json.loads, f)
+                   if r["event"] == "load_images"]
+    assert load["impl"] == "native"
+
+
+def test_trace_if_on_cuda_writes_a_trace(dev, tmp_path):
+    import json
+    import os
+
+    from starst3r_tpu_torch.utils.profiling import trace_if
+    with trace_if("matmul", str(tmp_path)):
+        a = torch.randn(256, 256, device=dev)
+        (a @ a).sum().item()
+    files = [f for f in os.listdir(tmp_path / "matmul")
+             if f.endswith(".json")]
+    assert len(files) == 1
+    with open(tmp_path / "matmul" / files[0]) as f:
+        trace = json.load(f)
+    # the device events are not asserted: torch.profiler's trace on the
+    # card has been seen to hold none
+    assert trace["traceEvents"]

@@ -6,13 +6,18 @@
      not scipy, which `alignment/spectral.py` imports only to build a
      basis);
   3. entry points default to the card: without a GPU they raise unless the
-     caller passes device="cpu".
+     caller passes device="cpu";
+  4. the package data ships every file under `starst3r_tpu_torch/csrc/`
+     (the kernels build from them at first use), and the `starst3r-torch`
+     script names the port's command line.
 """
 
 import ast
+import fnmatch
 import os
 import subprocess
 import sys
+import tomllib
 
 import numpy as np
 import pytest
@@ -69,7 +74,13 @@ PORT_MODULES = ("starst3r_tpu_torch", "starst3r_tpu_torch.splat",
                 "starst3r_tpu_torch.io.torch_convert",
                 "starst3r_tpu_torch.alignment.lm",
                 "starst3r_tpu_torch.alignment.schur",
-                "starst3r_tpu_torch.alignment.spectral")
+                "starst3r_tpu_torch.alignment.spectral",
+                "starst3r_tpu_torch.cli", "starst3r_tpu_torch.native",
+                "starst3r_tpu_torch.io.ply",
+                "starst3r_tpu_torch.utils.synthetic",
+                "starst3r_tpu_torch.utils.eval",
+                "starst3r_tpu_torch.utils.profiling",
+                "starst3r_tpu_torch.version")
 
 
 def test_import_port_loads_no_jax():
@@ -111,3 +122,24 @@ def test_entry_points_default_to_cuda():
         stt.Mast3rModel.from_pretrained(os.path.join(ROOT, "no_such.npz"))
     scene = stt.Scene(device="cpu")
     assert scene.device.type == "cpu"
+
+
+def _pyproject():
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        return tomllib.load(f)
+
+
+def test_package_data_ships_every_csrc_file():
+    globs = _pyproject()["tool"]["setuptools"]["package-data"][
+        "starst3r_tpu_torch"]
+    files = sorted(os.listdir(os.path.join(PKG, "csrc")))
+    assert {"composite_common.cuh", "starst3r_native.cpp"} <= set(files)
+    missed = [f for f in files
+              if not any(fnmatch.fnmatch(f"csrc/{f}", g) for g in globs)]
+    assert missed == [], missed
+
+
+def test_console_scripts_name_both_command_lines():
+    scripts = _pyproject()["project"]["scripts"]
+    assert scripts["starst3r-torch"] == "starst3r_tpu_torch.cli:main"
+    assert scripts["starst3r"] == "starst3r_tpu.cli:main"
