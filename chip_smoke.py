@@ -105,7 +105,24 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      ATE below 0.12 x the scale, the loss falling, the training views'
      PSNR at the recovered poses (printed), the kernels launched, the
      orbit's frames. Steps 13-15's seconds and step 12's errors are on a
-     `[stages] slice 6:` line.
+     `[stages] slice 6:` line;
+ 16. `[parallel]` (run after step 8, on the trained six-view scene): the
+     sharded paths of `starst3r_tpu_torch/parallel/` against the meshless
+     runs. (a) In this process, a world of one over NCCL: pair-parallel
+     inference (`infer_pairs(sharding=)`) equal to the meshless
+     predictions; `reconstruct_scene(mesh=)` against the meshless call
+     (cache off, GA 100 + 50) in camera 0's frame; `run_optim(mesh=)`
+     for 50 steps with one MCMC refine, K1 and K2 launched 50 times
+     each, its losses against the meshless run's (the first step's to
+     1e-6; the rest to 2e-4 or twice the meshless run's distance from
+     itself run again, the backward's atomics); the sharded LM and Schur
+     polish on the planted problem. (b) Two ranks on the one card over
+     gloo, each its own interpreter (`parallel_rank`): the large model's
+     tensor-parallel forward (model axis 2) of 8 pairs against the
+     meshless bfloat16 forward (at most twice that forward's own distance
+     from float32), the same 50 training steps (K1 and K2 launched 50
+     times a rank) against (a)'s meshless losses, and the polish. Its
+     seconds are on a `[stages] slice 7:` line.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -201,6 +218,38 @@ OUT_ATOL = {"pts1": 5e-4, "pts2": 5e-4, "conf1": 1e-3, "conf2": 1e-3,
 CLI_STEPS = 50
 # the device events of a torch.profiler trace (its kernels, copies and fills)
 CUDA_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# `[parallel]`: the reconstruction's GA steps (cut from the main path's
+# 500 + 200 to keep the phase short), the sharded training's steps, and
+# the tolerances. Losses rtol 2e-4 (tests/test_distributed.py), or twice
+# the meshless run's largest distance from itself run twice more where
+# that is larger (measured in the same call: the backward's atomics part
+# two runs from the second step on, and Adam's normalised steps carry it
+# to ~1% of the loss within a few steps on this scene). The polish on the
+# planted problem: poses within 1e-3 of the meshless run's, as
+# tests/test_lm.py and tests/test_schur.py hold a sharded run, and the
+# cost below 1e-4 of its first (planted_polish's bound); the costs are
+# printed, not compared: the damped system's condition number (~1e7)
+# turns float32 sums in another order into percent-level moves of the
+# first steps (ROADMAP.md, constraints). Pair-parallel predictions and
+# the GA under a world of one as the meshless ones, to float noise
+PAR_GA = (100, 50)
+PAR_STEPS = 50
+PAR_LOSS_RTOL = 2e-4
+PAR_REPEATS = 2
+# the first step's loss: the same parameters, a deterministic forward
+# (summed over two ranks' cameras in (b))
+PAR_FIRST_RTOL = 1e-6
+PAR_POSE_ATOL = 1e-3
+PAR_CONVERGED = 1e-4
+PAR_INFER_TOL = 1e-5
+# tensor parallelism sums each row-parallel layer's two halves, rounded to
+# the activation dtype, where the meshless layer rounds once: its distance
+# from the meshless forward is held to twice the meshless bfloat16
+# forward's own distance from its float32 forward (measured in the same
+# run), and never below float32 summation-order noise
+PAR_TP_FLOOR = 1e-4
+PAR_GA_TOL = 1e-3
+PAR_TIMEOUT = 600
 POLISH = {
     "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
                     lm_mode="lm"),
@@ -1708,6 +1757,368 @@ def turntable_phase():
     return {"turntable_ga": out["ga_s"], "turntable_3dgs": out["gs_s"]}
 
 
+def scaled_err(got, want):
+    """max |got - want| over the largest |want|, in float64, over the
+    entries finite in both (they must be finite in the same places)."""
+    import torch
+    a = torch.as_tensor(got).double().cpu()
+    b = torch.as_tensor(want).double().cpu()
+    fin = torch.isfinite(b)
+    check(bool((torch.isfinite(a) == fin).all()),
+          "non-finite values in different places")
+    if not bool(fin.any()):
+        return 0.0
+    den = float(b[fin].abs().max())
+    return float((a[fin] - b[fin]).abs().max()) / max(den, 1e-30)
+
+
+def rel_steps(got, want):
+    """|got - want| / |want| per step."""
+    want = np.asarray(want, np.float64)
+    return np.abs(np.asarray(got, np.float64) - want) / np.abs(want)
+
+
+def relative_poses(c2w):
+    """Each camera in camera 0's frame: the GA leaves the scene's rigid
+    motion free (its gauge), so two runs agree only up to it."""
+    c2w = np.asarray(c2w, np.float64)
+    return np.linalg.inv(c2w[0])[None] @ c2w
+
+
+def par_train_inputs(scene):
+    """The training arguments of `[parallel]`: Scene.run_3dgs_optim's, with
+    the scene's MCMC schedule (one refine in PAR_STEPS steps)."""
+    import dataclasses
+    from starst3r_tpu_torch.splat.train import mcmc_config_from
+    cfg = dataclasses.replace(scene.config.splat, loss_ssim_fac=0.2,
+                              loss_opacity_fac=0.01, loss_scale_fac=0.01)
+    return (np.stack(scene.imgs), scene.w2c, scene.intrinsics, cfg,
+            mcmc_config_from(cfg))
+
+
+def copy_state(state):
+    """A GSState with its own generator at the same state (training draws
+    from it)."""
+    import torch
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return state._replace(generator=gen)
+
+
+def par_polish(dev, mesh=None):
+    """Both refiners on `planted_polish`'s problem, 3 iterations as the JAX
+    tests hold a sharded run to a meshless one: {name: (cam2w, costs)}."""
+    from starst3r_tpu_torch.alignment.lm import lm_refine
+    from starst3r_tpu_torch.alignment.schur import build_tracks, schur_refine
+    _, noisy, focals, pps, depths, core_pix, corr, conf = planted_ba(
+        np.random.default_rng(0), N_VIEWS, (HW // 8) ** 2)
+    tracks = build_tracks(*corr[:2], *corr[2:], conf, N_VIEWS,
+                          core_pix.shape[0], max_obs=8)
+    out = {}
+    out["lm"] = lm_refine(noisy, focals, pps, depths, core_pix, *corr, conf,
+                          iters=3, mesh=mesh, device=dev)
+    out["schur"] = schur_refine(noisy, focals, pps, depths, core_pix, tracks,
+                                iters=3, mesh=mesh, device=dev)
+    return {k: (np.asarray(v[0]), [float(c) for c in v[2]])
+            for k, v in out.items()}
+
+
+def check_polish(tag, got, want):
+    for name, (c2w, costs) in got.items():
+        w_c2w, w_costs = want[name]
+        pose = float(np.abs(c2w - w_c2w).max())
+        print(f"[parallel] {tag} {name}: poses within {pose:.3g} of the "
+              f"meshless run's (limit {PAR_POSE_ATOL}); costs "
+              f"{[float(f'{c:.6g}') for c in costs]}, the meshless run's "
+              f"{[float(f'{c:.6g}') for c in w_costs]} (the last below "
+              f"{PAR_CONVERGED} of the first)", flush=True)
+        check(pose <= PAR_POSE_ATOL, f"{tag} {name}: poses off by {pose}")
+        check(len(costs) == len(w_costs)
+              and costs[-1] < PAR_CONVERGED * costs[0],
+              f"{tag} {name}: did not converge: {costs}")
+
+
+def parallel_phase(stt, model, views, scene, dev, work_dir):
+    """`[parallel]`: the sharded paths, held to the meshless runs. (a) In
+    this process, world size 1 over NCCL: pair-parallel inference against
+    the meshless predictions; reconstruct_scene with and without the mesh
+    (cache off, GA PAR_GA steps) within the GA's gauge; run_optim(mesh=)
+    for PAR_STEPS steps from the trained scene, with the kernels' launches
+    counted, against the meshless run's losses; the sharded polish on the
+    planted problem. (b) Two ranks on the one card over gloo, each its own
+    interpreter (`parallel_rank`): tensor parallelism of the large model,
+    the same training against (a)'s meshless losses, the polish. Returns
+    the seconds and the training's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from starst3r_tpu_torch.imaging import make_pair_indices
+    from starst3r_tpu_torch.parallel import (initialize_distributed,
+                                             make_mesh, pair_sharding)
+    from starst3r_tpu_torch.splat.train import run_optim
+    secs = {}
+    t0 = time.perf_counter()
+    initialize_distributed(device=dev)
+    check(dist.get_world_size() == 1,
+          f"{dist.get_backend()} world of {dist.get_world_size()}")
+    mesh = make_mesh()
+
+    pairs = make_pair_indices(N_VIEWS, symmetric=True)
+    t = time.perf_counter()
+    ref = model.infer_pairs(views, pairs)
+    got = model.infer_pairs(views, pairs, sharding=pair_sharding(mesh))
+    torch.cuda.synchronize()
+    secs["par_infer"] = time.perf_counter() - t
+    err = max(scaled_err(torch.stack([getattr(p, f) for p in got]),
+                         torch.stack([getattr(p, f) for p in ref]))
+              for f in ("pts1", "conf1", "pts2", "conf2", "desc1", "desc2",
+                        "desc_conf1", "desc_conf2"))
+    print(f"[parallel] world 1 (nccl): infer_pairs(sharding=) over "
+          f"{len(pairs)} pairs, largest scaled difference from the meshless "
+          f"predictions {err:.3g} (limit {PAR_INFER_TOL})", flush=True)
+    check(err <= PAR_INFER_TOL, f"pair-parallel predictions off by {err}")
+
+    import dataclasses
+    cfg = stt.default_config()
+    cfg = dataclasses.replace(
+        cfg, ga=dataclasses.replace(cfg.ga, niter1=PAR_GA[0],
+                                    niter2=PAR_GA[1]),
+        scene=dataclasses.replace(cfg.scene, cache_dir=None))
+    t = time.perf_counter()
+    rec1, _ = stt.reconstruct_scene(model, views, device=dev, config=cfg)
+    recm, _ = stt.reconstruct_scene(model, views, device=dev, config=cfg,
+                                    mesh=mesh)
+    secs["par_reconstruct"] = time.perf_counter() - t
+    r1, rm = relative_poses(rec1.cam2w), relative_poses(recm.cam2w)
+    scale = max(traj_scale(r1), 1e-12)
+    t_err = float(np.abs(rm[:, :3, 3] - r1[:, :3, 3]).max()) / scale
+    r_err = float(np.abs(rm[:, :3, :3] - r1[:, :3, :3]).max())
+    k_err = scaled_err(recm.intrinsics, rec1.intrinsics)
+    pts = recm.get_dense_pts3d()[0]
+    print(f"[parallel] reconstruct_scene(mesh=) against the meshless run "
+          f"(GA {PAR_GA[0]} + {PAR_GA[1]}, cache off): poses in camera 0's "
+          f"frame within {t_err:.3g} x the trajectory scale {scale:.4g} "
+          f"(translation) and {r_err:.3g} (rotation), intrinsics within "
+          f"{k_err:.3g} of their largest (limit {PAR_GA_TOL} each); GA losses "
+          f"{rec1.losses} / {recm.losses}", flush=True)
+    check(all(np.isfinite(p).all() for p in pts), "dense points not finite")
+    check(max(t_err, r_err, k_err) <= PAR_GA_TOL,
+          f"the mesh's reconstruction is off: {t_err}, {r_err}, {k_err}")
+
+    gt, w2c, Ks, tcfg, mcfg = par_train_inputs(scene)
+    state = scene.gs_state
+    torch.save({"params": {k: v.cpu() for k, v in state.params.items()},
+                "mu": {k: v.cpu() for k, v in state.opt_state.mu.items()},
+                "nu": {k: v.cpu() for k, v in state.opt_state.nu.items()},
+                "count": state.opt_state.count, "step": state.step,
+                "n_alive": state.n_alive,
+                "generator": state.generator.get_state(), "gt": gt,
+                "w2c": w2c, "Ks": Ks, "cfg": tcfg, "mcfg": mcfg,
+                "steps": PAR_STEPS},
+               os.path.join(work_dir, "par_state.pt"))
+    t = time.perf_counter()
+    _, losses1 = run_optim(copy_state(state), gt, w2c, Ks, PAR_STEPS, tcfg,
+                           enable_pruning=True, mcfg=mcfg)
+    torch.cuda.synchronize()
+    secs["par_train_meshless"] = time.perf_counter() - t
+    # the meshless run against itself: K2 and the projection's backward
+    # add gradients with atomics, so two runs part in the last bits from
+    # the second step, and Adam's normalised steps carry that on
+    spread = np.max([rel_steps(run_optim(
+        copy_state(state), gt, w2c, Ks, PAR_STEPS, tcfg,
+        enable_pruning=True, mcfg=mcfg)[1], losses1)
+        for _ in range(PAR_REPEATS)], axis=0)
+    loss_tol = max(PAR_LOSS_RTOL, 2 * float(spread.max()))
+    set_launches(0)
+    t = time.perf_counter()
+    st_m, losses_m = run_optim(copy_state(state), gt, w2c, Ks, PAR_STEPS,
+                               tcfg, enable_pruning=True, mcfg=mcfg,
+                               mesh=mesh)
+    torch.cuda.synchronize()
+    secs["par_train_mesh"] = time.perf_counter() - t
+    launches = read_launches()
+    rel = rel_steps(losses_m, losses1)
+    print(f"[parallel] run_optim(mesh=), {PAR_STEPS} steps with one MCMC "
+          f"refine, {state.params['means'].shape[0]} Gaussian slots: "
+          f"{secs['par_train_mesh']:.3f} s (meshless "
+          f"{secs['par_train_meshless']:.3f} s); losses within "
+          f"{rel.max():.3g} relative of the meshless run's (first step "
+          f"{rel[0]:.3g}, limit {PAR_FIRST_RTOL}; limit {loss_tol:.3g}: "
+          f"{PAR_LOSS_RTOL} or twice the meshless run's own spread over "
+          f"{PAR_REPEATS} repeats, "
+          f"{spread.max():.3g}), last {losses_m[-1]:.6f}; n_alive "
+          f"{st_m.n_alive}; launches {launches}", flush=True)
+    print(f"[parallel] per step, relative: the meshless repeats against it "
+          f"{np.round(spread, 7).tolist()}; the mesh's against it "
+          f"{np.round(rel, 7).tolist()}", flush=True)
+    check(rel[0] <= PAR_FIRST_RTOL, f"sharded first loss off by {rel[0]}")
+    check(rel.max() <= loss_tol, f"sharded losses off by {rel.max()}")
+    check(all(bool(torch.isfinite(v).all()) for v in st_m.params.values()),
+          "sharded training left non-finite parameters")
+    for name in ("composite_fwd_packed", "composite_bwd_packed"):
+        check(launches[name] == PAR_STEPS,
+              f"run_optim(mesh=) launched {name} {launches[name]} times")
+    check(launches["gather_entries"] == 0,
+          "run_optim(mesh=) launched the standalone gather")
+
+    t = time.perf_counter()
+    polish1 = par_polish(dev)
+    check_polish("world 1", par_polish(dev, mesh), polish1)
+    secs["par_polish"] = time.perf_counter() - t
+    dist.destroy_process_group()
+    secs["parallel_world1"] = time.perf_counter() - t0
+
+    # (b): two ranks on the one card over gloo
+    t = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    for rank in range(2):
+        log = open(os.path.join(work_dir, f"par_rank{rank}.log"), "w")
+        logs.append(log)
+        call = (f"parallel_rank({rank}, {work_dir!r}, {str(dev)!r}, "
+                f"{model.cfg.name!r}, {views[0].shape[-1]})")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke, sys; sys.exit(chip_smoke.{call})"],
+            cwd=here, env={**os.environ, "PYTHONPATH": here}, stdout=log,
+            stderr=subprocess.STDOUT))
+    try:
+        rcs = [p.wait(timeout=PAR_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for rank, rc in enumerate(rcs):
+        if rc != 0:
+            with open(os.path.join(work_dir, f"par_rank{rank}.log")) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        check(rc == 0, f"[parallel] rank {rank} of 2 exited {rc}")
+    secs["parallel_world2"] = time.perf_counter() - t
+    outs = []
+    for rank in range(2):
+        with open(os.path.join(work_dir, f"par_rank{rank}.json")) as f:
+            outs.append(json.load(f))
+    o = outs[0]
+    check(outs[1]["losses"] == o["losses"],
+          "the two ranks' losses differ")
+    tol = {k: max(2 * o["bf16_err"][k], PAR_TP_FLOOR) for k in o["tp_err"]}
+    print(f"[parallel] world 2 (gloo, both ranks on {dev}): tensor-parallel"
+          f" forward (model axis 2) of {o['batch']} pairs, scaled "
+          f"difference from the meshless bfloat16 forward "
+          f"{ {k: float(f'{v:.3g}') for k, v in o['tp_err'].items()} }, "
+          f"limit twice the meshless bfloat16 forward's own from float32, "
+          f"at least {PAR_TP_FLOOR}: "
+          f"{ {k: float(f'{v:.3g}') for k, v in tol.items()} }; "
+          f"{o['n_split']} parameters split; forward {o['tp_fwd_s']:.3f} s "
+          f"(meshless {o['fwd_s']:.3f} s)", flush=True)
+    for k, v in o["tp_err"].items():
+        check(v <= tol[k], f"tensor-parallel {k} off by {v} (> {tol[k]})")
+    rel2 = rel_steps(o["losses"], losses1)
+    print(f"[parallel] world 2: run_optim(mesh=) {PAR_STEPS} steps in "
+          f"{o['train_s']:.3f} s (three cameras a rank), losses within "
+          f"{rel2.max():.3g} relative of (a)'s meshless run (first step "
+          f"{rel2[0]:.3g}, limit {PAR_FIRST_RTOL}; limit {loss_tol:.3g}); "
+          f"per step {np.round(rel2, 7).tolist()}; launches per rank "
+          f"{o['launches']}", flush=True)
+    check(rel2[0] <= PAR_FIRST_RTOL, f"world-2 first loss off by {rel2[0]}")
+    check(rel2.max() <= loss_tol, f"world-2 losses off by {rel2.max()}")
+    for name in ("composite_fwd_packed", "composite_bwd_packed"):
+        check(o["launches"][name] == PAR_STEPS,
+              f"rank 0 launched {name} {o['launches'][name]} times")
+    check(o["finite"], "world-2 training left non-finite parameters")
+    check_polish("world 2", {k: (np.asarray(v[0]), v[1])
+                             for k, v in o["polish"].items()}, polish1)
+    return secs, launches
+
+
+def parallel_rank(rank, work_dir, device, preset, hw):
+    """One of `[parallel]`'s two ranks on ``device`` (both on the one card)
+    over gloo, with the ``preset`` model on ``hw`` px views; writes
+    par_rank<rank>.json into ``work_dir``. Returns the exit code."""
+    import torch
+    import torch.distributed as dist
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import starst3r_tpu_torch as stt
+    from starst3r_tpu_torch.imaging import make_pair_indices
+    from starst3r_tpu_torch.parallel import (initialize_distributed,
+                                             make_mesh, tp_param_specs,
+                                             tp_shard_params)
+    from starst3r_tpu_torch.splat.train import AdamState, GSState, run_optim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"file://{work_dir}/store", 2, rank,
+                           backend="gloo", device=device)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+
+    model = stt.Mast3rModel.init_random(stt.model_preset(preset), seed=0,
+                                        device=dev)
+    tp = tp_shard_params(model, make_mesh(data=1, model=2))
+    out["n_split"] = sum("model" in tuple(s)
+                         for s in tp_param_specs(model).values())
+    pairs = make_pair_indices(N_VIEWS, symmetric=True)[:8]
+    imgs = torch.as_tensor(np.stack(make_views(N_VIEWS, hw)), device=dev)
+    imgs = imgs.permute(0, 2, 3, 1).contiguous()
+    img1 = imgs[[p[0] for p in pairs]]
+    img2 = imgs[[p[1] for p in pairs]]
+    out["batch"] = len(pairs)
+    model.infer_pair_batch(img1, img2)
+    sync()
+    t = time.perf_counter()
+    ref = model.infer_pair_batch(img1, img2)
+    sync()
+    out["fwd_s"] = time.perf_counter() - t
+    with torch.inference_mode():
+        f32 = model.net(img1, img2)
+    tp.infer_pair_batch(img1, img2)
+    sync()
+    t = time.perf_counter()
+    got = tp.infer_pair_batch(img1, img2)
+    sync()
+    out["tp_fwd_s"] = time.perf_counter() - t
+    out["tp_err"] = {k: scaled_err(got[k], ref[k]) for k in ref}
+    out["bf16_err"] = {k: scaled_err(ref[k], f32[k]) for k in ref}
+    del model, tp, ref, f32, got, imgs, img1, img2
+    torch.cuda.empty_cache()
+
+    blob = torch.load(os.path.join(work_dir, "par_state.pt"),
+                      weights_only=False)
+    gen = torch.Generator(device=dev)
+    gen.set_state(blob["generator"])
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}
+    state = GSState(params=to(blob["params"]),
+                    opt_state=AdamState(blob["count"], to(blob["mu"]),
+                                        to(blob["nu"])),
+                    step=blob["step"], generator=gen,
+                    n_alive=blob["n_alive"])
+    set_launches(0)
+    t = time.perf_counter()
+    st, losses = run_optim(state, blob["gt"], blob["w2c"], blob["Ks"],
+                           blob["steps"], blob["cfg"], enable_pruning=True,
+                           mcfg=blob["mcfg"], mesh=make_mesh())
+    sync()
+    out["train_s"] = time.perf_counter() - t
+    out["launches"] = read_launches()
+    out["losses"] = losses
+    out["finite"] = all(bool(torch.isfinite(v).all())
+                        for v in st.params.values())
+    del st, state
+    torch.cuda.empty_cache()
+
+    polish = par_polish(dev, make_mesh())
+    out["polish"] = {k: (v[0].tolist(), v[1]) for k, v in polish.items()}
+    with open(os.path.join(work_dir, f"par_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def k2_margin(case, x, g_rgb, g_alpha, top=16, max_tiles=4):
     """`[k2-margin]`: which of K2 and the plain backward is off where they
     disagree most on the trained scene. The entries of the largest scaled
@@ -1933,9 +2344,21 @@ def main():
     if args.parent_csrc:
         side_by_side(args.parent_csrc, render_in, real)
 
+    # slice 7: the sharded paths on the trained scene, held to the
+    # meshless runs (before slice 5's register_camera adds a seventh view)
+    del real, render_in
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as par_dir:
+        seven, par_launches = parallel_phase(stt, model, views, scene, dev,
+                                             par_dir)
+    seven["parallel"] = time.perf_counter() - t
+    print("[stages] slice 7: " + " ".join(f"{k}={v:.3f}s"
+                                          for k, v in seven.items()),
+          flush=True)
+
     # slice 5: checkpoints of the trained scene and the model, a held-out
     # camera registered against the scene, the polished reconstructions
-    del real, render_in
     torch.cuda.empty_cache()
     more = checkpoint_phase(stt, model, scene, work.name)
     more.update(register_phase(model, scene))
@@ -1981,6 +2404,7 @@ def main():
             "name": name, "route": "cuda",
             "source": f"starst3r_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": train_launches[function],
+            "launches_parallel": par_launches[function],
             "max_abs_err": err, "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,

@@ -12,8 +12,13 @@ products with index adds. Core depths and principal points stay at their
 GA values.
 
 Everything runs on ``device`` (the card unless "cpu"); the host reads one
-cost per iteration to accept or reject the step. ``mesh`` (correspondences
-sharded over devices) is not ported yet.
+cost per iteration to accept or reject the step. With a ``mesh``
+(`parallel.make_mesh`), every rank calls `lm_refine` with the same inputs:
+the correspondences are padded (weight 0) to a multiple of the mesh size
+and split contiguously over its first axis, each rank builds the normal
+equations of its share, and the partial H, g and cost are summed with an
+all-reduce; every rank solves the damped system and takes rank 0's step,
+so the ranks accept and reject alike.
 """
 
 from __future__ import annotations
@@ -118,10 +123,11 @@ def damped_step(H, g, lam: float, opt_focal: bool):
 
 
 def gauss_newton(thetas, system, iters: int, damping: float,
-                 opt_focal: bool) -> Tuple[torch.Tensor, list]:
+                 opt_focal: bool, sync=None) -> Tuple[torch.Tensor, list]:
     """The LM loop shared with `schur.py`: ``system(thetas, with_system)``
     gives (H, g, cost). A step is accepted when its cost is lower (the one
-    host read per iteration); λ halves on accept and quadruples on reject."""
+    host read per iteration); λ halves on accept and quadruples on reject.
+    ``sync``: maps each candidate to the one every rank takes."""
     lam = damping
     costs = []
     cur = float(system(thetas, False)[2])
@@ -129,6 +135,8 @@ def gauss_newton(thetas, system, iters: int, damping: float,
         H, g, _ = system(thetas, True)
         cand = thetas + damped_step(H, g, lam, opt_focal)
         cand = torch.cat([quat_normalize(cand[:, :4]), cand[:, 4:]], dim=1)
+        if sync is not None:
+            cand = sync(cand)
         new = float(system(cand, False)[2])
         if new < cur:
             thetas, cur = cand, new
@@ -137,6 +145,33 @@ def gauss_newton(thetas, system, iters: int, damping: float,
             lam = min(lam * 4.0, 1e3)
         costs.append(cur)
     return thetas, costs
+
+
+def sharded_system(mesh, arrays, system_of):
+    """(``system``, ``sync``) of `gauss_newton` over ``mesh``: ``arrays``
+    (numpy, M rows each) padded with zeros to a multiple of the mesh size
+    and split contiguously over its first axis; ``system_of(local arrays)``
+    gives this rank's ``system(thetas, with_system)``, whose H, g and cost
+    are summed over the axis; ``sync`` takes rank 0's candidate."""
+    from ..parallel.comm import all_reduce, broadcast
+    from ..parallel.mesh import axis_group, axis_names, axis_rank, axis_size
+    axis = axis_names(mesh)[0]
+    group = axis_group(mesh, axis)
+    w, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+    m = arrays[0].shape[0]
+    pad = (-m) % int(mesh.size())
+    per = (m + pad) // w
+    local = [np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+             [r * per:(r + 1) * per] for a in arrays]
+    part = system_of(local)
+
+    def system(thetas, full):
+        H, g, cost = part(thetas, full)
+        if full:
+            H, g = all_reduce(H, group), all_reduce(g, group)
+        return H, g, all_reduce(cost, group)
+
+    return system, lambda cand: broadcast(cand, group)
 
 
 def thetas_to_numpy(thetas) -> Tuple[np.ndarray, np.ndarray]:
@@ -172,21 +207,29 @@ def lm_refine(
     cam2w (C, 4, 4), focals (C,), pps (C, 2) pixel principal points,
     depths (C, S) fixed metric core depth, core_pix (S, 2), correspondence
     arrays (M,) (conf already holds the matching and freeze masks; zeros
-    are ignored). Returns (cam2w', focals', the cost after each
+    are ignored). ``mesh``: the correspondences sharded over its first
+    axis (module docstring). Returns (cam2w', focals', the cost after each
     iteration)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "lm_refine(mesh=...) is not ported yet (ROADMAP.md queue 1 "
-            "item 5, parallel/); call it with mesh=None")
     dev = resolve_device(device)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)
     state = chain_to_absolute(f32(cam2w), f32(focals))
-    data = (i64(corr_img1), i64(corr_idx1), i64(corr_img2), i64(corr_idx2),
-            f32(corr_conf), f32(core_pix), f32(pps), f32(depths))
     thetas = torch.cat([state.quats, state.trans,
                         state.log_focals[:, None]], dim=1)   # (C, 8)
-    system = lambda th, full: _normal_eqs(th, *data, with_system=full)
-    thetas, costs = gauss_newton(thetas, system, iters, damping, opt_focal)
+    fixed = (f32(core_pix), f32(pps), f32(depths))
+
+    def system_of(corr):
+        data = (*(i64(a) for a in corr[:4]), f32(corr[4]), *fixed)
+        return lambda th, full: _normal_eqs(th, *data, with_system=full)
+
+    corr = [np.asarray(a, np.int32) for a in
+            (corr_img1, corr_idx1, corr_img2, corr_idx2)] \
+        + [np.asarray(corr_conf, np.float32)]
+    if mesh is None:
+        system, sync = system_of(corr), None
+    else:
+        system, sync = sharded_system(mesh, corr, system_of)
+    thetas, costs = gauss_newton(thetas, system, iters, damping, opt_focal,
+                                 sync)
     out, focals_out = thetas_to_numpy(thetas)
     return out, focals_out, costs

@@ -23,8 +23,10 @@ sums of the gradient and of the diagonal blocks (`index_add_`), and the
 Schur correction as 8 x 8 blocks G_ma^T G_mb / wsum_m of every pair of a
 track's observations scattered into the (C, 8, C, 8) system. Every product
 is an elementwise float32 product and sum, so no TF32 matmul rounds it (the
-JAX package runs them at `Precision.HIGHEST`). ``mesh`` (tracks sharded
-over devices) is not ported yet.
+JAX package runs them at `Precision.HIGHEST`). With a ``mesh`` the tracks
+are padded to a multiple of the mesh size, split contiguously over its
+first axis (the keyframe-block partitioning) and the partial (S, g, cost)
+summed with an all-reduce, as `lm.py` does with correspondences.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from torch.func import jacfwd, vmap
 
 from ..utils.device import resolve_device
 from ..utils.se3 import rotmat_to_quat
-from .lm import gauss_newton, thetas_to_numpy, unproject_one
+from .lm import (gauss_newton, sharded_system, thetas_to_numpy,
+                 unproject_one)
 
 __all__ = ("Tracks", "build_tracks", "schur_refine",
            "schur_partition_sizes")
@@ -219,21 +222,28 @@ def schur_refine(
     ``device`` (the card unless "cpu").
 
     cam2w (C, 4, 4), focals (C,), pps (C, 2) pixel principal points,
-    depths (C, S) fixed metric core depth, core_pix (S, 2). Returns
+    depths (C, S) fixed metric core depth, core_pix (S, 2). ``mesh``: the
+    tracks sharded over its first axis (module docstring). Returns
     (cam2w', focals', the cost after each iteration)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "schur_refine(mesh=...) is not ported yet (ROADMAP.md queue 1 "
-            "item 5, parallel/); call it with mesh=None")
     dev = resolve_device(device)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)
-    data = (i64(tracks.cam), i64(tracks.pt), f32(tracks.w), f32(core_pix),
-            f32(pps), f32(depths))
     cam2w = f32(cam2w)
     thetas = torch.cat([rotmat_to_quat(cam2w[:, :3, :3]), cam2w[:, :3, 3],
                         torch.log(f32(focals))[:, None]], dim=1)  # (C, 8)
-    system = lambda th, full: _reduced_system(th, *data, with_system=full)
-    thetas, costs = gauss_newton(thetas, system, iters, damping, opt_focal)
+    fixed = (f32(core_pix), f32(pps), f32(depths))
+
+    def system_of(t):
+        data = (i64(t[0]), i64(t[1]), f32(t[2]), *fixed)
+        return lambda th, full: _reduced_system(th, *data, with_system=full)
+
+    arrays = [np.asarray(tracks.cam), np.asarray(tracks.pt),
+              np.asarray(tracks.w, np.float32)]
+    if mesh is None:
+        system, sync = system_of(arrays), None
+    else:
+        system, sync = sharded_system(mesh, arrays, system_of)
+    thetas, costs = gauss_newton(thetas, system, iters, damping, opt_focal,
+                                 sync)
     out, focals_out = thetas_to_numpy(thetas)
     return out, focals_out, costs

@@ -5,6 +5,8 @@ filenames under a tmpdir (reference: starster/scene.py:60-62,118-120,
 reconstruct.py:54-55,97-99). Here the cache key is a content hash of
 (model tag, image bytes, pair direction, resolution) — no fake filelists,
 re-runs skip completed pairs regardless of call order (SURVEY §7.5).
+Each entry is written to a temporary name of the writing process and then
+renamed over its final name, so a reader never sees half a file.
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ class PairCache:
         if not self.dir:
             return
         path = self._path(key)
-        # np.savez appends ".npz" unless the name already ends with it
-        tmp = path[:-4] + ".tmp.npz"
+        # a temporary name of this process's own, so two processes writing
+        # one key never share it; np.savez appends ".npz" unless the name
+        # already ends with it
+        tmp = f"{path[:-4]}.tmp{os.getpid()}.npz"
         np.savez(tmp, **arrays)
         os.replace(tmp, path)

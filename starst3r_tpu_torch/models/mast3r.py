@@ -251,11 +251,18 @@ class Mast3rModel:
             return self.net(img1, img2)
 
     def infer_pairs(self, images: Sequence, pair_indices:
-                    Sequence[Tuple[int, int]], batch_size: int = 8
-                    ) -> List[PairPrediction]:
+                    Sequence[Tuple[int, int]], batch_size: int = 8,
+                    sharding=None) -> List[PairPrediction]:
         """Pairwise inference over a pair graph. images: (3, H, W) arrays
         of one resolution. Pairs go ``batch_size`` at a time into one forward;
-        the last batch is padded to full size, as in the JAX package."""
+        the last batch is padded to full size, as in the JAX package.
+
+        ``sharding`` (`parallel.pair_sharding(mesh)`): pair-parallel
+        inference. Each batch keeps its full size, which the sharding's
+        axis size must divide; rank r of the axis runs the r-th contiguous
+        share of every padded batch and the outputs are all-gathered over
+        the axis, so every rank returns every prediction. Every rank of the
+        mesh calls this with the same pairs."""
         if not pair_indices:
             return []
         imgs = torch.stack([torch.as_tensor(np.asarray(im, np.float32))
@@ -263,13 +270,29 @@ class Mast3rModel:
         imgs = imgs.permute(0, 2, 3, 1).contiguous()        # (N, H, W, 3)
         results: List[PairPrediction] = []
         n = len(pair_indices)
-        bs = min(batch_size, n)
+        if sharding is None:
+            bs, group, share = min(batch_size, n), None, slice(None)
+        else:
+            from ..parallel.mesh import axis_group, axis_rank, axis_size
+            axis = sharding.spec[0]
+            w = axis_size(sharding.mesh, axis)
+            if batch_size % w:
+                raise ValueError(f"batch_size {batch_size} does not split "
+                                 f"over {w} ranks of axis {axis!r}")
+            # under a sharding the batch stays divisible by the axis: keep
+            # the full batch and let the tail pad
+            bs, group = batch_size, axis_group(sharding.mesh, axis)
+            r = axis_rank(sharding.mesh, axis)
+            share = slice(r * bs // w, (r + 1) * bs // w)
         for start in range(0, n, bs):
             chunk = list(pair_indices[start: start + bs])
-            chunk_p = chunk + [chunk[-1]] * (bs - len(chunk))
+            chunk_p = (chunk + [chunk[-1]] * (bs - len(chunk)))[share]
             i_idx = torch.tensor([p[0] for p in chunk_p], device=self.device)
             j_idx = torch.tensor([p[1] for p in chunk_p], device=self.device)
             out = self.infer_pair_batch(imgs[i_idx], imgs[j_idx])
+            if group is not None:
+                from ..parallel.comm import all_gather_rows
+                out = {f: all_gather_rows(out[f], group) for f in _OUT_KEYS}
             for k, (i, j) in enumerate(chunk):
                 results.append(PairPrediction(
                     idx1=i, idx2=j, **{f: out[f][k] for f in _OUT_KEYS}))

@@ -61,22 +61,26 @@ class Attention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
+        self.head_dim = dim // heads
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, rope: Optional[Rope]):
-        b, t, c = x.shape
-        qkv = self.qkv(x).reshape(b, t, 3, self.heads, c // self.heads)
+        # self.heads is the heads this rank holds (all of them unless the
+        # block is tensor-parallel, parallel/tp.py)
+        b, t, _ = x.shape
+        qkv = self.qkv(x).reshape(b, t, 3, self.heads, self.head_dim)
         q, k, v = qkv.unbind(2)
         if rope is not None:
             q, k = apply_rope_2d(q, k, *rope)
-        return self.proj(sdpa(q, k, v).reshape(b, t, c))
+        return self.proj(sdpa(q, k, v).reshape(b, t, -1))
 
 
 class CrossAttention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
+        self.head_dim = dim // heads
         self.projq = nn.Linear(dim, dim)
         self.projk = nn.Linear(dim, dim)
         self.projv = nn.Linear(dim, dim)
@@ -84,15 +88,15 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, y, rope_q: Optional[Rope], rope_k: Optional[Rope]):
         """x: queries (B, Tq, C); y: keys/values source (B, Tk, C)."""
-        b, tq, c = x.shape
-        hd = c // self.heads
+        b, tq, _ = x.shape
+        hd = self.head_dim
         q = self.projq(x).reshape(b, tq, self.heads, hd)
         k = self.projk(y).reshape(b, -1, self.heads, hd)
         v = self.projv(y).reshape(b, -1, self.heads, hd)
         if rope_q is not None:
             q, _ = apply_rope_2d(q, q, *rope_q)
             k, _ = apply_rope_2d(k, k, *rope_k)
-        return self.proj(sdpa(q, k, v).reshape(b, tq, c))
+        return self.proj(sdpa(q, k, v).reshape(b, tq, -1))
 
 
 class EncoderBlock(nn.Module):

@@ -4,6 +4,15 @@ two-phase global alignment (reference: starster/reconstruct.py:19-113),
 optionally with spectral low-rank depth (``GAConfig.lora_depth``) and an
 LM / Schur polish of the poses after it (``GAConfig.refine_lm``).
 
+With a ``mesh`` (`parallel.make_mesh`), every rank calls
+`reconstruct_scene` with the same images: the pair batches are split over
+the mesh's first axis and the predictions all-gathered; matching, canonical
+views, MST, condensation and the GA run on every rank, and rank 0's
+canonical views, condensed data and GA result are broadcast, so the ranks
+do not carry two scenes that differ in the last bits (the GA's index adds
+use atomics on the card); the polish then reduces its correspondence or
+track shards over the mesh.
+
 Complete symmetric pair graph, disk-cached pairwise inference, canonical
 per-image depth, maximum-spanning-tree pose chain, condensed tensors, the
 reference's GA hyperparameters, warm start via ``optim_params``. The network,
@@ -132,9 +141,12 @@ def reconstruct_scene(
     window: int = 3,
     freeze: Optional[np.ndarray] = None,
     logger: Optional[MetricsLogger] = None,
+    mesh=None,
 ) -> Tuple[Reconstruction, GAParams]:
     """Run the full reconstruction pipeline on ``device`` (which must be the
-    model's device). imgs: processed (3, H, W) images in [-1, 1]."""
+    model's device). imgs: processed (3, H, W) images in [-1, 1]. ``mesh``:
+    pair-parallel inference and a sharded polish, with the same result on
+    every rank (module docstring)."""
     cfg = config or default_config()
     dev = resolve_device(device)
     if dev != model.device:
@@ -158,8 +170,15 @@ def reconstruct_scene(
     sub = cfg.matching.subsample
 
     with timer("inference"), trace_if("inference"):
+        sharding, batch = None, 8
+        if mesh is not None:
+            from .parallel import pair_sharding
+            sharding = pair_sharding(mesh)
+            n_dev = int(mesh.size())
+            batch = max(8, n_dev)
+            batch -= batch % n_dev
         preds = _cached_inference(model, imgs, pairs, cache, model_tag,
-                                  batch_size=8)
+                                  sharding=sharding, batch_size=batch)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -214,6 +233,10 @@ def reconstruct_scene(
         result, params = run_global_alignment(
             data, mst, cfg.ga, prev_params=optim_params, freeze=freeze,
             depth_basis=depth_basis, depth_coeffs=depth_coeffs, device=dev)
+        if mesh is not None:
+            from .parallel.comm import broadcast_object
+            views, data, result, params = broadcast_object(
+                (views, data, result, params), dev)
         cam2w_out = result.cam2w.cpu().numpy()
     K_out = result.K.cpu().numpy()
 
@@ -223,7 +246,7 @@ def reconstruct_scene(
         with timer("lm_refine"), trace_if("lm_refine"):
             cam2w_out, K_out, lm_costs = _refine_lm(
                 cfg.ga, data, freeze, cam2w_out, K_out,
-                result.depth.cpu().numpy(), n, dev)
+                result.depth.cpu().numpy(), n, dev, mesh)
         if logger is not None and lm_costs:
             logger.log("lm_refine", cost_first=lm_costs[0],
                        cost_last=lm_costs[-1], iters=len(lm_costs),
@@ -244,7 +267,8 @@ def reconstruct_scene(
     return rec, params
 
 
-def _refine_lm(ga: GAConfig, data, freeze, cam2w, K, depth, n: int, dev):
+def _refine_lm(ga: GAConfig, data, freeze, cam2w, K, depth, n: int, dev,
+               mesh=None):
     """The post-GA polish: correspondences weighted by confidence times
     their pair's matching flag, pairs of two frozen cameras dropped;
     ``ga.lm_mode`` "lm" (pairwise) or "schur" (tracks). Returns (cam2w,
@@ -261,12 +285,13 @@ def _refine_lm(ga: GAConfig, data, freeze, cam2w, K, depth, n: int, dev):
                               data.core_pix.shape[0], max_obs=ga.lm_max_obs)
         cam2w, focals, costs = schur_refine(
             cam2w, K[:, 0, 0], K[:, :2, 2], depth, data.core_pix, tracks,
-            iters=ga.lm_iters, damping=ga.lm_damping, device=dev)
+            iters=ga.lm_iters, damping=ga.lm_damping, mesh=mesh,
+            device=dev)
     elif ga.lm_mode == "lm":
         cam2w, focals, costs = lm_refine(
             cam2w, K[:, 0, 0], K[:, :2, 2], depth, data.core_pix, img1, idx1,
             img2, idx2, conf, iters=ga.lm_iters, damping=ga.lm_damping,
-            device=dev)
+            mesh=mesh, device=dev)
     else:
         raise ValueError(f"lm_mode {ga.lm_mode!r}")
     K = K.copy()
@@ -295,26 +320,43 @@ def _model_tag(model: Mast3rModel) -> str:
 
 
 def _cached_inference(model: Mast3rModel, imgs, pairs, cache: PairCache,
-                      model_tag: str, batch_size: int = 8
+                      model_tag: str, sharding=None, batch_size: int = 8
                       ) -> List[PairPrediction]:
+    """Predictions of every pair, from the cache where it holds them.
+    Under a ``sharding`` the ranks infer the pairs that some rank misses
+    (so all run the same batches), and only rank 0 writes the cache, with a
+    barrier after."""
     img_keys = [content_key(np.asarray(im, np.float32)) for im in imgs]
+    keys = [content_key(model_tag, img_keys[i], img_keys[j])
+            for i, j in pairs]
+    hits = [cache.get(key) if cache.dir else None for key in keys]
+    writer = True
+    if sharding is not None:
+        import torch.distributed as dist
+        from .parallel.comm import all_reduce
+        have = all_reduce(torch.tensor([h is not None for h in hits],
+                                       dtype=torch.int32),
+                          op=dist.ReduceOp.MIN)
+        hits = [h if bool(ok) else None for h, ok in zip(hits, have)]
+        writer = dist.get_rank() == 0
     preds: List[Optional[PairPrediction]] = [None] * len(pairs)
     missing = []
-    for k, (i, j) in enumerate(pairs):
-        key = content_key(model_tag, img_keys[i], img_keys[j])
-        hit = cache.get(key) if cache.dir else None
+    for k, ((i, j), hit) in enumerate(zip(pairs, hits)):
         if hit is not None:
             preds[k] = PairPrediction(idx1=i, idx2=j, **{
                 f: torch.as_tensor(hit[f], device=model.device)
                 for f in _OUT_KEYS})
         else:
-            missing.append((k, (i, j), key))
+            missing.append(k)
     if missing:
-        fresh = model.infer_pairs(imgs, [p for _, p, _ in missing],
-                                  batch_size=batch_size)
-        for (k, _, key), pred in zip(missing, fresh):
+        fresh = model.infer_pairs(imgs, [pairs[k] for k in missing],
+                                  batch_size=batch_size, sharding=sharding)
+        for k, pred in zip(missing, fresh):
             preds[k] = pred
-            if cache.dir:
-                cache.put(key, {f: getattr(pred, f).cpu().numpy()
-                                for f in _OUT_KEYS})
+            if cache.dir and writer:
+                cache.put(keys[k], {f: getattr(pred, f).cpu().numpy()
+                                    for f in _OUT_KEYS})
+        if sharding is not None and cache.dir:
+            import torch.distributed as dist
+            dist.barrier()
     return preds  # type: ignore[return-value]

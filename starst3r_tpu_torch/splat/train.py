@@ -25,9 +25,24 @@ was.
 
 The JAX package jit-compiles its step with the config as a static argument
 and pins the host-only fields (`_graph_cfg`, `_NON_GRAPH_FIELDS`) so they
-do not force recompiles; the port runs eagerly and has neither. Its
-`run_optim` also takes no device mesh (sharded training is a later slice).
-It traces its first three steps under `utils.profiling.trace_if` label
+do not force recompiles; the port runs eagerly and has neither.
+
+`run_optim(mesh=...)` trains Gaussian-sharded (`parallel.shard_gs_state`):
+each rank holds rows [r N/W, (r+1) N/W) of the parameters and Adam moments
+and a contiguous share of the cameras (none when there are fewer cameras
+than ranks). A step all-gathers the parameter rows (one packed table, with
+autograd), bins and renders the whole Gaussian set for this rank's cameras
+through the same compositing kernels, adds the regularisers of this rank's
+rows, reduce-scatters the gradient to the rows' owners and runs Adam on
+them; the loss is summed over ranks. Summed over ranks that is the
+meshless loss and gradient. The auto-budget's host reads are reduced with
+MAX, so every rank grows the same bucket. MCMC makes the meshless run's
+draws with the generator every rank holds alike: a refine relocates over
+the all-gathered parameters, the position noise of every Gaussian is
+drawn, and each rank keeps its rows. The drift-prior anchors are sharded
+like the means.
+
+`run_optim` traces its first three steps under `utils.profiling.trace_if` label
 ``splat_optim`` when a trace directory is set; the stages of a step
 (binning, render, loss, backward, adam, mcmc) are torch.profiler ranges
 named ``3dgs/<stage>``, and CUDA events when `stage_events` is a list.
@@ -50,6 +65,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import SplatConfig
+from ..parallel.comm import AllGatherRows, all_gather_rows, all_reduce
 from ..ops.ssim import ssim_per_image
 from ..utils.device import resolve_device
 from ..utils.profiling import trace_if
@@ -97,6 +113,47 @@ class GSState(NamedTuple):
     step: int
     generator: torch.Generator     # MCMC draws
     n_alive: int                    # slots < n_alive are active
+    # parallel.distributed.GaussShard: the rows params and moments hold
+    # when sharded over a mesh, else None
+    shard: Optional[object] = None
+
+
+def _pack(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """(n, D): every parameter's row flattened, side by side."""
+    return torch.cat([v.reshape(v.shape[0], -1) for v in params.values()],
+                     dim=1)
+
+
+def _unpack(table: torch.Tensor, like: Dict[str, torch.Tensor]
+            ) -> Dict[str, torch.Tensor]:
+    """`_pack`'s inverse, for tables of any row count."""
+    out, col = {}, 0
+    for k, v in like.items():
+        d = int(np.prod(v.shape[1:]))
+        out[k] = table[:, col:col + d].reshape((table.shape[0],)
+                                               + tuple(v.shape[1:]))
+        col += d
+    return out
+
+
+def _gather_table(state: GSState) -> torch.Tensor:
+    """The packed parameters of every rank of a sharded state."""
+    return all_gather_rows(_pack(state.params), state.shard.group)
+
+
+def _full_params(state: GSState) -> Dict[str, torch.Tensor]:
+    """Every Gaussian's parameters (all-gathered when sharded)."""
+    if state.shard is None:
+        return state.params
+    return _unpack(_gather_table(state), state.params)
+
+
+def _max_over(shard, *values: int) -> List[int]:
+    """Host integers reduced with MAX over the shard's ranks."""
+    if shard is None:
+        return list(values)
+    return all_reduce(torch.tensor(values, dtype=torch.long), shard.group,
+                      op=torch.distributed.ReduceOp.MAX).tolist()
 
 
 def _opacity_act(cfg: SplatConfig):
@@ -274,17 +331,24 @@ def _scene_max_area(params, w2c, Ks, width, height, cfg, n_alive) -> int:
 
 def _autobudget_cfg(state: GSState, w2c, Ks, width, height,
                     cfg: SplatConfig) -> SplatConfig:
-    """The smallest power-of-2 tile budgets the scene needs now. The
-    configured max_tiles_per_gaussian / max_per_tile become ceilings; below
-    them nothing is dropped (the loop grows the bucket when the scene
-    outgrows it)."""
-    area = _scene_max_area(state.params, w2c, Ks, width, height, cfg,
-                           state.n_alive)
+    """The smallest power-of-2 tile budgets the scene needs now, for the
+    cameras given (for a sharded state, this rank's; the budgets are the
+    largest over the ranks). The configured max_tiles_per_gaussian /
+    max_per_tile become ceilings; below them nothing is dropped (the loop
+    grows the bucket when the scene outgrows it)."""
+    params, n_alive, shard = _full_params(state), state.n_alive, state.shard
+    area = (_scene_max_area(params, w2c, Ks, width, height, cfg, n_alive)
+            if w2c.shape[0] else 0)
+    (area,) = _max_over(shard, area)
     mt = min(_next_pow2(max(area, 2)), cfg.max_tiles_per_gaussian)
-    probe = compute_bins(state.params, w2c, Ks, width, height,
-                         dataclasses.replace(cfg, max_tiles_per_gaussian=mt),
-                         n_alive=state.n_alive)
-    mc = int(probe.max_count.max())
+    mc = 0
+    if w2c.shape[0]:
+        probe = compute_bins(
+            params, w2c, Ks, width, height,
+            dataclasses.replace(cfg, max_tiles_per_gaussian=mt),
+            n_alive=n_alive)
+        mc = int(probe.max_count.max())
+    (mc,) = _max_over(shard, mc)
     # floor 128, one batch of the compositing kernels, as the JAX package
     # floors at its kernels' lane width: the same budgets on both sides
     mpt = min(max(_next_pow2(int(mc * 1.25) + 1), 128), cfg.max_per_tile)
@@ -295,62 +359,95 @@ def _autobudget_cfg(state: GSState, w2c, Ks, width, height,
 def train_step(state: GSState, gt: torch.Tensor, w2c: torch.Tensor,
                Ks: torch.Tensor, width: int, height: int, cfg: SplatConfig,
                n_cams: int, bins: Optional[Bins] = None,
-               anchors: Optional[torch.Tensor] = None
+               anchors: Optional[torch.Tensor] = None,
+               gathered: Optional[torch.Tensor] = None
                ) -> Tuple[GSState, torch.Tensor]:
     """One optimisation step over the given cameras. gt (C, H, W, 3) in
     [0, 1], w2c (C, 4, 4), Ks (C, 3, 3) on the state's device. ``bins``: an
     optional `compute_bins` result (rebin_every reuse; gradients stay
     exact). ``anchors``: optional (cap, 3) seed positions for the drift
     prior (cfg.loss_anchor_fac > 0). Returns (new state, loss as a 0-dim
-    device tensor)."""
+    device tensor).
+
+    For a sharded state (module docstring) the cameras are this rank's
+    (C may be 0), ``n_cams`` the count over all ranks, ``anchors`` this
+    rank's rows, ``gathered`` an optional `_gather_table` of the state
+    made already; the loss returned is the sum over ranks."""
     keys = list(state.params)
-    leaves = {k: v.detach().requires_grad_(True)
-              for k, v in state.params.items()}
     n_alive = state.n_alive
-    dev = leaves["means"].device
+    sh = state.shard
     with torch.enable_grad():
+        if sh is None:
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in state.params.items()}
+            wrt = [leaves[k] for k in keys]
+            lo, hi = 0, leaves["means"].shape[0]
+        else:
+            # the gradient of the gathered rows is summed over ranks into
+            # each owner's block: AllGatherRows' backward reduce-scatters
+            table = _pack(state.params).detach().requires_grad_(True)
+            leaves = _unpack(AllGatherRows.apply(table, sh.group, gathered),
+                             state.params)
+            wrt = [table]
+            lo, hi = sh.lo, sh.hi
+        dev = leaves["means"].device
         with _stage("render"):
-            rgb, _, _ = render(leaves, w2c, Ks, width, height, cfg,
-                               n_alive=n_alive, bins=bins)
+            rgb = (render(leaves, w2c, Ks, width, height, cfg,
+                          n_alive=n_alive, bins=bins)[0]
+                   if gt.shape[0] else None)
         with _stage("loss"):
-            l1 = torch.mean(torch.abs(gt - rgb), dim=(1, 2, 3))    # (C,)
-            ssim_val = ssim_per_image(gt, rgb)                      # (C,)
-            per_cam = (l1 * (1 - cfg.loss_ssim_fac)
-                       + (1.0 - ssim_val) * cfg.loss_ssim_fac)
-            loss = torch.sum(per_cam)
+            if rgb is None:
+                loss = leaves["means"].new_zeros(())
+            else:
+                l1 = torch.mean(torch.abs(gt - rgb), dim=(1, 2, 3))  # (C,)
+                ssim_val = ssim_per_image(gt, rgb)                    # (C,)
+                per_cam = (l1 * (1 - cfg.loss_ssim_fac)
+                           + (1.0 - ssim_val) * cfg.loss_ssim_fac)
+                loss = torch.sum(per_cam)
             # the reference adds the regularisers once per camera; means
-            # over the alive slots only
-            alive = (torch.arange(leaves["means"].shape[0], device=dev)
-                     < n_alive).float()
+            # over the alive slots only (this rank's rows when sharded, so
+            # the sum over ranks counts each row once)
+            alive = (torch.arange(lo, hi, device=dev) < n_alive).float()
             denom = max(float(n_alive), 1.0)
-            reg_o = torch.sum(torch.abs(torch.sigmoid(leaves["opacities"]))
-                              * alive) / denom
-            reg_s = torch.sum(torch.abs(torch.exp(leaves["scales"]))
+            reg_o = torch.sum(torch.abs(torch.sigmoid(
+                leaves["opacities"][lo:hi])) * alive) / denom
+            reg_s = torch.sum(torch.abs(torch.exp(leaves["scales"][lo:hi]))
                               * alive[:, None]) / (3.0 * denom)
             loss = loss + n_cams * (cfg.loss_opacity_fac * reg_o
                                     + cfg.loss_scale_fac * reg_s)
             if cfg.loss_anchor_fac > 0.0 and anchors is not None:
-                drift = torch.sum((leaves["means"] - anchors) ** 2, dim=-1)
+                drift = torch.sum((leaves["means"][lo:hi] - anchors) ** 2,
+                                  dim=-1)
                 loss = loss + cfg.loss_anchor_fac * torch.sum(
                     drift * alive) / denom
         with _stage("backward"):
-            grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
-                                        allow_unused=True)
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
     with _stage("adam"):
-        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
-                 for k, g in zip(keys, grads)}
+        if sh is None:
+            grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                     for k, g in zip(keys, grads)}
+        else:
+            grads = _unpack(grads[0], state.params)
         params, opt_state = adam_update(grads, state.opt_state,
                                         state.params, cfg)
+    loss = loss.detach()
+    if sh is not None:
+        loss = all_reduce(loss, sh.group)
     return state._replace(params=params, opt_state=opt_state,
-                          step=state.step + 1), loss.detach()
+                          step=state.step + 1), loss
 
 
 def _mcmc_post_step(state: GSState, lr: float, cfg: SplatConfig,
                     mcfg: MCMCConfig, do_refine: bool) -> GSState:
     """After a step: on refine steps grow and relocate (and reset the Adam
-    moments of the relocated slots); every step add position noise."""
-    params, opt_state, n_alive = state.params, state.opt_state, state.n_alive
+    moments of the relocated slots); every step add position noise. A
+    sharded state makes the meshless run's draws: a refine relocates over
+    the all-gathered parameters, the noise of every Gaussian is drawn, and
+    each rank keeps its rows."""
+    sh = state.shard
+    opt_state, n_alive = state.opt_state, state.n_alive
     with torch.no_grad():
+        params = _full_params(state) if do_refine else state.params
         if do_refine:
             n_target = grow_target(n_alive, params["means"].shape[0], mcfg)
             params, relocated = relocate_dead(
@@ -358,6 +455,9 @@ def _mcmc_post_step(state: GSState, lr: float, cfg: SplatConfig,
                 min_opacity=mcfg.min_opacity, n_alive=n_alive,
                 n_target=n_target, generator=state.generator)
             n_alive = n_target
+            if sh is not None:
+                relocated = relocated[sh.lo:sh.hi]
+                params = {k: v[sh.lo:sh.hi] for k, v in params.items()}
 
             def reset(x):
                 m = relocated.reshape((-1,) + (1,) * (x.dim() - 1))
@@ -366,9 +466,16 @@ def _mcmc_post_step(state: GSState, lr: float, cfg: SplatConfig,
             opt_state = opt_state._replace(
                 mu={k: reset(v) for k, v in opt_state.mu.items()},
                 nu={k: reset(v) for k, v in opt_state.nu.items()})
+        eps, rows_alive = None, n_alive
+        if sh is not None:
+            means = params["means"]
+            eps = torch.randn((sh.n, 3), generator=state.generator,
+                              device=means.device,
+                              dtype=means.dtype)[sh.lo:sh.hi]
+            rows_alive = min(max(n_alive - sh.lo, 0), sh.hi - sh.lo)
         params = add_position_noise(params, lr, mcfg.noise_lr,
                                     _opacity_act(cfg), _scale_act(cfg),
-                                    n_alive=n_alive,
+                                    n_alive=rows_alive, eps=eps,
                                     generator=state.generator)
     return state._replace(params=params, opt_state=opt_state,
                           n_alive=n_alive)
@@ -377,28 +484,51 @@ def _mcmc_post_step(state: GSState, lr: float, cfg: SplatConfig,
 def run_optim(state: GSState, gt_images, w2c, Ks, iters: int,
               cfg: SplatConfig, enable_pruning: bool = False,
               mcfg: Optional[MCMCConfig] = None,
-              verbose: bool = False) -> Tuple[GSState, List[float]]:
+              verbose: bool = False, mesh=None
+              ) -> Tuple[GSState, List[float]]:
     """The reference's run_3dgs_optim loop (gs.py:97-166) on the state's
     device. gt_images (C, H, W, 3) in [0, 1], w2c (C, 4, 4), Ks (C, 3, 3),
     arrays or tensors. mcfg defaults to the schedule in ``cfg``. Returns
-    (new state, the loss of every step)."""
+    (new state, the loss of every step).
+
+    ``mesh``: train Gaussian-sharded over its first axis (module
+    docstring); every rank calls this with the same arguments, and every
+    rank gets the whole trained state back. A state sharded already by
+    `parallel.shard_gs_state` trains sharded without a mesh."""
     if mcfg is None:
         mcfg = mcmc_config_from(cfg)
+    if mesh is not None and state.shard is None:
+        from ..parallel.distributed import shard_gs_state
+        state = shard_gs_state(state, mesh)
+    sh = state.shard
     dev = state.params["means"].device
     gt = _as_f32(gt_images, dev)
     c, h, w = gt.shape[0], gt.shape[1], gt.shape[2]
     w2c_t = _as_f32(w2c, dev)
     ks_t = _as_f32(Ks, dev)
     cb = cfg.camera_batch if 0 < cfg.camera_batch < c else 0
+
+    def mine(cams: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous share of a camera list."""
+        if sh is None:
+            return cams
+        k = cams.shape[0]
+        return cams[sh.rank * k // sh.size:(sh.rank + 1) * k // sh.size]
+
+    own = mine(torch.arange(c, device=dev))
+    gt_o, w2c_o, ks_o = ((gt, w2c_t, ks_t) if sh is None
+                         else (gt[own], w2c_t[own], ks_t[own]))
     step0 = state.step
     cam_rng = np.random.default_rng(step0 + 1)
     # losses stay on the device until the loop ends: one host read at the
     # end, so the host does not wait on the card every step
     losses_dev: List[torch.Tensor] = []
     rebin = max(int(cfg.rebin_every), 1)
-    scfg = (_autobudget_cfg(state, w2c_t, ks_t, w, h, cfg)
+    scfg = (_autobudget_cfg(state, w2c_o, ks_o, w, h, cfg)
             if cfg.auto_budget else cfg)
-    bins = None   # reused across steps when rebin > 1 (all cameras)
+    # bins are reused across steps when rebin > 1 (all cameras); every
+    # rank rebins at the same steps, so their collectives pair up
+    bins, stale = None, True
     # drift-prior anchors: the seed positions, moved to the current means
     # after every refine (for every Gaussian, as the reference does)
     anchors = (state.params["means"].clone()
@@ -410,23 +540,33 @@ def run_optim(state: GSState, gt_images, w2c, Ks, iters: int,
                 # trace only the first steps: a whole run's trace is large
                 # and the profiler slows every step it records
                 trace.close()
+            gathered = None
+            if sh is not None:
+                with _stage("gather"):
+                    gathered = _gather_table(state)
             if cb:
                 # minibatches change the cameras every step: no bin reuse
-                sel = torch.as_tensor(
-                    cam_rng.choice(c, size=cb, replace=False), device=dev)
+                sel = mine(torch.as_tensor(
+                    cam_rng.choice(c, size=cb, replace=False), device=dev))
                 state, loss = train_step(state, gt[sel], w2c_t[sel],
                                          ks_t[sel], w, h, scfg, cb,
-                                         anchors=anchors)
+                                         anchors=anchors, gathered=gathered)
             else:
-                if bins is None or it % rebin == 0:
+                if stale or it % rebin == 0:
                     with _stage("binning"):
-                        bins = compute_bins(state.params, w2c_t, ks_t, w, h,
-                                            scfg, n_alive=state.n_alive)
+                        full = (state.params if gathered is None
+                                else _unpack(gathered, state.params))
+                        bins = (compute_bins(full, w2c_o, ks_o, w, h, scfg,
+                                             n_alive=state.n_alive)
+                                if len(own) else None)
                         if cfg.auto_budget:
-                            scfg, bins = _grow_budget(state, bins, w2c_t,
-                                                      ks_t, w, h, scfg, cfg)
-                state, loss = train_step(state, gt, w2c_t, ks_t, w, h, scfg,
-                                         c, bins=bins, anchors=anchors)
+                            scfg, bins = _grow_budget(
+                                full, state.n_alive, bins, w2c_o, ks_o, w,
+                                h, scfg, cfg, sh)
+                    stale = False
+                state, loss = train_step(state, gt_o, w2c_o, ks_o, w, h,
+                                         scfg, c, bins=bins, anchors=anchors,
+                                         gathered=gathered)
             if enable_pruning:
                 step = step0 + it + 1
                 do_refine = (mcfg.refine_start <= step < mcfg.refine_stop
@@ -439,7 +579,7 @@ def run_optim(state: GSState, gt_images, w2c, Ks, iters: int,
                     state = _mcmc_post_step(state, mean_lr, cfg, mcfg,
                                             do_refine)
                 if do_refine:
-                    bins = None   # relocated Gaussians jump: rebin
+                    stale = True   # relocated Gaussians jump: rebin
                     if anchors is not None:
                         anchors = state.params["means"].clone()
             losses_dev.append(loss)
@@ -447,24 +587,31 @@ def run_optim(state: GSState, gt_images, w2c, Ks, iters: int,
                 print(f"[3dgs] step {step0 + it + 1} "
                       f"loss={float(loss):.4f} alive={state.n_alive}")
     losses = torch.stack(losses_dev).tolist() if losses_dev else []
+    if sh is not None:
+        from ..parallel.distributed import gather_gs_state
+        state = gather_gs_state(state)
     return state, losses
 
 
-def _grow_budget(state: GSState, bins: Bins, w2c, Ks, w: int, h: int,
-                 scfg: SplatConfig, cfg: SplatConfig
-                 ) -> Tuple[SplatConfig, Bins]:
+def _grow_budget(params, n_alive: int, bins: Optional[Bins], w2c, Ks,
+                 w: int, h: int, scfg: SplatConfig, cfg: SplatConfig,
+                 shard=None) -> Tuple[SplatConfig, Optional[Bins]]:
     """Grow a budget bucket the moment the scene outgrows it (nothing is
-    dropped below the configured ceilings), rebinning at the new size."""
+    dropped below the configured ceilings), rebinning at the new size.
+    With ``shard`` the counts are the largest over its ranks (``bins`` is
+    None on a rank without cameras)."""
+    clipped, mc = (0, 0) if bins is None else (int(bins.n_clipped.max()),
+                                               int(bins.max_count.max()))
+    clipped, mc = _max_over(shard, clipped, mc)
     grown = scfg
-    if (int(bins.n_clipped.max()) > 0
+    if (clipped > 0
             and scfg.max_tiles_per_gaussian < cfg.max_tiles_per_gaussian):
         grown = dataclasses.replace(grown, max_tiles_per_gaussian=min(
             scfg.max_tiles_per_gaussian * 2, cfg.max_tiles_per_gaussian))
-    mc = int(bins.max_count.max())
     if mc > scfg.max_per_tile and scfg.max_per_tile < cfg.max_per_tile:
         grown = dataclasses.replace(grown, max_per_tile=min(
             _next_pow2(int(mc * 1.25) + 1), cfg.max_per_tile))
-    if grown is scfg:
-        return scfg, bins
-    return grown, compute_bins(state.params, w2c, Ks, w, h, grown,
-                               n_alive=state.n_alive)
+    if grown is scfg or bins is None:
+        return grown, bins
+    return grown, compute_bins(params, w2c, Ks, w, h, grown,
+                               n_alive=n_alive)

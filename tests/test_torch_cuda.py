@@ -60,6 +60,11 @@ Tolerances:
     tiny preset: every subcommand exits 0 and writes its files, and the
     subcommands that render or train launch the packed compositing kernels;
     `utils.profiling.trace_if` writes a trace.
+  - `parallel.initialize_distributed`: two processes asking for NCCL on
+    one card both raise (no other backend is taken in its place);
+  - on a machine with several cards, the sharded paths over NCCL (one rank
+    per card) against the meshless calls on one card, with the CPU tests'
+    tolerances (tests/test_torch_parallel.py); skips on one card.
 """
 
 import numpy as np
@@ -1068,3 +1073,116 @@ def test_trace_if_on_cuda_writes_a_trace(dev, tmp_path):
     # the device events are not asserted: torch.profiler's trace on the
     # card has been seen to hold none
     assert trace["traceEvents"]
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
+    """`parallel.initialize_distributed` never trades NCCL for another
+    backend: two ranks that ask for NCCL on one card both raise, before
+    any collective."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\n"
+            "from starst3r_tpu_torch.parallel import initialize_distributed"
+            "\ntry:\n"
+            "    initialize_distributed(sys.argv[1], 2, int(sys.argv[2]),"
+            " local_rank=0)\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', e)\n"
+            "    sys.exit(0)\n"
+            "sys.exit(3)\n")
+    store = f"file://{tmp_path}/store"
+    procs = [subprocess.Popen([sys.executable, "-c", code, store, str(r)],
+                              cwd=root, env={**os.environ,
+                                             "PYTHONPATH": root},
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        assert "one rank per card" in out, out
+
+
+def test_sharded_paths_on_several_cards(dev, tmp_path):
+    """tests/test_torch_parallel.py's sharded training (with and without
+    MCMC pruning), state placement, pair-parallel inference and tensor
+    parallelism on every card of the machine, one rank per card over NCCL
+    (`tests/torch_parallel_workers.py`), against the meshless calls on one
+    card with the CPU tests' tolerances. Skips with fewer than two cards:
+    NCCL runs one rank per card."""
+    import os
+
+    import torch_parallel_workers as workers
+    from starst3r_tpu_torch.splat.train import init_gaussians, run_optim
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more cards: NCCL runs one rank per card")
+    tmp = str(tmp_path)
+    torch.save(stt.Mast3rModel.init_random(
+        stt.ModelConfig.tiny(), seed=3, device="cpu").state_dict(),
+        os.path.join(tmp, "weights.pt"))
+    rng = np.random.default_rng(1)
+    hw = (32, 32)
+    inp = {"infer_imgs": rng.uniform(-1, 1, size=(3, 3) + hw).astype(
+               np.float32),
+           "infer_pairs": np.array([(0, 1), (1, 0), (0, 2), (2, 0), (1, 2),
+                                    (2, 1)]),
+           "tp_img1": rng.uniform(-1, 1, size=(4,) + hw + (3,)).astype(
+               np.float32),
+           "tp_img2": rng.uniform(-1, 1, size=(4,) + hw + (3,)).astype(
+               np.float32)}
+    np.savez(os.path.join(tmp, "inputs.npz"), **inp)
+    jobs = ["optim", "placement", "infer"] + (["tp"] if world % 2 == 0
+                                              else [])
+    workers.join_world(workers.start_world(world, tmp, jobs, "cuda"))
+
+    pts, cols, gt, w2c, K = workers.gs_inputs()
+    cfg = SplatConfig()
+    state, losses = run_optim(init_gaussians(pts, cols, cfg, device=dev),
+                              gt, w2c, K, workers.GS_STEPS, cfg)
+    out = workers.result(tmp, "optim", world)
+    np.testing.assert_allclose(out["losses"], losses, rtol=2e-4)
+    np.testing.assert_allclose(out["means"],
+                               state.params["means"].cpu().numpy(),
+                               atol=1e-5)
+    state, losses = workers.run_pruning(device=dev)
+    assert int(out["n_alive"]) == state.n_alive > workers.GS_N
+    np.testing.assert_allclose(out["losses_prune"], losses, rtol=2e-4)
+    for k, v in state.params.items():
+        np.testing.assert_allclose(out[f"prune_{k}"], v.cpu().numpy(),
+                                   atol=1e-5, err_msg=k)
+
+    n = 8 * 16
+    rows = np.arange(n * 3, dtype=np.float32).reshape(-1, 3)
+    gen0 = workers.result(tmp, "placement", world)["gen"]
+    for r in range(world):
+        got = workers.result(tmp, "placement", world, r)
+        lo, hi = r * n // world, (r + 1) * n // world
+        np.testing.assert_array_equal(got["means"], rows[lo:hi])
+        assert (int(got["step"]), int(got["n_alive"])) == (7, 100)
+        np.testing.assert_array_equal(got["gen"], gen0)
+
+    model = workers.tiny_model(tmp, dev)
+    preds = model.infer_pairs(list(inp["infer_imgs"]),
+                              [tuple(p) for p in inp["infer_pairs"]])
+    out = workers.result(tmp, "infer", world)
+    for f in ("pts1", "desc2", "conf1", "desc_conf2"):
+        want = np.stack([getattr(p, f).cpu().numpy() for p in preds])
+        np.testing.assert_allclose(out[f], want, atol=1e-3, err_msg=f)
+    if "tp" in jobs:
+        ref = model.infer_pair_batch(
+            torch.as_tensor(inp["tp_img1"], device=dev),
+            torch.as_tensor(inp["tp_img2"], device=dev))
+        out = workers.result(tmp, "tp", world)
+        for f in ("pts1", "conf2", "desc1", "desc_conf2"):
+            np.testing.assert_allclose(out[f], ref[f].cpu().numpy(),
+                                       atol=2e-3, err_msg=f)

@@ -126,9 +126,13 @@ def test_warm_start_and_freeze_match_jax():
 
 def test_unported_options_raise():
     """lora_depth and refine_lm are ported (tests/test_torch_lm.py,
-    tests/test_torch_polish.py); the polish's ``mesh`` (correspondences or
-    tracks sharded over devices, ROADMAP.md queue 1 item 5) is not, and
-    raises."""
+    tests/test_torch_polish.py), and so is the polish's ``mesh``
+    (correspondences or tracks sharded over the ranks of a process group,
+    tests/test_torch_parallel.py): nothing raises for being unported any
+    more. Over a mesh of one rank the polish gives the meshless result,
+    and a mesh that is no DeviceMesh is refused."""
+    import torch.distributed as dist
+    from starst3r_tpu_torch.parallel import initialize_distributed, local_mesh
     data, mst = _scene(3)
     c2w = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
     f = np.full(3, 90.0, np.float32)
@@ -137,10 +141,22 @@ def test_unported_options_raise():
     tracks = build_tracks(data.corr_img1, data.corr_idx1, data.corr_img2,
                           data.corr_idx2, data.corr_conf, 3,
                           data.core_pix.shape[0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        lm_refine(c2w, f, pps, depth, data.core_pix, data.corr_img1,
-                  data.corr_idx1, data.corr_img2, data.corr_idx2,
-                  data.corr_conf, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        schur_refine(c2w, f, pps, depth, data.core_pix, tracks,
-                     mesh=object(), device="cpu")
+    corr = (data.corr_img1, data.corr_idx1, data.corr_img2, data.corr_idx2,
+            data.corr_conf)
+    initialize_distributed(device="cpu")
+    try:
+        mesh = local_mesh()
+        for run in (lambda **kw: lm_refine(c2w, f, pps, depth,
+                                           data.core_pix, *corr, iters=3,
+                                           device="cpu", **kw),
+                    lambda **kw: schur_refine(c2w, f, pps, depth,
+                                              data.core_pix, tracks,
+                                              iters=3, device="cpu", **kw)):
+            want = run()
+            got = run(mesh=mesh)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+            with pytest.raises(AttributeError):
+                run(mesh=object())
+    finally:
+        dist.destroy_process_group()

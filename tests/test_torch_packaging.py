@@ -4,7 +4,8 @@
      scan of every import, at any scope);
   2. importing the port in a fresh interpreter loads none of them (and
      not scipy, which `alignment/spectral.py` imports only to build a
-     basis);
+     basis), and makes no torch.distributed process group (`parallel/`
+     makes one only when asked);
   3. entry points default to the card: without a GPU they raise unless the
      caller passes device="cpu";
   4. the package data ships every file under `starst3r_tpu_torch/csrc/`
@@ -80,6 +81,11 @@ PORT_MODULES = ("starst3r_tpu_torch", "starst3r_tpu_torch.splat",
                 "starst3r_tpu_torch.utils.synthetic",
                 "starst3r_tpu_torch.utils.eval",
                 "starst3r_tpu_torch.utils.profiling",
+                "starst3r_tpu_torch.parallel",
+                "starst3r_tpu_torch.parallel.comm",
+                "starst3r_tpu_torch.parallel.distributed",
+                "starst3r_tpu_torch.parallel.mesh",
+                "starst3r_tpu_torch.parallel.tp",
                 "starst3r_tpu_torch.version")
 
 
@@ -92,6 +98,32 @@ def test_import_port_loads_no_jax():
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_parallel_is_scanned_and_import_makes_no_process_group():
+    files = {os.path.relpath(p, PKG) for p in _py_files()}
+    assert {"parallel/__init__.py", "parallel/comm.py",
+            "parallel/distributed.py", "parallel/mesh.py",
+            "parallel/tp.py"} <= files
+    code = (f"import {', '.join(PORT_MODULES)}; "
+            "import torch.distributed as dist; "
+            "print(dist.is_initialized())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
+def test_parallel_names_match_the_jax_package():
+    with open(os.path.join(ROOT, "starst3r_tpu", "parallel",
+                           "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    names = {a.asname or a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    import starst3r_tpu_torch.parallel as par
+    assert len(names) >= 11
+    assert names <= set(dir(par)), names - set(dir(par))
 
 
 def test_entry_points_default_to_cuda():
