@@ -122,7 +122,21 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      meshless bfloat16 forward (at most twice that forward's own distance
      from float32), the same 50 training steps (K1 and K2 launched 50
      times a rank) against (a)'s meshless losses, and the polish. Its
-     seconds are on a `[stages] slice 7:` line.
+     seconds are on a `[stages] slice 7:` line;
+ 17. `[ga-graph]` (run after step 2): the GA's captured step against the
+     same step run eagerly, on the condensed data of step 2's first
+     add_images call with the GA cut to 100 + 50 steps (as `[parallel]`
+     cuts it), in turns (eager, graph, eager, graph): each route's seconds
+     per phase, the graph route's captures, replays and host reads (one
+     capture a phase, a replay a step, ceil(niter / jit_chunk) reads a
+     phase), and the graph route's poses in the root camera's frame, K and
+     depth, each scaled by its largest magnitude, within twice the two
+     eager runs' distance from each other (never below 1e-6), as
+     tests/test_torch_cuda.py holds them; then one replayed step's time
+     (CUDA events over 50 replays) and its device-busy time and five
+     costliest kernels (torch.profiler), reported only. Step 2 itself checks that its two
+     GA calls captured 4 steps, replayed 2 x 700 and read the host
+     2 x (10 + 4) times. Its seconds are on a `[stages] slice 8:` line.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -250,6 +264,11 @@ PAR_INFER_TOL = 1e-5
 PAR_TP_FLOOR = 1e-4
 PAR_GA_TOL = 1e-3
 PAR_TIMEOUT = 600
+# `[ga-graph]`: the GA's steps (cut as `[parallel]` cuts them) and the floor
+# of its tolerance, the graph route against the eager step
+GRAPH_GA = (100, 50)
+GRAPH_GA_FLOOR = 1e-6
+GA_COUNTERS = ("captures", "replays", "host_reads")
 POLISH = {
     "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
                     lm_mode="lm"),
@@ -1838,6 +1857,133 @@ def check_polish(tag, got, want):
               f"{tag} {name}: did not converge: {costs}")
 
 
+def set_ga_counts(value=0):
+    from starst3r_tpu_torch.alignment import ga
+    for name in GA_COUNTERS:
+        setattr(ga._optimize_phase, name, value)
+
+
+def read_ga_counts():
+    from starst3r_tpu_torch.alignment import ga
+    return {name: getattr(ga._optimize_phase, name) for name in GA_COUNTERS}
+
+
+def ga_reads(cfg):
+    """The host reads of one GA call: ceil(niter / jit_chunk) a phase."""
+    chunk = max(cfg.jit_chunk, 1)
+    return sum(-(-n // chunk) for n in (cfg.niter1, cfg.niter2))
+
+
+def eager_phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg):
+    """The graph route's plain version: the GA phase's step run eagerly on
+    the card, with no chunks and one host read at the end."""
+    from starst3r_tpu_torch.alignment import ga
+    ph = ga._Phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg)
+    ph.steps(niter)
+    return ga.GAParams(*[p.detach() for p in ph.params]), float(ph.last_loss)
+
+
+def ga_errors(a, b, root):
+    """Scaled differences of two GA results: poses in the root camera's
+    frame (the GA's free rigid motion), K, depth, the phase losses."""
+    rel = lambda m: (np.linalg.inv(m[root].astype(np.float64))[None]
+                     @ m.astype(np.float64))
+    out = {"cam2w": scaled_err(rel(a.cam2w.cpu().numpy()),
+                               rel(b.cam2w.cpu().numpy())),
+           "K": scaled_err(a.K, b.K), "depth": scaled_err(a.depth, b.depth)}
+    out["loss"] = max(abs(x - y) / max(abs(y), 1e-30) for x, y in (
+        (a.loss_coarse, b.loss_coarse), (a.loss_fine, b.loss_fine)))
+    return out
+
+
+def ga_graph_phase(call, dev):
+    """`[ga-graph]`: the GA of ``call`` (the arguments of the main path's
+    first GA) cut to GRAPH_GA steps, on the graph route and with the eager
+    step, in turns. Returns the seconds."""
+    import dataclasses
+    import torch
+    from starst3r_tpu_torch.alignment import ga
+    args, kw = call
+    data, mst, cfg = args
+    cfg = dataclasses.replace(cfg, niter1=GRAPH_GA[0], niter2=GRAPH_GA[1])
+    real_phase = ga._optimize_phase
+    runs = []
+    for route in ("eager", "graph", "eager", "graph"):
+        phase_s = []
+
+        def timed(*a, _fn=real_phase if route == "graph" else eager_phase):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a)
+            torch.cuda.synchronize()
+            phase_s.append(time.perf_counter() - t)
+            return out
+
+        # the timer shares the counters of the function it times
+        timed.__dict__ = real_phase.__dict__
+        ga._optimize_phase = timed
+        set_ga_counts(0)
+        try:
+            res, _ = ga.run_global_alignment(data, mst, cfg, **kw)
+        finally:
+            ga._optimize_phase = real_phase
+        runs.append((route, res, phase_s, read_ga_counts()))
+    (_, eager_a, eager_s, eager_counts), (_, graph_a, graph_s, counts) = \
+        runs[:2]
+    eager_b, graph_b = runs[2][1], runs[3][1]
+    root = mst[0]
+    spread = ga_errors(eager_b, eager_a, root)
+    got = ga_errors(graph_a, eager_a, root)
+    again = ga_errors(graph_b, graph_a, root)
+    want = {"captures": 2, "replays": sum(GRAPH_GA),
+            "host_reads": ga_reads(cfg)}
+    fmt = lambda d: " ".join(f"{k}={v:.3g}" for k, v in d.items())
+    print(f"[ga-graph] first add_images call's data ({data.pps.shape[0]} "
+          f"cameras, {len(data.corr_idx1)} correspondences, "
+          f"{data.core_pix.shape[0]} core points), GA {GRAPH_GA[0]} + "
+          f"{GRAPH_GA[1]}, jit_chunk {cfg.jit_chunk}: seconds per phase, "
+          f"graph {[round(x, 4) for x in graph_s]} then "
+          f"{[round(x, 4) for x in runs[3][2]]}, eager step "
+          f"{[round(x, 4) for x in eager_s]} then "
+          f"{[round(x, 4) for x in runs[2][2]]}; graph route counts "
+          f"{counts} (want {want}; eager {eager_counts})", flush=True)
+    print(f"[ga-graph] scaled differences: graph against eager {fmt(got)}; "
+          f"eager against eager {fmt(spread)}; graph against graph "
+          f"{fmt(again)}; losses graph ({graph_a.loss_coarse}, "
+          f"{graph_a.loss_fine}) eager ({eager_a.loss_coarse}, "
+          f"{eager_a.loss_fine})", flush=True)
+    check(counts == want, f"[ga-graph] counts {counts}, want {want}")
+    check(eager_counts["captures"] == 0 and eager_counts["replays"] == 0,
+          f"the eager step captured or replayed: {eager_counts}")
+    check(np.isfinite(graph_a.cam2w.cpu().numpy()).all(),
+          "[ga-graph] poses not finite")
+    for name, err in got.items():
+        tol = max(2 * spread[name], GRAPH_GA_FLOOR)
+        check(err <= tol, f"[ga-graph] {name} off the eager step's by "
+              f"{err} (limit {tol})")
+
+    # one replayed coarse step's time and its kernels, on a phase captured
+    # from the same data at the GA's start (reported, not checked). CUDA
+    # events around a loop of replays, not `device_ms`: a replay queues
+    # hundreds of kernels, so the spin would fill the launch queue; where
+    # the profiler's device-busy time matches it, the step is device-bound
+    ph = ga._Phase(ga.init_params(data, device=dev),
+                   ga.make_state(data, mst, cfg, device=dev), cfg.niter1,
+                   cfg.lr1, cfg.lr_end, cfg.gamma1, 1, cfg)
+    graph = ga._capture(ph)
+    step_ms = cuda_ms(graph.replay, 50)
+    busy_ms, by_kernel = profiled_ms(graph.replay, 10)
+    graph.reset()
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[ga-graph] a replayed coarse step: {step_ms:.4f} ms (CUDA "
+          f"events over 50 replays); torch.profiler: "
+          + (f"{busy_ms:.4f} ms device busy, {len(by_kernel)} kernel names"
+             if busy_ms else "no device events (not measured)"), flush=True)
+    for name, ms in top:
+        print(f"[ga-graph]   {ms:8.4f} ms/step  {name[:100]}", flush=True)
+    return {"ga_graph": sum(graph_s), "ga_eager": sum(eager_s)}
+
+
 def parallel_phase(stt, model, views, scene, dev, work_dir):
     """`[parallel]`: the sharded paths, held to the meshless runs. (a) In
     this process, world size 1 over NCCL: pair-parallel inference against
@@ -2246,10 +2392,24 @@ def main():
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     cache_dir = os.path.join(work.name, "pairs")
 
-    # slice 1: reconstruct and render
+    # slice 1: reconstruct and render; the GA calls' arguments are kept
+    # for `[ga-graph]`
+    import starst3r_tpu_torch.reconstruct as reconstruct_mod
+    real_ga, ga_calls = reconstruct_mod.run_global_alignment, []
+
+    def recorded_ga(*a, **kw):
+        ga_calls.append((a, kw))
+        return real_ga(*a, **kw)
+
+    reconstruct_mod.run_global_alignment = recorded_ga
     set_launches(0)
-    scene, orig, novel, secs = drive_main_path(stt, model, views, dev,
-                                               N_NOVEL, cache_dir)
+    set_ga_counts(0)
+    try:
+        scene, orig, novel, secs = drive_main_path(stt, model, views, dev,
+                                                   N_NOVEL, cache_dir)
+    finally:
+        reconstruct_mod.run_global_alignment = real_ga
+    ga_counts = read_ga_counts()
     render_launches = read_launches()
     print("[stages] " + " ".join(f"{k}={v:.3f}s" for k, v in secs.items()),
           flush=True)
@@ -2272,7 +2432,25 @@ def main():
     check_outputs(scene, orig, novel, N_VIEWS, HW, N_NOVEL)
     print(f"[ga] second add_images: coarse / fine phase loss "
           f"{scene.reconstruction.losses}", flush=True)
+    ga_secs = [rec["ga"] for rec in scene.logger.records
+               if rec["event"] == "reconstruct"]
+    ga_cfg = ga_calls[0][0][2]
+    want = {"captures": 2 * len(ga_calls),
+            "replays": len(ga_calls) * (ga_cfg.niter1 + ga_cfg.niter2),
+            "host_reads": len(ga_calls) * ga_reads(ga_cfg)}
+    print(f"[ga] seconds per add_images call {[round(x, 3) for x in ga_secs]}"
+          f"; the graph route's counts over both {ga_counts} (want {want})",
+          flush=True)
+    check(len(ga_calls) == 2, f"{len(ga_calls)} GA calls on the main path")
+    check(ga_counts == want, f"main-path GA counts {ga_counts}, want {want}")
     fwd_cases, render_in = check_composite_kernel(stt, scene, dev)
+    t = time.perf_counter()
+    eight = ga_graph_phase(ga_calls[0], dev)
+    eight["slice8"] = time.perf_counter() - t
+    print("[stages] slice 8: " + " ".join(f"{k}={v:.3f}s"
+                                          for k, v in eight.items()),
+          flush=True)
+    del ga_calls
 
     # slice 2: training on the same scene
     n0 = scene.gs_state.n_alive

@@ -13,15 +13,24 @@ poses (MST kinematic chain), per-camera scale and core depth (port of
                update order (`scale_by_adam` then `scale_by_schedule` of the
                cosine LR), gradients masked per leaf (the moments of a masked
                leaf still decay), quats renormalised every step, and the
-               NaN-loss freeze: the first non-finite loss keeps the previous
-               params and ends the phase
+               NaN-loss freeze: from the first non-finite loss on, every step
+               keeps the previous params, moments and loss
   warm start : previous params overwrite the first N cameras
 
-Each phase is one eager loop of ``niter`` steps under autograd; gathers are
-plain indexing (their backward is an index-add). All tensors live on the
-device the caller names; the correspondences are float32 and the matmuls run
-at full float32 (no TF32: the GA has no convolutions and CUDA matmuls
-default to full precision).
+Each phase walks its ``niter`` steps in chunks of ``GAConfig.jit_chunk``, as
+the JAX package's jitted chunks do, and reads the loss to the host once per
+chunk. One step is a function of device state only (`_Phase`): the params
+as fixed leaf tensors, Adam's moments, the step counter, the freeze flag
+and the last finite loss, advanced in place. The LR, the annealing alpha
+and Adam's bias correction are computed from the step counter on the
+device, and the NaN freeze is a ``where`` that keeps the previous params,
+moments and loss once a loss is non-finite, so no step reads the host. On
+the CPU the steps run eagerly. On the card the step is captured once per
+phase as a CUDA graph and replayed, the counterpart of the JAX package's
+jitted ``fori_loop`` chunk; a capture that fails raises. Gathers are plain
+indexing (their backward is an index-add). The correspondences are float32
+and the matmuls run at full float32 (no TF32: the GA has no convolutions
+and CUDA matmuls default to full precision).
 """
 
 from __future__ import annotations
@@ -309,49 +318,157 @@ def _trainable_mask(params: GAParams, state: GAState, phase: int,
         core_depth=col(free * float(cfg.opt_depth), params.core_depth))
 
 
+# eager steps run on a side stream before a capture (PyTorch's recipe: the
+# autograd engine and the libraries set themselves up outside the graph);
+# the phase state is restored after them
+_WARMUP_STEPS = 3
+
+
+class _Phase:
+    """One phase's device state and its step. The params are leaf tensors
+    that stay the same objects for every step (a captured graph reads and
+    writes their storage), and every write into the state is an in-place
+    ``copy_``. `step` advances the state by one step with no host read,
+    as the body of the JAX package's `_optimize_chunk_jit` does."""
+
+    def __init__(self, params: GAParams, state: GAState, niter: int,
+                 lr_base: float, lr_end: float, gamma: float, phase: int,
+                 cfg: GAConfig):
+        self.state, self.cfg = state, cfg
+        self.niter, self.lr_base, self.lr_end = niter, lr_base, lr_end
+        self.gamma, self.phase = gamma, phase
+        self.mask = _trainable_mask(params, state, phase, cfg)
+        self.params = GAParams(*[p.detach().clone().requires_grad_(True)
+                                 for p in params])
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        dev = params.pps.device
+        self.device = dev
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        self.last_loss = torch.full((), float("inf"), dtype=torch.float32,
+                                    device=dev)
+
+    def tensors(self):
+        return [*self.params, *self.mu, *self.nu, self.count, self.stopped,
+                self.last_loss]
+
+    def loss(self, alpha):
+        state, cfg = self.state, self.cfg
+        K, w2c, cam2w, depth = make_K_cam_depth(
+            self.params, state, cfg.depth_mode, cfg.shared_intrinsics,
+            cfg.exp_depth)
+        if self.phase == 1:
+            main = _loss_3d(K, cam2w, depth, state, self.gamma, alpha)
+        else:
+            main = _loss_2d(K, cam2w, depth, w2c, state, self.gamma, alpha)
+        reg = _loss_dust3r(_core_pts3d(K, cam2w, depth, state), cam2w, state,
+                           cfg.gamma_d)
+        return main + cfg.loss_dust3r_w * reg
+
+    def step(self):
+        cfg = self.cfg
+        b1, b2, eps = cfg.adam_b1, cfg.adam_b2, 1e-8
+        # the schedules' fraction of the phase done, float32 as in JAX
+        frac = self.count.to(torch.float32) / max(self.niter, 1)
+        loss = self.loss(1.0 - frac)
+        grads = torch.autograd.grad(loss, self.params)
+        with torch.no_grad():
+            lr = cosine_schedule(frac, self.lr_base, self.lr_end)
+            n = (self.count + 1).to(torch.float32)
+            bc1, bc2 = 1.0 - torch.pow(b1, n), 1.0 - torch.pow(b2, n)
+            grads = [g * m for g, m in zip(grads, self.mask)]
+            mu = [(1.0 - b1) * g + b1 * v for g, v in zip(grads, self.mu)]
+            nu = [(1.0 - b2) * (g * g) + b2 * v
+                  for g, v in zip(grads, self.nu)]
+            new = GAParams(*[x + (-lr) * ((a / bc1) / (torch.sqrt(b / bc2)
+                                                       + eps))
+                             for x, a, b in zip(self.params, mu, nu)])
+            new = new._replace(quats=quat_normalize(new.quats))
+            # NaN freeze (reference reconstruct.py:397-399): from the first
+            # non-finite loss on, keep the previous params, moments and loss
+            stop = self.stopped | ~torch.isfinite(loss)
+            for olds, news in ((self.params, new), (self.mu, mu),
+                               (self.nu, nu)):
+                for old, upd in zip(olds, news):
+                    old.copy_(torch.where(stop, old, upd))
+            self.last_loss.copy_(torch.where(stop, self.last_loss, loss))
+            self.stopped.copy_(stop)
+            self.count.add_(1)
+
+    def steps(self, n: int):
+        for _ in range(n):
+            self.step()
+
+
+def _capture(ph: _Phase) -> "torch.cuda.CUDAGraph":
+    """Capture one step of ``ph`` as a CUDA graph. The warm-up steps before
+    the capture advance the state, and the capture records kernels without
+    running them, so the state is put back as it was before the warm-up.
+    The capture is begun and ended by hand: `torch.cuda.graph` would also
+    synchronise and empty the allocator's caches at every phase, which the
+    rest of the pipeline then pays for in fresh allocations."""
+    saved = [t.detach().clone() for t in ph.tensors()]
+    side = torch.cuda.Stream(ph.device)
+    side.wait_stream(torch.cuda.current_stream(ph.device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        ph.steps(_WARMUP_STEPS)
+        graph.capture_begin()
+        try:
+            ph.step()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(ph.device).wait_stream(side)
+    with torch.no_grad():
+        for t, s in zip(ph.tensors(), saved):
+            t.copy_(s)
+    _optimize_phase.captures += 1
+    return graph
+
+
 def _optimize_phase(params: GAParams, state: GAState, niter: int,
                     lr_base: float, lr_end: float, gamma: float, phase: int,
                     cfg: GAConfig) -> Tuple[GAParams, float]:
-    """One optimisation phase. Returns (params, final_loss)."""
-    mask = _trainable_mask(params, state, phase, cfg)
-    b1, b2, eps = cfg.adam_b1, cfg.adam_b2, 1e-8
-    mu = [torch.zeros_like(p) for p in params]
-    nu = [torch.zeros_like(p) for p in params]
-    loss_out = float("inf")
-    for step in range(niter):
-        leaves = [p.detach().requires_grad_(True) for p in params]
-        p = GAParams(*leaves)
-        K, w2c, cam2w, depth = make_K_cam_depth(
-            p, state, cfg.depth_mode, cfg.shared_intrinsics, cfg.exp_depth)
-        alpha = 1.0 - step / max(niter, 1)
-        if phase == 1:
-            main = _loss_3d(K, cam2w, depth, state, gamma, alpha)
+    """One optimisation phase in chunks of ``cfg.jit_chunk`` steps, one
+    host read each (the JAX package's `_optimize_phase`). On the CPU the
+    steps run eagerly; on the card one step is captured and replayed.
+    Returns (params, the last finite loss, inf if there was none)."""
+    ph = _Phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg)
+    graph = None
+    if ph.device.type == "cuda":
+        with torch.cuda.device(ph.device):
+            graph = _capture(ph)
+    chunk = max(int(cfg.jit_chunk), 1)
+    loss = float("inf")
+    done = 0
+    while done < niter:
+        n = min(chunk, niter - done)
+        if graph is None:
+            ph.steps(n)
         else:
-            main = _loss_2d(K, cam2w, depth, w2c, state, gamma, alpha)
-        reg = _loss_dust3r(_core_pts3d(K, cam2w, depth, state), cam2w, state,
-                           cfg.gamma_d)
-        loss = main + cfg.loss_dust3r_w * reg
-        loss_val = float(loss.detach())
-        if not np.isfinite(loss_val):
-            # NaN freeze (reference reconstruct.py:397-399): the JAX loop
-            # keeps every later step frozen too, so stopping is the same
-            break
-        grads = torch.autograd.grad(loss, leaves)
-        count = step + 1
-        lr = cosine_schedule(step / max(niter, 1), lr_base, lr_end)
-        new = []
-        with torch.no_grad():
-            for i, (x, g, m) in enumerate(zip(params, grads, mask)):
-                g = g * m
-                mu[i] = (1.0 - b1) * g + b1 * mu[i]
-                nu[i] = (1.0 - b2) * (g * g) + b2 * nu[i]
-                mu_hat = mu[i] / (1.0 - b1 ** count)
-                nu_hat = nu[i] / (1.0 - b2 ** count)
-                new.append(x + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + eps)))
-        params = GAParams(*new)
-        params = params._replace(quats=quat_normalize(params.quats))
-        loss_out = loss_val
-    return params, loss_out
+            for _ in range(n):
+                graph.replay()
+            _optimize_phase.replays += n
+        # the chunk's one host read: the last finite loss and the step
+        # counter, which must have advanced by exactly the chunk
+        loss, count = torch.stack([ph.last_loss,
+                                   ph.count.to(torch.float32)]).tolist()
+        _optimize_phase.host_reads += 1
+        done += n
+        if int(count) != done:
+            raise RuntimeError(f"GA phase {phase}: the device ran {count} "
+                               f"steps where the host counted {done}")
+    if graph is not None:
+        graph.reset()
+    return GAParams(*[p.detach() for p in ph.params]), loss
+
+
+# host reads of the phases' chunks, and, on the card, the captured steps and
+# their replays
+_optimize_phase.host_reads = 0
+_optimize_phase.captures = 0
+_optimize_phase.replays = 0
 
 
 class GAResult(NamedTuple):

@@ -8,8 +8,12 @@ so CLI / tests / benchmarks can override them uniformly.
 
 This is the port's own copy of `starst3r_tpu/config.py`: the same
 dataclasses, fields, defaults and presets, so one set of values configures
-both packages. Some fields only matter to the JAX package (`jit_chunk`,
-`MeshConfig`) or to parts of the port still to come (splat training).
+both packages. `GAConfig.jit_chunk` is the GA's steps per host read in both
+(per jitted device call in the JAX package, per run of replays of the
+captured step on the card in the port). The port reads every field but
+`MeshConfig`'s (its meshes are `parallel.make_mesh`'s arguments, not this
+config's axis names and sizes) and `ModelConfig.desc_conf`, which neither
+package reads: the descriptor confidence is always on.
 """
 
 from __future__ import annotations
@@ -155,8 +159,9 @@ class GAConfig:
     shared_intrinsics: bool = False
     adam_b1: float = 0.9
     adam_b2: float = 0.9            # reference uses betas=(0.9, 0.9) (:373)
-    # JAX package only: GA steps per jitted device call. The port runs each
-    # phase as one eager loop, which equals the chunked loop exactly.
+    # GA steps per host read: per jitted device call in the JAX package,
+    # per run of replays of the captured step in the port. Any value gives
+    # the same result.
     jit_chunk: int = 50
     lr_end: float = 0.0
     depth_mode: str = "add"

@@ -55,6 +55,10 @@ Tolerances:
   - the lora GA on the card against the CPU on a planted sphere scene:
     1e-4, tests/test_torch_ga.py's tolerance, poses in the root camera's
     frame (the GA's free rigid motion);
+  - the GA's captured step replayed on the card against the same step run
+    eagerly on the card: poses in the root frame, K, depth and the phase
+    losses, each scaled by its largest magnitude, within twice the
+    distance of two eager runs from each other, never below 1e-6;
   - checkpoints: bit for bit;
   - the command line (`python -m starst3r_tpu_torch`) on the card at the
     tiny preset: every subcommand exits 0 and writes its files, and the
@@ -944,6 +948,74 @@ def test_lora_ga_on_cuda_matches_cpu(dev):
                                atol=1e-4)
     np.testing.assert_allclose(g.loss_coarse, c.loss_coarse, rtol=1e-4)
     np.testing.assert_allclose(g.loss_fine, c.loss_fine, rtol=1e-4)
+
+
+def _eager_phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg):
+    """The graph route's plain version: the same step, run eagerly."""
+    from starst3r_tpu_torch.alignment import ga
+    ph = ga._Phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg)
+    ph.steps(niter)
+    return ga.GAParams(*[p.detach() for p in ph.params]), float(ph.last_loss)
+
+
+def _scaled(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+def test_ga_graph_route_matches_eager_steps_on_cuda(dev, monkeypatch):
+    """On the card each GA phase captures its step once and replays it,
+    with one host read per ``jit_chunk`` steps. Against the same step run
+    eagerly on the card (the scene of tests/test_torch_ga.py, 15 + 8
+    steps): poses in the root camera's frame, K and depth, each scaled by
+    its largest magnitude, within twice the distance of two eager runs
+    from each other (the backward's index adds use atomics), and never
+    held tighter than 1e-6. The step counter ends at ``niter``: the
+    warm-up steps before the capture did not leak into the phase."""
+    from torch_ga_scene import ga_scene
+    from starst3r_tpu_torch.alignment import ga
+    data, mst = ga_scene(4)
+    cfg = stt.GAConfig(niter1=15, niter2=8, jit_chunk=7)
+    phases = []
+
+    class Recorded(ga._Phase):
+        def __init__(self, *args):
+            super().__init__(*args)
+            phases.append(self)
+
+    monkeypatch.setattr(ga, "_Phase", Recorded)
+    counters = ("captures", "replays", "host_reads")
+    for name in counters:
+        monkeypatch.setattr(ga._optimize_phase, name, 0)
+    graph, params = ga.run_global_alignment(data, mst, cfg, device=dev)
+    assert {n: getattr(ga._optimize_phase, n) for n in counters} == {
+        "captures": 2, "replays": 15 + 8, "host_reads": 3 + 2}
+    assert [int(p.count) for p in phases] == [15, 8]
+    assert all(p.is_cuda for p in params)
+
+    monkeypatch.setattr(ga, "_optimize_phase", _eager_phase)
+    eager = [ga.run_global_alignment(data, mst, cfg, device=dev)[0]
+             for _ in range(2)]
+    root = mst[0]
+
+    def errors(a, b):
+        rel = lambda m: (np.linalg.inv(m[root].astype(np.float64))[None]
+                         @ m.astype(np.float64))
+        return {"cam2w": _scaled(rel(a.cam2w.cpu().numpy()),
+                                 rel(b.cam2w.cpu().numpy())),
+                "K": _scaled(a.K.cpu().numpy(), b.K.cpu().numpy()),
+                "depth": _scaled(a.depth.cpu().numpy(),
+                                 b.depth.cpu().numpy()),
+                "loss": max(abs(a.loss_coarse - b.loss_coarse)
+                            / abs(b.loss_coarse),
+                            abs(a.loss_fine - b.loss_fine)
+                            / abs(b.loss_fine))}
+
+    spread = errors(eager[1], eager[0])
+    got = errors(graph, eager[0])
+    for name, err in got.items():
+        assert err <= max(2 * spread[name], 1e-6), (name, err, spread)
 
 
 def test_scene_checkpoint_round_trip_on_cuda(dev, tmp_path):
