@@ -171,6 +171,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -264,6 +265,11 @@ PAR_INFER_TOL = 1e-5
 PAR_TP_FLOOR = 1e-4
 PAR_GA_TOL = 1e-3
 PAR_TIMEOUT = 600
+# `[blender]`: the add-on's subprocess against the same flags through the
+# CLI in process, poses in camera 0's frame (translation over the
+# trajectory scale, rotation entries): `[parallel]`'s limit for two
+# reconstructions of one scene
+BLENDER_POSE_TOL = PAR_GA_TOL
 # `[ga-graph]`: the GA's steps (cut as `[parallel]` cuts them) and the floor
 # of its tolerance, the graph route against the eager step
 GRAPH_GA = (100, 50)
@@ -1691,6 +1697,226 @@ def cli_phase(stt, views, model_npz, work_dir):
     return {f"cli_{k}": v for k, v in secs.items()}
 
 
+def pose_gap(got, want):
+    """(translation error over the trajectory scale, rotation error) of
+    two runs' poses, each camera in camera 0's frame."""
+    a, b = relative_poses(got), relative_poses(want)
+    scale = max(traj_scale(b), 1e-12)
+    return (float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max()) / scale,
+            float(np.abs(a[:, :3, :3] - b[:, :3, :3]).max()))
+
+
+def blender_phase(model_npz, work_dir):
+    """`[blender]`: the add-on for the port (blender_addon_torch) the way
+    its operator runs it: the command built by its bpy-free `command.py`
+    from the panel's values (the six views' PNG directory of `[cli]`, that
+    phase's model file, preset large, resolution 224, device cuda), run as
+    a subprocess, its output read with `read_result`. Held against the same
+    flags through the CLI in process (`cli.main`), the `[cli]` phase's
+    entry; `[cli]`'s own reconstruct fed the views 4 + 2 and trained 50
+    steps, so its poses are another computation, and their distance is
+    printed only. Returns the seconds."""
+    import torch
+    from starst3r_tpu_torch import cli
+    from blender_addon_torch import command
+
+    imgdir = os.path.join(work_dir, "cli", "views")
+    out = os.path.join(work_dir, "blender", "out")
+    ref_out = os.path.join(work_dir, "blender", "in_process")
+    check(command.verify(imgdir, model_npz) is None,
+          f"the add-on refuses its inputs: {command.verify(imgdir, model_npz)}")
+    cmd = command.build_command(sys.executable, imgdir, out, HW, "large",
+                                "cuda", model_npz)
+    here = os.path.dirname(os.path.abspath(__file__))
+    secs = {}
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=here, check=False)
+    secs["blender_subprocess"] = time.perf_counter() - t
+    check(proc.returncode == 0, f"the add-on's command exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    pts, cols, c2w = command.read_result(out)
+    n = pts.shape[0]
+    check(pts.ndim == 2 and pts.shape[1] == 3 and np.isfinite(pts).all(),
+          f"points.ply: shape {pts.shape}, finite {np.isfinite(pts).all()}")
+    check(cols is not None and cols.shape == (n, 3)
+          and bool(((cols >= 0) & (cols <= 1)).all()),
+          "points.ply's colours")
+    check(c2w is not None and c2w.shape == (N_VIEWS, 4, 4)
+          and np.isfinite(c2w).all(),
+          f"c2w.npy: {None if c2w is None else c2w.shape}")
+    args = cmd[3:]          # the flags after `python -m starst3r_tpu_torch`
+    args[args.index("--out") + 1] = ref_out
+    # this script turns TF32 off for its checks; the subprocess has
+    # PyTorch's defaults (cuBLAS float32 matmuls in full precision, cuDNN
+    # convolutions in TF32), and so has the in-process run
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    t = time.perf_counter()
+    try:
+        rc = cli.main(args)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    secs["blender_in_process"] = time.perf_counter() - t
+    check(rc == 0, f"the in-process CLI with the add-on's flags exited {rc}")
+    ref_pts, _, ref_c2w = command.read_result(ref_out)
+    same = bool(np.array_equal(c2w, ref_c2w) and np.array_equal(pts, ref_pts))
+    t_err, r_err = pose_gap(c2w, ref_c2w)
+    why = ("bit for bit: the same flags, weights and images, and a GA with "
+           "no atomics" if same else "the two processes differ before the "
+           "GA (their inference or image loading), and Adam carries it")
+    print(f"[blender] {' '.join(cmd[1:5])} ... --preset large --res {HW} "
+          f"(subprocess, {secs['blender_subprocess']:.3f} s): {n} points "
+          f"(conf_thres 1.5, the CLI's default; [cli] passes 1.0), c2w "
+          f"{c2w.shape}; against the same flags through cli.main in process "
+          f"({secs['blender_in_process']:.3f} s): "
+          f"{'equal' if same else 'not equal'}, poses in camera 0's frame "
+          f"within {t_err:.3g} x the trajectory scale and {r_err:.3g} in "
+          f"rotation (limit {BLENDER_POSE_TOL}), {ref_pts.shape[0]} points "
+          f"(limit within 1%): {why}", flush=True)
+    check(t_err <= BLENDER_POSE_TOL and r_err <= BLENDER_POSE_TOL,
+          f"the add-on's poses differ from the in-process CLI's by "
+          f"{t_err:.3g} / {r_err:.3g}")
+    check(abs(ref_pts.shape[0] - n) <= 0.01 * n,
+          f"the add-on's run kept {n} points, the in-process run "
+          f"{ref_pts.shape[0]}")
+    cli_c2w = np.load(os.path.join(work_dir, "cli", "out", "c2w.npy"))
+    print(f"[blender] against [cli]'s reconstruct (views 4 + 2, 50 training "
+          f"steps; another computation, printed only): poses within "
+          f"{pose_gap(c2w, cli_c2w)[0]:.3g} x the trajectory scale and "
+          f"{pose_gap(c2w, cli_c2w)[1]:.3g} in rotation", flush=True)
+    return secs
+
+
+def spellings_phase(stt, model, views, scene, cache_dir, work_dir):
+    """`[spellings]`: each call the port repaired for the JAX package's
+    spelling, made in that spelling on the card and held to the port's
+    keyword spelling. Returns the seconds."""
+    import dataclasses
+    import torch
+    from starst3r_tpu_torch import native
+    from starst3r_tpu_torch.imaging import image_route
+    from starst3r_tpu_torch.ops.attention import sdpa
+    from starst3r_tpu_torch.splat import gather as gat
+    from starst3r_tpu_torch.splat.rasterize import rasterize
+    from starst3r_tpu_torch.splat.train import render_inputs
+    from starst3r_tpu_torch.utils import compile_cache, enable_compilation_cache
+
+    secs, notes = {}, []
+    t = time.perf_counter()
+    cfg = stt.default_config()
+    cfg = dataclasses.replace(cfg, ga=dataclasses.replace(
+        cfg.ga, niter1=PAR_GA[0], niter2=PAR_GA[1]))
+    files = [f"view_{i}.png" for i in range(len(views))]
+    rec_j, _ = stt.reconstruct_scene(model, views, files, "cuda",
+                                     tmpdir=cache_dir, config=cfg)
+    rec_k, _ = stt.reconstruct_scene(model, views, device="cuda",
+                                     tmpdir=cache_dir, config=cfg)
+    check(np.array_equal(rec_j.cam2w, rec_k.cam2w)
+          and np.array_equal(rec_j.intrinsics, rec_k.intrinsics),
+          "reconstruct_scene(model, imgs, files, 'cuda') differs from the "
+          "keyword call")
+    notes.append(f"reconstruct_scene(model, imgs, files, 'cuda') = keyword "
+                 f"call (GA {PAR_GA[0]} + {PAR_GA[1]}, poses equal)")
+    secs["spell_reconstruct"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    m2 = stt.Mast3rModel.init_random(model.cfg, 0, image_hw=(HW, HW))
+    want = model.state_dict()
+    check(m2.device.type == "cuda" and all(
+        torch.equal(v, want[k]) for k, v in m2.state_dict().items()),
+        "init_random(cfg, 0, image_hw=) is not the seed-0 model on cuda")
+    del m2
+    torch.cuda.empty_cache()
+    notes.append("init_random(cfg, 0, image_hw=(224, 224)) on cuda, weights "
+                 "= the main path's model")
+    secs["spell_init_random"] = time.perf_counter() - t
+
+    gs, scfg = scene.gs_state, scene.config.splat
+    args = render_inputs(gs.params, scfg, gs.n_alive) + (
+        torch.as_tensor(scene.w2c, dtype=torch.float32, device="cuda"),
+        torch.as_tensor(scene.intrinsics, dtype=torch.float32,
+                        device="cuda"))
+    h, w = scene.imgs[0].shape[:2]
+    budgets = (w, h, scfg.sh_degree, scfg.tile_size,
+               scfg.max_tiles_per_gaussian, scfg.max_per_tile, scfg.chunk)
+    with torch.no_grad():
+        rgb_k, alpha_k, _ = rasterize(*args, *budgets)
+        set_launches(0)
+        rgb_j, alpha_j, _ = rasterize(*args, *budgets, "auto")
+        k1 = read_launches()["composite_fwd_packed"]
+    check(k1 > 0, "rasterize(impl='auto') did not launch K1")
+    check(torch.equal(rgb_j, rgb_k) and torch.equal(alpha_j, alpha_k),
+          "rasterize(..., 'auto') differs from the default call")
+    notes.append(f"rasterize(..., chunk, 'auto') = default call on the "
+                 f"trained scene ({rgb_j.shape[0]} views), K1 launched {k1}")
+
+    q, k, v = (torch.randn(8, 196, 16, 64, generator=torch.Generator(
+        "cuda").manual_seed(i), device="cuda") for i in range(3))
+    for impl in ("xla", "einsum"):
+        check(torch.equal(sdpa(q, k, v, impl), sdpa(q, k, v)),
+              f"sdpa(impl={impl!r}) differs")
+    notes.append("sdpa(q, k, v, 'xla' | 'einsum') = sdpa(q, k, v)")
+
+    paths = sorted(os.path.join(work_dir, "cli", "views", f)
+                   for f in os.listdir(os.path.join(work_dir, "cli",
+                                                    "views")))
+    got = stt.load_images(paths, HW, 16, "auto")
+    base = stt.load_images(paths, size=HW, impl=None)
+    check(all(np.array_equal(a, b) for a, b in zip(got, base)),
+          "load_images(impl='auto') differs from impl=None")
+    notes.append(f"load_images(paths, 224, 16, 'auto'): the "
+                 f"{image_route('auto')} route, = impl=None")
+
+    t = time.perf_counter()
+    so = native._lib_path()
+    before = os.stat(so).st_ino if so.exists() else None
+    digest = native.hash64(b"starst3r")
+    check(native.build(force=True), "native.build(force=True) failed")
+    after = os.stat(so)
+    check(after.st_ino != before, "native.build(force=True) did not rebuild")
+    check(native.available() and native.hash64(b"starst3r") == digest,
+          "the rebuilt native library did not load")
+    secs["spell_native_build"] = time.perf_counter() - t
+    notes.append(f"native.build(force=True) rebuilt {so.name} "
+                 f"({secs['spell_native_build']:.3f} s) and loaded it")
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache:
+        enable_compilation_cache(cache)
+        try:
+            check(compile_cache.build_dir() == Path(cache).resolve(),
+                  "enable_compilation_cache did not take the directory")
+            gen = torch.Generator("cuda").manual_seed(0)
+            packed = torch.randn(64, 9, device="cuda", generator=gen)
+            gidx = torch.randint(0, 64, (4, 8), device="cuda", generator=gen,
+                                 dtype=torch.int32)
+            valid = torch.rand(4, 8, device="cuda", generator=gen) < 0.7
+            gat.gather_entries_cuda.launches = 0
+            out = gat.gather_entries_cuda(packed, gidx, valid)
+            launched = gat.gather_entries_cuda.launches
+            built = sorted(f for f in os.listdir(cache) if f.endswith(".so"))
+        finally:
+            enable_compilation_cache()
+    check(launched == 1 and any(f.startswith("gather_entries_")
+                                for f in built),
+          f"no kernel built and launched under the cache: {built}, "
+          f"{launched} launches")
+    check(torch.equal(out, gat.gather_entries_plain(packed, gidx, valid)),
+          "the gather built under the cache differs from its plain version")
+    check(compile_cache.build_dir().name == "_build",
+          "enable_compilation_cache() did not return to _build/")
+    secs["spell_compile_cache"] = time.perf_counter() - t
+    notes.append(f"enable_compilation_cache(tmpdir): built {built} there "
+                 f"and launched it once ({secs['spell_compile_cache']:.3f} s)"
+                 f", = its plain version")
+    print("[spellings] " + "; ".join(notes), flush=True)
+    return secs
+
+
 def traj_scale(gt):
     return float(np.linalg.norm(gt[:, :3, 3] - gt[:, :3, 3].mean(0),
                                 axis=1).max())
@@ -2549,6 +2775,15 @@ def main():
     torch.cuda.empty_cache()
     six = cli_phase(stt, views, os.path.join(work.name, "model.npz"),
                     work.name)
+
+    # slice 9: the Blender add-on's command, and the JAX spellings
+    torch.cuda.empty_cache()
+    nine = blender_phase(os.path.join(work.name, "model.npz"), work.name)
+    nine.update(spellings_phase(stt, model, views, scene, cache_dir,
+                                work.name))
+    print("[stages] slice 9: " + " ".join(f"{k}={v:.3f}s"
+                                          for k, v in nine.items()),
+          flush=True)
     work.cleanup()
     six.update(planted_ga_phase(dev))
     six.update(turntable_phase())

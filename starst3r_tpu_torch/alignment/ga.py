@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..config import GAConfig
+from ..utils.checkpoint import tree_prefix_overwrite
 from ..utils.device import resolve_device
 from ..utils.schedules import cosine_schedule, meta_gamma_loss
 from ..utils.se3 import quat_normalize, quat_to_rotmat, se3_inverse
@@ -481,16 +482,6 @@ class GAResult(NamedTuple):
     loss_fine: float
 
 
-def _prefix_overwrite(new: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
-    """Overwrite the common leading slice of ``new`` with ``prev`` (the
-    reference's warm start, reconstruct.py:408-415)."""
-    prev = torch.as_tensor(prev, dtype=new.dtype, device=new.device)
-    out = new.clone()
-    common = tuple(slice(0, min(a, b)) for a, b in zip(new.shape, prev.shape))
-    out[common] = prev[common]
-    return out
-
-
 def run_global_alignment(
     data: CondensedData,
     mst: Tuple[int, Any],
@@ -529,8 +520,8 @@ def run_global_alignment(
                 f"{tuple(params.core_depth.shape[1:])}: the previous run used "
                 "another depth parameterisation (lora_depth / lora_k); keep "
                 "the GA depth config fixed across add_images calls")
-        params = GAParams(*[_prefix_overwrite(n, p)
-                            for n, p in zip(params, prev_params)])
+        params = GAParams(*tree_prefix_overwrite(tuple(params),
+                                                 tuple(prev_params)))
 
     loss1 = float("nan")
     if cfg.niter1:

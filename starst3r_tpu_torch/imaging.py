@@ -89,28 +89,29 @@ def load_image(path: Union[str, Path], size: int = 224,
     return process_image(np.asarray(img), size, crop_multiple=crop_multiple)
 
 
-def image_route(impl: Optional[str] = None) -> str:
-    """The route `load_images` takes for ``impl``: None picks "native" when
-    the C++ library builds here, else "pil" (the JAX package's "auto");
-    "native" and "pil" are taken as given."""
-    if impl is None:
+def image_route(impl: Optional[str] = "auto") -> str:
+    """The route `load_images` takes for ``impl``: "auto" (or None) picks
+    "native" when the C++ library builds here, else "pil", as the JAX
+    package's "auto" does; "native" and "pil" are taken as given; anything
+    else raises ValueError."""
+    if impl in ("auto", None):
         from . import native
         return "native" if native.available() else "pil"
     if impl not in ("native", "pil"):
-        raise ValueError(f"impl must be None, 'native' or 'pil', not "
+        raise ValueError(f"impl must be 'auto', 'native' or 'pil', not "
                          f"{impl!r}")
     return impl
 
 
 def load_images(paths: Sequence[Union[str, Path]], size: int = 224,
                 crop_multiple: int = 16,
-                impl: Optional[str] = None) -> List[np.ndarray]:
+                impl: Optional[str] = "auto") -> List[np.ndarray]:
     """Load a list of files (reference: starster/image.py:105-110).
 
     impl: "native" decodes with PIL and resizes, crops and normalises in the
     C++ host runtime (`native.preprocess_batch`), and raises RuntimeError
-    when that library cannot be built; "pil" is the pure-Python route; None
-    picks as `image_route` says."""
+    when that library cannot be built; "pil" is the pure-Python route;
+    "auto" (or None) picks as `image_route` says."""
     if image_route(impl) == "native":
         from . import native
         raws = [np.asarray(exif_transpose(Image.open(p)).convert("RGB"))

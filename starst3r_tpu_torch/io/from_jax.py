@@ -8,6 +8,9 @@ neither JAX nor the JAX package:
     the port's `state_dict` (public MASt3R `.pth` key layout). The inverse of
     `starst3r_tpu/io/torch_convert.py::convert_state_dict`; the mapping is
     written out here.
+  - `encoder_state_dict_from_jax`, `decoder_state_dict_from_jax`: the
+    params of the JAX `Encoder` / `InterleavedDecoder` modules -> the
+    port's `models.vit.Encoder` / `InterleavedDecoder` state dicts.
   - `ga_params_from_jax`: a JAX `GAParams` (as numpy) -> the port's
     `GAParams`, for warm-start parity.
   - `gaussians_from_jax`: `GSState.params` -> the port's Gaussian params.
@@ -27,7 +30,8 @@ from ..alignment.ga import GAParams
 from ..splat.train import AdamState, GSState
 from ..utils.device import resolve_device
 
-__all__ = ("mast3r_state_dict_from_jax", "ga_params_from_jax",
+__all__ = ("mast3r_state_dict_from_jax", "encoder_state_dict_from_jax",
+           "decoder_state_dict_from_jax", "ga_params_from_jax",
            "gaussians_from_jax", "gs_state_from_jax")
 
 
@@ -127,28 +131,70 @@ def _dpt(sd, key, p):
         _conv(sd, f"{key}.head.{idx}", p[f"head{idx}"])
 
 
+def _n_blocks(p: Mapping[str, Any], prefix: str) -> int:
+    return sum(1 for k in p if re.fullmatch(prefix + r"\d+", k))
+
+
+def _encoder(sd, p, embed: str, blocks: str, norm: str):
+    """The JAX `Encoder`'s params (patch_embed, block{i}, norm) under the
+    port's names ``embed``, ``blocks.{i}``, ``norm``."""
+    _conv(sd, f"{embed}.proj", p["patch_embed"]["proj"])
+    _ln(sd, norm, p["norm"])
+    for i in range(_n_blocks(p, "block")):
+        b = p[f"block{i}"]
+        _ln(sd, f"{blocks}.{i}.norm1", b["norm1"])
+        _ln(sd, f"{blocks}.{i}.norm2", b["norm2"])
+        _attn(sd, f"{blocks}.{i}.attn", b["attn"])
+        _mlp(sd, f"{blocks}.{i}.mlp", b["mlp"])
+
+
+def _decoder(sd, p, embed: str, blocks: str, blocks2: str, norm: str):
+    """The JAX `InterleavedDecoder`'s params (embed, block{i}, block2_{i},
+    norm) under the port's names."""
+    _dense(sd, embed, p["embed"])
+    _ln(sd, norm, p["norm"])
+    for i in range(_n_blocks(p, "block")):
+        _dec_block(sd, f"{blocks}.{i}", p[f"block{i}"])
+        _dec_block(sd, f"{blocks2}.{i}", p[f"block2_{i}"])
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
+
+
+def _inner(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params["params"] if "params" in params else params
+
+
+def encoder_state_dict_from_jax(params: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX `models.vit.Encoder` params ({'params': {...}} or the inner
+    dict) -> the port's `models.vit.Encoder` state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _encoder(sd, _inner(params), "patch_embed", "blocks", "norm")
+    return _tensors(sd)
+
+
+def decoder_state_dict_from_jax(params: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX `models.vit.InterleavedDecoder` params -> the port's
+    `models.vit.InterleavedDecoder` state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _decoder(sd, _inner(params), "embed", "blocks", "blocks2", "norm")
+    return _tensors(sd)
+
+
 def mast3r_state_dict_from_jax(params: Mapping[str, Any]
                                ) -> Dict[str, torch.Tensor]:
     """JAX `TwoViewNet` params ({'params': {...}} or the inner dict) -> the
     port's `TwoViewNet.state_dict()`, float32 CPU tensors."""
-    p = params["params"] if "params" in params else params
+    p = _inner(params)
     enc, dec = p["encoder"], p["decoder"]
     sd: Dict[str, np.ndarray] = {}
-    _conv(sd, "patch_embed.proj", enc["patch_embed"]["proj"])
-    _ln(sd, "enc_norm", enc["norm"])
-    enc_depth = sum(1 for k in enc if re.fullmatch(r"block\d+", k))
-    for i in range(enc_depth):
-        b = enc[f"block{i}"]
-        _ln(sd, f"enc_blocks.{i}.norm1", b["norm1"])
-        _ln(sd, f"enc_blocks.{i}.norm2", b["norm2"])
-        _attn(sd, f"enc_blocks.{i}.attn", b["attn"])
-        _mlp(sd, f"enc_blocks.{i}.mlp", b["mlp"])
-    _dense(sd, "decoder_embed", dec["embed"])
-    _ln(sd, "dec_norm", dec["norm"])
-    dec_depth = sum(1 for k in dec if re.fullmatch(r"block\d+", k))
-    for i in range(dec_depth):
-        _dec_block(sd, f"dec_blocks.{i}", dec[f"block{i}"])
-        _dec_block(sd, f"dec_blocks2.{i}", dec[f"block2_{i}"])
+    _encoder(sd, enc, "patch_embed", "enc_blocks", "enc_norm")
+    _decoder(sd, dec, "decoder_embed", "dec_blocks", "dec_blocks2",
+             "dec_norm")
     patch = _np(enc["patch_embed"]["proj"]["kernel"]).shape[0]
     for v in ("1", "2"):
         _dpt(sd, f"downstream_head{v}.dpt", p[f"head{v}"])
@@ -159,8 +205,7 @@ def mast3r_state_dict_from_jax(params: Mapping[str, Any]
         _pixelshuffle_fc(sd, f"{lf}.fc2", dh["fc2"], patch, out_ch)
     dec_dim = _np(dec["embed"]["kernel"]).shape[1]
     sd["mask_token"] = np.zeros((1, 1, dec_dim), np.float32)
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def ga_params_from_jax(params, device="cuda") -> GAParams:

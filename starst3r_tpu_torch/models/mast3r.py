@@ -17,20 +17,22 @@ from __future__ import annotations
 import json
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
-from ..utils.checkpoint import flatten
+from ..utils.checkpoint import flatten, rebuild
 from ..utils.device import resolve_device
 from ..ops.rope import rope_2d_freqs
 from .heads import DownstreamHead, postprocess_pointmap
-from .vit import DecoderBlock, EncoderBlock, PatchEmbed, patch_positions
+from .vit import (DecoderBlock, EncoderBlock, PatchEmbed, decode_interleaved,
+                  encode_tokens, patch_positions)
 
-__all__ = ("TwoViewNet", "Mast3rModel", "PairPrediction")
+__all__ = ("TwoViewNet", "Mast3rModel", "PairPrediction",
+           "restore_pytree_npz")
 
 _OUT_KEYS = ("pts1", "conf1", "pts2", "conf2", "desc1", "desc2",
              "desc_conf1", "desc_conf2")
@@ -68,24 +70,15 @@ class TwoViewNet(nn.Module):
 
     def encode(self, img: torch.Tensor, rope) -> torch.Tensor:
         """img (B, H, W, 3) -> (B, T, enc_dim)."""
-        x = self.patch_embed(img)
-        for blk in self.enc_blocks:
-            x = blk(x, rope)
-        return self.enc_norm(x)
+        return encode_tokens(self.patch_embed, self.enc_blocks,
+                             self.enc_norm, img, rope)
 
     def decode(self, f1, f2, rope):
-        """Interleaved decoder: both encoder streams through ONE
-        decoder_embed, blocks in lockstep reading the previous pair, one
-        shared final norm. states{v}[i] is block i-1's output."""
-        x1, x2 = self.decoder_embed(f1), self.decoder_embed(f2)
-        s1, s2 = [x1], [x2]
-        for b1, b2 in zip(self.dec_blocks, self.dec_blocks2):
-            x1, x2 = b1(x1, x2, rope, rope), b2(x2, x1, rope, rope)
-            s1.append(x1)
-            s2.append(x2)
-        s1[-1] = self.dec_norm(s1[-1])
-        s2[-1] = self.dec_norm(s2[-1])
-        return s1, s2
+        """The interleaved decoder (`vit.decode_interleaved`); both views
+        share one patch grid, so one ``rope``."""
+        return decode_interleaved(self.decoder_embed, self.dec_blocks,
+                                  self.dec_blocks2, self.dec_norm, f1, f2,
+                                  rope, rope)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
@@ -160,6 +153,26 @@ def _init_weights_(net: nn.Module, gen: torch.Generator):
             nn.init.zeros_(w)
 
 
+def _read_pretrained(path: str) -> Tuple[Dict, Dict[str, np.ndarray]]:
+    """A `save_pretrained` file of either package: (its ``__config__`` as
+    `ModelConfig` keyword arguments, {"/"-joined flax key: array})."""
+    with np.load(path, allow_pickle=False) as data:
+        cfg_json = bytes(data["__config__"].tolist()).decode()
+        flat = {k: data[k] for k in data.files if not k.startswith("__")}
+    saved = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in json.loads(cfg_json).items()}
+    return saved, flat
+
+
+def restore_pytree_npz(path: str, like: Any) -> Any:
+    """The flax-layout parameter tree of a `save_pretrained` file of either
+    package, shaped like ``like`` (nested dicts, as the JAX package's
+    params): each leaf read under its "/"-joined key and cast to the dtype
+    of ``like``'s leaf (a tensor leaf gives a tensor on its device). A leaf
+    the file lacks raises KeyError naming it."""
+    return rebuild(like, _read_pretrained(path)[1], path, cast=True)
+
+
 class Mast3rModel:
     """User-facing model wrapper: holds the config and the network on one
     device and runs batched pair inference."""
@@ -172,7 +185,12 @@ class Mast3rModel:
 
     @classmethod
     def init_random(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,
+                    image_hw: Tuple[int, int] = (64, 64),
                     device="cuda") -> "Mast3rModel":
+        """Random weights from ``seed`` on ``device`` (the card unless
+        "cpu"). ``image_hw`` is the JAX package's example-input size, taken
+        and unused: a torch module is built without an example input."""
+        del image_hw
         cfg = cfg or ModelConfig.tiny()
         dev = resolve_device(device)
         with torch.device("meta"):
@@ -192,12 +210,7 @@ class Mast3rModel:
         # io imports the alignment and splat packages, which import this
         from ..io.from_jax import mast3r_state_dict_from_jax
         dev = resolve_device(device)
-        with np.load(path, allow_pickle=False) as data:
-            cfg_json = bytes(data["__config__"].tolist()).decode()
-            flat = {k: data[k] for k in data.files
-                    if not k.startswith("__")}
-        saved = {k: tuple(v) if isinstance(v, list) else v
-                 for k, v in json.loads(cfg_json).items()}
+        saved, flat = _read_pretrained(path)
         cfg = cfg or ModelConfig(**saved)
         tree: Dict = {}
         for key, arr in flat.items():

@@ -8,6 +8,13 @@ JAX package: pre-LN blocks, LayerNorm eps 1e-5, exact (erf) GELU, the
 decoder's cross-attention memory LayerNormed by `norm_y` (croco
 norm_mem=True), RoPE on every self- and cross-attention q/k.
 
+`Encoder` and `InterleavedDecoder` are the JAX package's two trunk modules
+(their own parameter names: `patch_embed`, `blocks.{i}`, `norm`; `embed`,
+`blocks.{i}`, `blocks2.{i}`, `norm`); `TwoViewNet` holds the same layers
+under the checkpoint's names, and both run them through `encode_tokens`
+and `decode_interleaved`. Parameters stay float32; for bfloat16 run the
+forward under autocast, as `Mast3rModel` does.
+
 Tensors are (B, T, C) token-major, as in the JAX package.
 """
 
@@ -20,10 +27,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import sdpa
-from ..ops.rope import apply_rope_2d
+from ..ops.rope import apply_rope_2d, rope_2d_freqs
 
 __all__ = ("PatchEmbed", "Mlp", "Attention", "CrossAttention",
-           "EncoderBlock", "DecoderBlock", "patch_positions")
+           "EncoderBlock", "DecoderBlock", "Encoder", "InterleavedDecoder",
+           "decode_interleaved", "encode_tokens", "patch_positions")
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
 
@@ -130,3 +138,82 @@ class DecoderBlock(nn.Module):
         x = x + self.attn(self.norm1(x), rope_x)
         x = x + self.cross_attn(self.norm2(x), self.norm_y(y), rope_x, rope_y)
         return x + self.mlp(self.norm3(x))
+
+
+def encode_tokens(patch_embed: PatchEmbed, blocks, norm: nn.LayerNorm,
+                  img: torch.Tensor, rope: Rope) -> torch.Tensor:
+    """The ViT encoder: img (B, H, W, 3) -> normalised tokens (B, T, C)."""
+    x = patch_embed(img)
+    for blk in blocks:
+        x = blk(x, rope)
+    return norm(x)
+
+
+def decode_interleaved(embed: nn.Linear, blocks, blocks2, norm: nn.LayerNorm,
+                       f1: torch.Tensor, f2: torch.Tensor, rope1: Rope,
+                       rope2: Rope):
+    """The CroCo interleaved two-stream decoder: both encoder streams
+    through ONE ``embed``, then block i of each stack reads the previous
+    pair (x1, x2), and one shared ``norm`` on both last states. Returns
+    (states1, states2): the embedded tokens and every block's output,
+    states{v}[i] being block i-1's."""
+    x1, x2 = embed(f1), embed(f2)
+    s1, s2 = [x1], [x2]
+    for b1, b2 in zip(blocks, blocks2):
+        x1, x2 = b1(x1, x2, rope1, rope2), b2(x2, x1, rope2, rope1)
+        s1.append(x1)
+        s2.append(x2)
+    s1[-1] = norm(s1[-1])
+    s2[-1] = norm(s2[-1])
+    return s1, s2
+
+
+class Encoder(nn.Module):
+    """The JAX package's `Encoder`: patch embedding, ``depth`` pre-LN
+    blocks with 2D RoPE, a final LayerNorm."""
+
+    def __init__(self, depth: int, dim: int, heads: int,
+                 patch_size: int = 16, mlp_ratio: float = 4.0,
+                 rope_base: float = 100.0):
+        super().__init__()
+        self.head_dim, self.patch_size, self.rope_base = (
+            dim // heads, patch_size, rope_base)
+        self.patch_embed = PatchEmbed(dim, patch_size)
+        self.blocks = nn.ModuleList(
+            [EncoderBlock(dim, heads, mlp_ratio) for _ in range(depth)])
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        """img (B, H, W, 3) -> (B, T, dim)."""
+        _, h, w, _ = img.shape
+        pos = patch_positions(h // self.patch_size, w // self.patch_size,
+                              img.device)[None]
+        rope = rope_2d_freqs(pos, self.head_dim, self.rope_base)
+        return encode_tokens(self.patch_embed, self.blocks, self.norm, img,
+                             rope)
+
+
+class InterleavedDecoder(nn.Module):
+    """The JAX package's `InterleavedDecoder` (`decode_interleaved`):
+    ``blocks.{i}`` is the checkpoint's ``dec_blocks.{i}``, ``blocks2.{i}``
+    its ``dec_blocks2.{i}``."""
+
+    def __init__(self, depth: int, dim: int, heads: int, enc_dim: int,
+                 mlp_ratio: float = 4.0, rope_base: float = 100.0):
+        super().__init__()
+        self.head_dim, self.rope_base = dim // heads, rope_base
+        self.embed = nn.Linear(enc_dim, dim)
+        self.blocks = nn.ModuleList(
+            [DecoderBlock(dim, heads, mlp_ratio) for _ in range(depth)])
+        self.blocks2 = nn.ModuleList(
+            [DecoderBlock(dim, heads, mlp_ratio) for _ in range(depth)])
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, f1: torch.Tensor, f2: torch.Tensor, pos1: torch.Tensor,
+                pos2: torch.Tensor):
+        """f1, f2 (B, T, enc_dim) encoder outputs; pos1, pos2 (1, T, 2)
+        patch coordinates. Returns (states1, states2)."""
+        rope1 = rope_2d_freqs(pos1, self.head_dim, self.rope_base)
+        rope2 = rope_2d_freqs(pos2, self.head_dim, self.rope_base)
+        return decode_interleaved(self.embed, self.blocks, self.blocks2,
+                                  self.norm, f1, f2, rope1, rope2)

@@ -5,8 +5,9 @@ The host runtime around the device path: image preprocessing (bicubic
 resize, centre crop, normalisation) on one image or a thread pool, content
 hashing and float-to-uint8 conversion. The source is the port's own copy,
 `starst3r_tpu_torch/csrc/starst3r_native.cpp`; it is compiled with ``g++``
-on first use into `starst3r_tpu_torch/_build/` (the file name carries a hash
-of the source, so an edited source builds anew) and loaded with ctypes.
+on first use into `starst3r_tpu_torch/_build/`, or the directory
+`utils.enable_compilation_cache` chose (the file name carries a hash of the
+source, so an edited source builds anew), and loaded with ctypes.
 This is host C++: no CUDA.
 
 `available()` builds on first call and says whether the library loaded.
@@ -27,6 +28,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..utils.compile_cache import build_dir as _cache_dir
+
 __all__ = ("available", "build", "output_shape", "preprocess",
            "preprocess_batch", "hash64", "rgb_to_u8")
 
@@ -41,21 +44,22 @@ _I32P = ctypes.POINTER(ctypes.c_int)
 
 def _lib_path() -> Path:
     digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"libstarst3r_native_{digest}.so"
+    return _cache_dir(_BUILD_DIR) / f"libstarst3r_native_{digest}.so"
 
 
-def _build() -> Optional[str]:
-    """Compile the library unless it is on disk (the JAX package's g++
-    line). Returns None on success, else the reason it failed."""
+def _build(force: bool = False) -> Optional[str]:
+    """Compile the library unless it is on disk or ``force`` (the JAX
+    package's g++ line). Returns None on success, else the reason it
+    failed."""
     if not _SRC.exists():
         return f"{_SRC} is missing"
     so = _lib_path()
-    if so.exists():
+    if so.exists() and not force:
         return None
     cxx = shutil.which("g++")
     if cxx is None:
         return "g++ is not on the PATH"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     cmd = [cxx, "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
            "-o", str(tmp), str(_SRC), "-lpthread"]
@@ -70,20 +74,26 @@ def _build() -> Optional[str]:
     return None
 
 
-def build() -> bool:
-    """Compile the shared library if it is not built yet. Returns success."""
-    return _build() is None
+def build(force: bool = False) -> bool:
+    """Compile the shared library if it is not built yet; with ``force``,
+    compile it anew even when it is, and drop this process's kept outcome
+    of loading it. Returns success."""
+    ok = _build(force) is None
+    if force:
+        _load.cache_clear()
+    return ok
 
 
 @functools.lru_cache(maxsize=None)
-def _load() -> Tuple[Optional[ctypes.CDLL], str]:
-    """(the loaded library with its argument types set, or None; why not).
-    Built on the first call; the outcome is kept for the process."""
+def _load(path: Path) -> Tuple[Optional[ctypes.CDLL], str]:
+    """(the library at ``path``, `_lib_path()`, loaded with its argument
+    types set, or None; why not). Built on the first call; the outcome is
+    kept for the process, per path."""
     why = _build()
     if why is not None:
         return None, why
     try:
-        lib = ctypes.CDLL(str(_lib_path()))
+        lib = ctypes.CDLL(str(path))
     except OSError as e:
         return None, f"loading the library failed: {e}"
     lib.st_preprocess_shape.argtypes = [ctypes.c_int] * 4 + [_I32P, _I32P]
@@ -105,11 +115,11 @@ def _load() -> Tuple[Optional[ctypes.CDLL], str]:
 
 def available() -> bool:
     """Whether the library builds and loads here (built on first call)."""
-    return _load()[0] is not None
+    return _load(_lib_path())[0] is not None
 
 
 def _library() -> ctypes.CDLL:
-    lib, why = _load()
+    lib, why = _load(_lib_path())
     if lib is None:
         raise RuntimeError(f"the native library is unavailable: {why}")
     return lib

@@ -8,9 +8,10 @@ With a ``mesh`` (`parallel.make_mesh`), every rank calls
 `reconstruct_scene` with the same images: the pair batches are split over
 the mesh's first axis and the predictions all-gathered; matching, canonical
 views, MST, condensation and the GA run on every rank, and rank 0's
-canonical views, condensed data and GA result are broadcast, so the ranks
-do not carry two scenes that differ in the last bits (the GA's index adds
-use atomics on the card); the polish then reduces its correspondence or
+canonical views, condensed data and GA result are broadcast, so every rank
+holds rank 0's scene even if a stage before the broadcast differed between
+ranks in the last bits (the GA itself is repeatable bit for bit on the
+card: it adds no atomics); the polish then reduces its correspondence or
 track shards over the mesh.
 
 Complete symmetric pair graph, disk-cached pairwise inference, canonical
@@ -133,6 +134,7 @@ def _dense_unproject(dense_depth, K, cam2w, conf, h: int, w: int,
 def reconstruct_scene(
     model: Mast3rModel,
     imgs: Sequence[np.ndarray],
+    filelist: Optional[Sequence[str]] = None,
     device="cuda",
     optim_params: Optional[GAParams] = None,
     tmpdir: Optional[str] = None,
@@ -146,7 +148,10 @@ def reconstruct_scene(
     """Run the full reconstruction pipeline on ``device`` (which must be the
     model's device). imgs: processed (3, H, W) images in [-1, 1]. ``mesh``:
     pair-parallel inference and a sharded polish, with the same result on
-    every rank (module docstring)."""
+    every rank (module docstring). ``filelist`` is taken and ignored, as in
+    the JAX package (the reference's signature has it; the pair cache is
+    keyed by content)."""
+    del filelist
     cfg = config or default_config()
     dev = resolve_device(device)
     if dev != model.device:

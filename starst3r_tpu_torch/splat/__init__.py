@@ -10,6 +10,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..config import SplatConfig
 from .composite import (composite_packed, composite_tiles,
                         composite_tiles_plain)
 from .gather import gather_entries
@@ -25,7 +26,7 @@ __all__ = (
     "rasterize", "project_gaussians", "sh_eval", "tile_entries", "Bins",
     "bin_gaussians", "composite_packed", "composite_tiles",
     "composite_tiles_plain", "gather_entries", "MCMCConfig", "relocate_dead",
-    "add_position_noise",
+    "add_position_noise", "SplatConfig",
 )
 
 

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (`starst3r_tpu_torch/csrc/*.cu`).
 
 Each source is compiled on first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a -shared`` into `starst3r_tpu_torch/_build/`
-(the file name carries a hash of the source and of the shared headers, so
+arch=compute_90a,code=sm_90a -shared`` into `starst3r_tpu_torch/_build/`,
+or the directory `utils.enable_compilation_cache` chose (the file name carries a hash of the source and of the shared headers, so
 an edited source builds anew) and loaded with ctypes. Each exports C
 functions (one named after its file, the compositing sources also a
 ``_packed`` route) that launch a kernel on the stream they are given and
@@ -26,11 +26,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
+from ..utils.compile_cache import build_dir
+
 __all__ = ("KERNELS", "build", "launch", "library")
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_BUILD_DIR = _PKG / "_build"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source file (csrc/<name>.cu) -> {exported function: its argument types}.
@@ -64,7 +65,7 @@ def _so_path(name: str, csrc: Path = _CSRC) -> Path:
     digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
-    return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _compile(name: str, csrc: Path = _CSRC) -> Tuple[float, str]:
@@ -95,19 +96,23 @@ def build(names: Optional[Iterable[str]] = None, csrc: Path = _CSRC
     todo = [n for n in (names or KERNELS) if not _so_path(n, csrc).exists()]
     if not todo:
         return {}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:
         return dict(zip(todo, pool.map(lambda n: _compile(n, csrc), todo)))
 
 
-@functools.lru_cache(maxsize=None)
 def library(name: str, csrc: Path = _CSRC) -> ctypes.CDLL:
     """The loaded library of source ``name`` built from the sources in
-    ``csrc``, built first if need be, with the argument types of the
-    functions it exports set."""
+    ``csrc``, built first if need be (into the current `build_dir`), with
+    the argument types of the functions it exports set."""
+    return _library(name, Path(csrc), build_dir())
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str, csrc: Path, where: Path) -> ctypes.CDLL:
+    # ``where`` is the build directory, so each directory loads its own
     if name not in _EXPORTS:
         raise KeyError(f"no CUDA kernel source named {name!r}")
-    csrc = Path(csrc)
     so = _so_path(name, csrc)
     if not so.exists():
         build([name], csrc)

@@ -338,15 +338,23 @@ def rasterize(means, quats, scales, opacities, sh, viewmats, Ks,
               width: int, height: int, sh_degree: int = 1,
               tile_size: int = 16, max_tiles_per_gaussian: int = 16,
               max_per_tile: int = 1024, chunk: int = 128,
-              bins: Optional[Bins] = None):
+              impl: str = "auto", bins: Optional[Bins] = None):
     """Render C cameras. means (N,3), quats (N,4) wxyz, scales (N,3) linear,
     opacities (N,) linear, sh (N,K,3), viewmats = w2c (C,4,4), Ks (C,3,3),
     all on one device. ``chunk`` only affects the plain (CPU) compositing.
-    ``bins``: an optional `bin_gaussians` result to reuse. Differentiable
-    in the Gaussian parameters.
+    ``impl``: "auto", the port's one route (the CUDA kernels for CUDA
+    tensors, their plain versions for CPU tensors); the JAX package's
+    "pallas", "xla" and "ref" raise ValueError. ``bins``: an optional
+    `bin_gaussians` result to reuse. Differentiable in the Gaussian
+    parameters.
 
     Returns (rgb (C,H,W,3), alpha (C,H,W,1), info) with info["tile_overflow"]
     and info["n_tiles_clipped"] per camera."""
+    if impl != "auto":
+        raise ValueError(
+            f"rasterize impl {impl!r}: the port has one route, 'auto' (the "
+            "CUDA compositing kernels for CUDA tensors, their plain "
+            "versions for CPU tensors)")
     tw, th = _tile_grid(width, height, tile_size)
     packed, gidx, _, counts, info = _project_and_bin(
         means, quats, scales, opacities, sh, viewmats, Ks, width, height,

@@ -58,7 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,9 +72,10 @@ from ..utils.profiling import trace_if
 from .mcmc import MCMCConfig, add_position_noise, grow_target, relocate_dead
 from .rasterize import Bins, bin_gaussians, max_bbox_area, rasterize
 
-__all__ = ("AdamState", "GSState", "adam_init", "adam_update",
-           "compute_bins", "init_gaussians", "mcmc_config_from", "render",
-           "render_inputs", "run_optim", "train_step")
+__all__ = ("AdamState", "GSState", "Optimizer", "adam_init", "adam_update",
+           "compute_bins", "init_gaussians", "make_optimizer",
+           "mcmc_config_from", "render", "render_inputs", "run_optim",
+           "train_step")
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -182,24 +183,58 @@ def adam_init(params: Dict[str, torch.Tensor]) -> AdamState:
                      {k: torch.zeros_like(v) for k, v in params.items()})
 
 
-def adam_update(grads: Dict[str, torch.Tensor], state: AdamState,
-                params: Dict[str, torch.Tensor], cfg: SplatConfig
-                ) -> Tuple[Dict[str, torch.Tensor], AdamState]:
-    """One Adam step in optax's order; returns (new params, new state)."""
+def _adam_updates(grads: Dict[str, torch.Tensor], state: AdamState,
+                  lrs: Dict[str, float]
+                  ) -> Tuple[Dict[str, torch.Tensor], AdamState]:
+    """optax's ``scale_by_adam`` then the per-key ``-lr`` scale: (updates,
+    new state)."""
     count = state.count + 1
     # the bias corrections in float32, as optax computes decay**count
     bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(count))
     bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(count))
-    lrs = _learning_rates(cfg)
-    new_params, mu, nu = {}, {}, {}
+    updates, mu, nu = {}, {}, {}
     with torch.no_grad():
-        for k, x in params.items():
-            g = grads[k]
+        for k, g in grads.items():
             mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * state.mu[k]
             nu[k] = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[k]
             upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
-            new_params[k] = x + upd * (-lrs[k])
-    return new_params, AdamState(count, mu, nu)
+            updates[k] = upd * (-lrs[k])
+    return updates, AdamState(count, mu, nu)
+
+
+def adam_update(grads: Dict[str, torch.Tensor], state: AdamState,
+                params: Dict[str, torch.Tensor], cfg: SplatConfig
+                ) -> Tuple[Dict[str, torch.Tensor], AdamState]:
+    """One Adam step in optax's order; returns (new params, new state)."""
+    updates, state = _adam_updates({k: grads[k] for k in params}, state,
+                                   _learning_rates(cfg))
+    with torch.no_grad():
+        return {k: x + updates[k] for k, x in params.items()}, state
+
+
+class Optimizer(NamedTuple):
+    """`make_optimizer`'s result, shaped as an optax
+    ``GradientTransformation``: ``init(params) -> AdamState`` and
+    ``update(grads, state, params=None) -> (updates, new state)``; add the
+    updates to the parameters to step."""
+
+    init: Callable[[Dict[str, torch.Tensor]], AdamState]
+    update: Callable[..., Tuple[Dict[str, torch.Tensor], AdamState]]
+
+
+def make_optimizer(cfg: SplatConfig) -> Optimizer:
+    """Adam with the config's per-parameter learning rates (lr_means,
+    lr_quats, lr_scales, lr_opacities, lr_sh; None = cfg.lr), as the JAX
+    package's optax chain; its state is the `AdamState` that `GSState` and
+    the checkpoints hold, and ``params + updates`` is `adam_update`'s
+    step."""
+    lrs = _learning_rates(cfg)
+
+    def update(grads, state, params=None):
+        del params
+        return _adam_updates(grads, state, lrs)
+
+    return Optimizer(adam_init, update)
 
 
 def mcmc_config_from(cfg: SplatConfig) -> MCMCConfig:

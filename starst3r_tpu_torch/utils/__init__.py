@@ -11,4 +11,5 @@ from .camera import (
     estimate_focal_from_pointmap,
 )
 from .metrics import MetricsLogger, Timer, timed
-from .checkpoint import save_pytree, restore_pytree
+from .checkpoint import save_pytree, restore_pytree, tree_prefix_overwrite
+from .compile_cache import enable_compilation_cache

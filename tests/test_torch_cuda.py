@@ -68,7 +68,11 @@ Tolerances:
     one card both raise (no other backend is taken in its place);
   - on a machine with several cards, the sharded paths over NCCL (one rank
     per card) against the meshless calls on one card, with the CPU tests'
-    tolerances (tests/test_torch_parallel.py); skips on one card.
+    tolerances (tests/test_torch_parallel.py); skips on one card;
+  - the JAX spellings on the card: `rasterize(..., impl="auto")` equal to
+    the default call with K1 launched (the JAX backends raise),
+    `native.build(force=True)` building the library anew, and a kernel
+    built under `utils.enable_compilation_cache`'s directory.
 """
 
 import numpy as np
@@ -1258,3 +1262,57 @@ def test_sharded_paths_on_several_cards(dev, tmp_path):
         for f in ("pts1", "conf2", "desc1", "desc_conf2"):
             np.testing.assert_allclose(out[f], ref[f].cpu().numpy(),
                                        atol=2e-3, err_msg=f)
+
+
+def test_rasterize_impl_auto_on_cuda(dev):
+    """`rasterize(..., impl="auto")`, the JAX spelling, is the default
+    call on the card: the same images, K1 launched; the JAX backends raise
+    rather than route a CUDA tensor to the plain version."""
+    args = [a.to(dev) for a in _scene()]
+    kw = dict(width=32, height=32, sh_degree=1, tile_size=16,
+              max_tiles_per_gaussian=9, max_per_tile=128, chunk=128)
+    rgb_d, a_d, _ = rasterize(*args, **kw)
+    before = comp.composite_packed_cuda.launches
+    rgb_a, a_a, _ = rasterize(*args, *kw.values(), "auto")
+    torch.cuda.synchronize()
+    assert comp.composite_packed_cuda.launches == before + 1
+    assert torch.equal(rgb_a, rgb_d) and torch.equal(a_a, a_d)
+    for impl in ("pallas", "xla", "ref"):
+        with pytest.raises(ValueError):
+            rasterize(*args, **kw, impl=impl)
+
+
+def test_native_build_force_rebuilds(dev, tmp_path, monkeypatch):
+    """`native.build(force=True)` compiles the library anew over the file
+    and the next call loads it."""
+    import os
+    from starst3r_tpu_torch import native
+    from starst3r_tpu_torch.utils import compile_cache
+    monkeypatch.setattr(compile_cache, "_dir", None)
+    stt.utils.enable_compilation_cache(tmp_path)
+    assert native.available()
+    so = native._lib_path()
+    ino = os.stat(so).st_ino
+    assert native.build(force=True) and os.stat(so).st_ino != ino
+    assert native.available() and native.hash64(b"x") == native.hash64(b"x")
+
+
+def test_compilation_cache_builds_a_kernel_there(dev, tmp_path,
+                                                 monkeypatch):
+    """After `enable_compilation_cache(path)` a kernel builds under
+    ``path`` and launches from there."""
+    from starst3r_tpu_torch.utils import compile_cache
+    monkeypatch.setattr(compile_cache, "_dir", None)
+    stt.utils.enable_compilation_cache(tmp_path)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    packed = torch.randn((64, 9), generator=gen, device=dev)
+    gidx = torch.randint(0, 64, (4, 8), generator=gen, device=dev,
+                         dtype=torch.int32)
+    valid = torch.rand((4, 8), generator=gen, device=dev) < 0.7
+    before = gat.gather_entries_cuda.launches
+    got = gat.gather_entries_cuda(packed, gidx, valid)
+    torch.cuda.synchronize()
+    assert gat.gather_entries_cuda.launches == before + 1
+    assert any(p.name.startswith("gather_entries_")
+               for p in tmp_path.glob("*.so"))
+    assert torch.equal(got, gat.gather_entries_plain(packed, gidx, valid))

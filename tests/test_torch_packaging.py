@@ -1,7 +1,9 @@
 """Packaging guards for the PyTorch port `starst3r_tpu_torch`:
 
-  1. no module of the port imports jax, flax, optax or starst3r_tpu (AST
-     scan of every import, at any scope);
+  1. no module of the port, nor of its Blender add-on
+     (`blender_addon_torch/`, which reaches the port only through its
+     command line), imports jax, flax, optax or starst3r_tpu (AST scan of
+     every import, at any scope);
   2. importing the port in a fresh interpreter loads none of them (and
      not scipy, which `alignment/spectral.py` imports only to build a
      basis), and makes no torch.distributed process group (`parallel/`
@@ -31,6 +33,7 @@ from starst3r_tpu_torch.alignment.schur import Tracks, schur_refine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "starst3r_tpu_torch")
+ADDON = os.path.join(ROOT, "blender_addon_torch")
 FORBIDDEN = ("jax", "flax", "optax", "starst3r_tpu")
 
 
@@ -40,11 +43,12 @@ def _forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 
 
-def _py_files():
-    for dirpath, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                yield os.path.join(dirpath, f)
+def _py_files(roots=(PKG,)):
+    for root in roots:
+        for dirpath, _, files in os.walk(root):
+            for f in files:
+                if f.endswith(".py"):
+                    yield os.path.join(dirpath, f)
 
 
 def test_forbidden_name_check_is_exact():
@@ -54,8 +58,9 @@ def test_forbidden_name_check_is_exact():
 
 
 def test_port_has_no_jax_or_reference_imports():
-    files = list(_py_files())
+    files = list(_py_files((PKG, ADDON)))
     assert len(files) > 20
+    assert os.path.join(ADDON, "command.py") in files
     bad = []
     for path in files:
         with open(path) as f:
@@ -81,6 +86,7 @@ PORT_MODULES = ("starst3r_tpu_torch", "starst3r_tpu_torch.splat",
                 "starst3r_tpu_torch.utils.synthetic",
                 "starst3r_tpu_torch.utils.eval",
                 "starst3r_tpu_torch.utils.profiling",
+                "starst3r_tpu_torch.utils.compile_cache",
                 "starst3r_tpu_torch.parallel",
                 "starst3r_tpu_torch.parallel.comm",
                 "starst3r_tpu_torch.parallel.distributed",
