@@ -136,7 +136,23 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      (CUDA events over 50 replays) and its device-busy time and five
      costliest kernels (torch.profiler), reported only. Step 2 itself checks that its two
      GA calls captured 4 steps, replayed 2 x 700 and read the host
-     2 x (10 + 4) times. Its seconds are on a `[stages] slice 8:` line.
+     2 x (10 + 4) times, and that they launched the GA's row-gather
+     backward kernel (`gather_rows_bwd`) as often as the counter can see:
+     in each phase's three warm-up steps and its capture, 8 launches a
+     coarse step and 6 a fine one, none in the replays. Its seconds are
+     on a `[stages] slice 8:` line;
+ 18. `[ga-gather]` (run after step 2, before `[ga-graph]`): the GA's
+     row-gather backward kernel against its plain version
+     (``index_add_``) on the card, at each of the six gather sites'
+     shapes on the first add_images call's condensed data (its GAState's
+     indices and their CSR, a seeded cotangent): within 1e-5 (1 +
+     max|plain|), empty rows exactly 0, two launches equal bit for bit, a
+     launch replayed in a CUDA graph equal to the eager one; each site's
+     kernel time, the library call ``zeros(R, D).index_add_(0, idx, ct)``,
+     the autograd backward of ``table[idx]`` (the port's route before
+     this kernel), the plain version and the bound. The `kernels` line's
+     `gather_rows_bwd` row sums the six sites. Its seconds are on a
+     `[stages] slice 10:` line.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -154,7 +170,9 @@ until the host has queued them all (`device_ms`), so every kernel the call
 launches counts (the backward's includes the zero fill of its output) and
 the host's launch pace does not; `ms_events` beside it is the CUDA-event
 time per call of the same loop unqueued, which counts the pace too;
-`plain_ms` is CUDA-event time. torch.profiler only breaks times down and
+`plain_ms` is CUDA-event time, except the row-gather backward's: its
+plain version is its library call (`index_add_`), timed once by
+`device_ms` for both fields. torch.profiler only breaks times down and
 sums a training step's device-busy time; where its trace holds no device
 time those figures read "not measured" and nothing fails.
 
@@ -275,6 +293,15 @@ BLENDER_POSE_TOL = PAR_GA_TOL
 GRAPH_GA = (100, 50)
 GRAPH_GA_FLOOR = 1e-6
 GA_COUNTERS = ("captures", "replays", "host_reads")
+# the GA's row-gather backward launches in one step: coarse, both endpoints'
+# depth, K and cam2w and the fallback's cam2w and core points; fine, one
+# endpoint's three, the projection and the fallback's two. Under a CUDA
+# graph the counter sees each phase's warm-up steps and capture, not the
+# replays
+GATHER_LAUNCHES = {1: 8, 2: 6}
+# `[ga-gather]`: the kernel against index_add_ (float32 sums of up to
+# thousands of terms in another order)
+GATHER_TOL = 1e-5
 POLISH = {
     "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
                     lm_mode="lm"),
@@ -738,12 +765,14 @@ def bound(n_bytes, n_ops):
 
 def launch_counters():
     """{exported kernel function: the wrapper that counts its launches}."""
+    from starst3r_tpu_torch.alignment import ga
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
     return {"composite_fwd_packed": comp.composite_packed_cuda,
             "composite_bwd_packed": comp.composite_packed_bwd_cuda,
             "composite_fwd": comp.composite_tiles_cuda,
             "composite_bwd": comp.composite_tiles_bwd_cuda,
-            "gather_entries": gat.gather_entries_cuda}
+            "gather_entries": gat.gather_entries_cuda,
+            "gather_rows_bwd": ga.gather_rows_bwd_cuda}
 
 
 def set_launches(value=0):
@@ -1997,7 +2026,8 @@ def turntable_phase():
     check(frames.shape == (want_frames, 128, 128, 3),
           f"turntable: frames {frames.shape}")
     check(float(frames.std()) > 0, "turntable: the frames are uniform")
-    for fn in ("composite_fwd_packed", "composite_bwd_packed"):
+    for fn in ("composite_fwd_packed", "composite_bwd_packed",
+               "gather_rows_bwd"):
         check(launches[fn] > 0, f"turntable did not launch {fn}")
     return {"turntable_ga": out["ga_s"], "turntable_3dgs": out["gs_s"]}
 
@@ -2120,6 +2150,101 @@ def ga_errors(a, b, root):
     out["loss"] = max(abs(x - y) / max(abs(y), 1e-30) for x, y in (
         (a.loss_coarse, b.loss_coarse), (a.loss_fine, b.loss_fine)))
     return out
+
+
+def ga_gather_launches(cfg):
+    """The row-gather backward launches one GA call makes where the
+    counter sees them: each phase's warm-up steps and its capture."""
+    from starst3r_tpu_torch.alignment import ga
+    return sum((ga._WARMUP_STEPS + 1) * GATHER_LAUNCHES[phase]
+               for phase, n in ((1, cfg.niter1), (2, cfg.niter2)) if n)
+
+
+def ga_gather_phase(call, dev):
+    """`[ga-gather]`: the row-gather backward kernel against its plain
+    version on the card at the six JAX gather sites' shapes, on the
+    GAState of ``call`` (the main path's first GA). Returns the kernels
+    line's case (the six sites summed) and the seconds."""
+    import torch
+    from starst3r_tpu_torch.alignment import ga
+    t0 = time.perf_counter()
+    (data, mst, cfg), _ = call
+    state = ga.make_state(data, mst, cfg, device=dev)
+    ix = state.gathers
+    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
+    sites = (("depth", 346, c * s, 1, ix.depth1),
+             ("K", 348, c, 9, ix.img1),
+             ("cam2w", 354, c, 16, ix.img1),
+             ("proj", 385, c, 12, ix.img1),
+             ("pair_cam2w", 405, c, 16, ix.pair_img2),
+             ("pair_pts3d", 411, c, s * 3, ix.pair_img1))
+    rng = np.random.default_rng(0)
+    out = []
+    for name, line, r, d, (idx, csr) in sites:
+        m = idx.numel()
+        ct = torch.from_numpy((3.0 * rng.normal(size=(m, d))).astype(
+            np.float32)).to(dev)
+        kernel = lambda: ga.gather_rows_bwd_cuda(ct, *csr)
+        got, again = kernel(), kernel()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = kernel()
+        replayed.zero_()
+        graph.replay()
+        want = ga._gather_rows_bwd_plain(idx, ct, r)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = GATHER_TOL * (1 + float(want.abs().max()))
+        empty = torch.bincount(idx, minlength=r) == 0
+        n_empty = int(empty.sum())
+        check(err <= tol, f"[ga-gather] {name}: max|kernel - plain| = {err}"
+              f" (limit {tol})")
+        check(bool((got[empty] == 0).all()),
+              f"[ga-gather] {name}: an empty row is not 0")
+        check(torch.equal(got, again),
+              f"[ga-gather] {name}: two launches differ")
+        check(torch.equal(replayed, got),
+              f"[ga-gather] {name}: the graph replay differs from the eager "
+              "launch")
+        graph.reset()
+        table = torch.zeros((r, d), device=dev, requires_grad=True)
+        gathered = table[idx]
+        # what the kernel reads and writes: the cotangent, the int32 row
+        # order, the int32 offsets and the output; one add per cotangent
+        # element
+        n_bytes = 4 * m * d + 4 * m + 4 * (r + 1) + 4 * r * d
+        # the plain version is the library call, zeros + index_add_: one
+        # timing fills both fields
+        plain_ms = device_ms(lambda: ga._gather_rows_bwd_plain(idx, ct, r),
+                             reps=50)
+        case = {
+            "name": name, "replaces": f"starst3r_tpu/alignment/ga.py:{line}",
+            "rows": r, "width": d, "entries": m, "empty_rows": n_empty,
+            "max_abs_err": err, "bytes": n_bytes, "ops": m * d,
+            "ms": device_ms(kernel, reps=50), "library_ms": plain_ms,
+            "autograd_ms": device_ms(lambda: torch.autograd.grad(
+                gathered, table, ct, retain_graph=True), reps=50),
+            "plain_ms": plain_ms}
+        case["bound_ms"] = bound(n_bytes, m * d)[0]
+        out.append(case)
+        print(f"[ga-gather] {name} (ga.py:{line}): table ({r}, {d}), {m} "
+              f"entries, {n_empty} empty rows; max|kernel - plain| = {err:.3g}"
+              f" (limit {tol:.3g}); kernel {case['ms']:.4f} ms, plain "
+              f"version (the library call zeros + index_add_) "
+              f"{plain_ms:.4f} ms, autograd backward of table[idx] "
+              f"{case['autograd_ms']:.4f} ms, bound {case['bound_ms']:.3g} "
+              f"ms", flush=True)
+        del gathered, table
+    total = {key: sum(c[key] for c in out)
+             for key in ("bytes", "ops", "ms", "library_ms", "autograd_ms",
+                         "plain_ms")}
+    total["max_abs_err"] = max(c["max_abs_err"] for c in out)
+    total["gathers"] = out
+    print(f"[ga-gather] the six sites summed: kernel {total['ms']:.4f} ms, "
+          f"plain (library) {total['plain_ms']:.4f} ms, autograd "
+          f"{total['autograd_ms']:.4f} ms, bound "
+          f"{bound(total['bytes'], total['ops'])[0]:.3g} ms", flush=True)
+    return total, {"ga_gather": time.perf_counter() - t0}
 
 
 def ga_graph_phase(call, dev):
@@ -2669,12 +2794,23 @@ def main():
           flush=True)
     check(len(ga_calls) == 2, f"{len(ga_calls)} GA calls on the main path")
     check(ga_counts == want, f"main-path GA counts {ga_counts}, want {want}")
+    want = len(ga_calls) * ga_gather_launches(ga_cfg)
+    print(f"[ga] row-gather backward launches over both: "
+          f"{render_launches['gather_rows_bwd']} (want {want}: the warm-up "
+          "steps and captures; the replays launch it unseen)", flush=True)
+    check(render_launches["gather_rows_bwd"] == want,
+          f"the GA launched gather_rows_bwd "
+          f"{render_launches['gather_rows_bwd']} times, want {want}")
     fwd_cases, render_in = check_composite_kernel(stt, scene, dev)
+    gather_rows, ten = ga_gather_phase(ga_calls[0], dev)
     t = time.perf_counter()
     eight = ga_graph_phase(ga_calls[0], dev)
     eight["slice8"] = time.perf_counter() - t
     print("[stages] slice 8: " + " ".join(f"{k}={v:.3f}s"
                                           for k, v in eight.items()),
+          flush=True)
+    print("[stages] slice 10: " + " ".join(f"{k}={v:.3f}s"
+                                           for k, v in ten.items()),
           flush=True)
     del ga_calls
 
@@ -2799,7 +2935,10 @@ def main():
     # is stated in: per attribute, max |kernel - plain| over the plain
     # version's largest magnitude (the conic gradients of the trained scene
     # reach 1e11). The gather's row is the standalone kernel, which the main
-    # path no longer launches.
+    # path no longer launches. The GA's row-gather backward is not a Pallas
+    # kernel: it replaces the TPU route of the JAX `_gather_rows_bwd`; its
+    # launches are step 2's (the GA's warm-up steps and captures) and its
+    # times the six gather sites' of `[ga-gather]`, summed.
     rows = (("composite_fwd", "composite_fwd_packed",
              "starst3r_tpu/splat/pallas_composite.py:107", fwd_cases[0],
              max(c["max_abs_err"] for c in fwd_cases), None),
@@ -2808,7 +2947,12 @@ def main():
              max(c["scaled_err"] for c in bwd_cases), None),
             ("gather_entries", "gather_entries",
              "tools/probe_mosaic_gather.py:69", gather,
-             gather["max_abs_err"], gather["library_ms"]))
+             gather["max_abs_err"], gather["library_ms"]),
+            ("gather_rows_bwd", "gather_rows_bwd",
+             "starst3r_tpu/alignment/ga.py:315", gather_rows,
+             gather_rows["max_abs_err"], gather_rows["library_ms"]))
+    main_launches = dict(train_launches, gather_rows_bwd=render_launches[
+        "gather_rows_bwd"])
     for name, function, replaces, case, err, library_ms in rows:
         bound_ms, bound_by = bound(case["bytes"], case["ops"])
         walked_ms, _ = bound(case["bytes"], case.get("ops_walked", 0))
@@ -2816,7 +2960,7 @@ def main():
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": f"starst3r_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": train_launches[function],
+            "replaces": replaces, "launches": main_launches[function],
             "launches_parallel": par_launches[function],
             "max_abs_err": err, "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
@@ -2826,7 +2970,9 @@ def main():
             "bound_ms_walked": walked_ms,
             "pairs_walked": pairs.get("walked"),
             "pairs_in_boxes": pairs.get("in_boxes"),
-            "pairs_passing": pairs.get("passing")})
+            "pairs_passing": pairs.get("passing"),
+            **({"autograd_ms": case["autograd_ms"],
+                "gathers": case["gathers"]} if "gathers" in case else {})})
         print(f"[kernel] {name} ({function}): {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}"

@@ -27,10 +27,15 @@ device, and the NaN freeze is a ``where`` that keeps the previous params,
 moments and loss once a loss is non-finite, so no step reads the host. On
 the CPU the steps run eagerly. On the card the step is captured once per
 phase as a CUDA graph and replayed, the counterpart of the JAX package's
-jitted ``fori_loop`` chunk; a capture that fails raises. Gathers are plain
-indexing (their backward is an index-add). The correspondences are float32
-and the matmuls run at full float32 (no TF32: the GA has no convolutions
-and CUDA matmuls default to full precision).
+jitted ``fori_loop`` chunk; a capture that fails raises. The losses' six
+gathers of camera and depth rows (the JAX package's `_gather_rows` sites)
+go through `_gather_rows`, whose backward sums each table row's cotangent
+rows: on the card a kernel written for it (`csrc/gather_rows_bwd.cu`, a
+fixed summation order and no atomics, so a step gives the same bits every
+time), on the CPU ``index_add_``. Its indices' row order (CSR) is built
+once a GA call, by `make_state`, outside the captured step. The
+correspondences are float32 and the matmuls run at full float32 (no TF32:
+the GA has no convolutions and CUDA matmuls default to full precision).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import GAConfig
+from ..splat.kernels import launch
 from ..utils.checkpoint import tree_prefix_overwrite
 from ..utils.device import resolve_device
 from ..utils.schedules import cosine_schedule, meta_gamma_loss
@@ -93,6 +99,9 @@ class GAState(NamedTuple):
     # lora_depth: params.core_depth holds (C, k) spectral coefficients and
     # the core depth is basis @ coeffs inside the loss (alignment/spectral)
     depth_basis: Optional[torch.Tensor] = None   # (C, S, k)
+    # the losses' gather indices with their row order (`_GatherIndices`),
+    # built once by make_state for both phases
+    gathers: Optional[Tuple] = None
 
 
 def init_params(data: CondensedData, device="cuda") -> GAParams:
@@ -121,7 +130,7 @@ def make_state(data: CondensedData, mst: Tuple[int, Any], cfg: GAConfig,
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
     m = len(data.corr_idx1)
-    return GAState(
+    state = GAState(
         imsizes=f32(data.imsizes), base_focals=f32(data.base_focals),
         median_depths=f32(data.median_depths), core_pix=f32(data.core_pix),
         corr_img1=i64(data.corr_img1), corr_idx1=i64(data.corr_idx1),
@@ -147,6 +156,7 @@ def make_state(data: CondensedData, mst: Tuple[int, Any], cfg: GAConfig,
         min_focals=f32(cfg.min_focal_factor * diags),
         max_focals=f32(cfg.max_focal_factor * diags),
         depth_basis=None if depth_basis is None else f32(depth_basis))
+    return state._replace(gathers=_gather_indices(state))
 
 
 def make_K_cam_depth(params: GAParams, state: GAState,
@@ -232,15 +242,133 @@ def _core_pts3d(K, cam2w, depth, state: GAState):
             + cam2w[:, None, :3, 3])
 
 
-def _endpoint_pts(K, cam2w, depth, img, idx, pix, doff):
+def _gather_rows_bwd_plain(idx: torch.Tensor, ct: torch.Tensor,
+                           nrows: int) -> torch.Tensor:
+    """The backward kernel's plain version: d[r] = sum of ct[m] over the
+    m with idx[m] == r, (nrows, D). The CPU route and the tests use it."""
+    return ct.new_zeros((nrows,) + tuple(ct.shape[1:])).index_add_(0, idx, ct)
+
+
+def gather_rows_bwd_cuda(ct: torch.Tensor, order: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA row-sum kernel: d[r] = sum of ct[order[k]] for k in
+    [offsets[r], offsets[r+1]), (R, D) float32, every row written (an
+    empty row is 0). Checks device, types, shapes and layout."""
+    if not ct.is_cuda:
+        raise ValueError("gather_rows_bwd_cuda needs CUDA tensors")
+    if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
+        raise ValueError("ct must be contiguous float32 (M, D), got "
+                         f"{ct.dtype} {tuple(ct.shape)}")
+    m, width = ct.shape
+    for name, t, n in (("order", order, m), ("offsets", offsets, None)):
+        if t.device != ct.device or t.dtype != torch.int32 or t.dim() != 1 \
+                or not t.is_contiguous() or (n is not None and t.numel() != n):
+            raise ValueError(f"{name} must be contiguous int32 (1-D) on ct's "
+                             f"device, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    rows = offsets.numel() - 1
+    if rows < 0 or width > 65535 * 32:
+        raise ValueError(f"{rows} rows of width {width}: offsets needs R + 1 "
+                         "entries and the kernel's grid D <= 2,097,120")
+    d = torch.empty((rows, width), dtype=torch.float32, device=ct.device)
+    with torch.cuda.device(ct.device):
+        launch("gather_rows_bwd", ct.data_ptr(), order.data_ptr(),
+               offsets.data_ptr(), d.data_ptr(), rows, width, m,
+               torch.cuda.current_stream(ct.device).cuda_stream)
+    gather_rows_bwd_cuda.launches += 1
+    return d
+
+
+# under a CUDA graph this counts the launches Python sees: the warm-up steps
+# and the capture, not the replays
+gather_rows_bwd_cuda.launches = 0
+
+
+def _gather_csr(idx: torch.Tensor, nrows: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of ``idx`` over a table of ``nrows`` rows, as the kernel
+    reads them: (order, offsets), ``order`` (M,) int32 a stable argsort of
+    idx (each row's entries keep their order) and ``offsets`` (nrows + 1,)
+    int32 the cumulative counts, so row r's entries are
+    order[offsets[r]:offsets[r + 1]]."""
+    if idx.numel() >= 2 ** 31:
+        raise ValueError(f"{idx.numel()} entries: the kernel indexes int32")
+    counts = torch.bincount(idx, minlength=nrows)
+    if counts.numel() != nrows:
+        raise ValueError(f"an index reaches past the table's {nrows} rows")
+    offsets = torch.zeros(nrows + 1, dtype=torch.int32, device=idx.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return torch.argsort(idx, stable=True).to(torch.int32), offsets
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` for a table (R, D) whose backward sums each row's
+    cotangent rows with the kernel (CUDA tensors) or ``index_add_`` (CPU
+    tensors), the JAX package's `_gather_rows` (its TPU backward is a one-hot
+    contraction, which computes the same sum)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, order, offsets):
+        if table.dim() != 2:
+            raise ValueError(f"the table must be (R, D), got {table.shape}")
+        ctx.save_for_backward(idx, order, offsets)
+        return table[idx]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        idx, order, offsets = ctx.saved_tensors
+        if ct.is_cuda:
+            d = gather_rows_bwd_cuda(ct.contiguous(), order, offsets)
+        elif ct.device.type == "cpu":
+            d = _gather_rows_bwd_plain(idx, ct, offsets.numel() - 1)
+        else:
+            raise ValueError(f"no row-gather backward for device {ct.device}")
+        return d, None, None, None
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                 csr: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """``table[idx]`` (M, D), differentiable in ``table``; ``csr`` is
+    `_gather_csr(idx, R)`."""
+    return _GatherRows.apply(table, idx, *csr)
+
+
+class _GatherIndices(NamedTuple):
+    """The losses' gather indices, each as (idx, its `_gather_csr`): the
+    correspondences' depth rows (img * S + idx over the C * S rows of the
+    flattened core depth), their cameras, and the pairs' cameras."""
+
+    depth1: Tuple
+    depth2: Tuple
+    img1: Tuple
+    img2: Tuple
+    pair_img1: Tuple
+    pair_img2: Tuple
+
+
+def _gather_indices(state: GAState) -> _GatherIndices:
+    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
+    rows = lambda idx, n: (idx, _gather_csr(idx, n))
+    return _GatherIndices(
+        depth1=rows(state.corr_img1 * s + state.corr_idx1, c * s),
+        depth2=rows(state.corr_img2 * s + state.corr_idx2, c * s),
+        img1=rows(state.corr_img1, c), img2=rows(state.corr_img2, c),
+        pair_img1=rows(state.pair_img1, c),
+        pair_img2=rows(state.pair_img2, c))
+
+
+def _endpoint_pts(K, cam2w, depth, cam, point, pix, doff):
     """World position of anchored correspondence endpoints (M, 3): the ray
-    through ``pix`` at depth core_depth[img, idx] * doff."""
-    z = depth[img, idx] * doff
-    Km = K[img]
-    x = (pix[:, 0] - Km[:, 0, 2]) / Km[:, 0, 0] * z
-    y = (pix[:, 1] - Km[:, 1, 2]) / Km[:, 1, 1] * z
+    through ``pix`` at depth core_depth[img, idx] * doff. ``cam`` and
+    ``point`` are the endpoints' camera and depth-row gather indices."""
+    c, s = depth.shape
+    z = _gather_rows(depth.reshape(c * s, 1), *point)[:, 0] * doff
+    Km = _gather_rows(K.reshape(c, 9), *cam)
+    x = (pix[:, 0] - Km[:, 2]) / Km[:, 0] * z
+    y = (pix[:, 1] - Km[:, 5]) / Km[:, 4] * z
     cam_pts = torch.stack([x, y, z], dim=-1)
-    Tm = cam2w[img]
+    Tm = _gather_rows(cam2w.reshape(c, 16), *cam).reshape(-1, 4, 4)
     return torch.einsum("mij,mj->mi", Tm[:, :3, :3], cam_pts) + Tm[:, :3, 3]
 
 
@@ -248,30 +376,33 @@ def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
-def _loss_3d(K, cam2w, depth, state: GAState, gamma: float, alpha):
+def _loss_3d(K, cam2w, depth, state: GAState, gamma: float, alpha,
+             ix: _GatherIndices):
     """3D-3D correspondence loss over matching-ok, non-frozen pairs
     (reference reconstruct.py:325-353)."""
     ok = state.pair_matching_ok[state.corr_pair]
     both_frozen = state.freeze[state.corr_img1] & state.freeze[state.corr_img2]
     wgt = state.corr_conf * ok * (~both_frozen)
-    p1 = _endpoint_pts(K, cam2w, depth, state.corr_img1, state.corr_idx1,
-                       state.corr_pix1, state.corr_doff1)
-    p2 = _endpoint_pts(K, cam2w, depth, state.corr_img2, state.corr_idx2,
-                       state.corr_pix2, state.corr_doff2)
+    p1 = _endpoint_pts(K, cam2w, depth, ix.img1, ix.depth1, state.corr_pix1,
+                       state.corr_doff1)
+    p2 = _endpoint_pts(K, cam2w, depth, ix.img2, ix.depth2, state.corr_pix2,
+                       state.corr_doff2)
     dist = _norm(p1 - p2 + 1e-12)
     loss = torch.sum(wgt * meta_gamma_loss(dist, gamma, alpha))
     return loss / torch.clamp(torch.sum(wgt), min=1e-8)
 
 
-def _loss_2d(K, cam2w, depth, w2c, state: GAState, gamma: float, alpha):
+def _loss_2d(K, cam2w, depth, w2c, state: GAState, gamma: float, alpha,
+             ix: _GatherIndices):
     """2D reprojection loss (reference reconstruct.py:355-369): project the
     matched point of image 2 into image 1."""
     ok = state.pair_matching_ok[state.corr_pair]
     wgt = state.corr_conf * ok * (~state.freeze[state.corr_img1])
     proj = K @ w2c[:, :3]                              # (C, 3, 4)
-    p2 = _endpoint_pts(K, cam2w, depth, state.corr_img2, state.corr_idx2,
-                       state.corr_pix2, state.corr_doff2)
-    pm = proj[state.corr_img1]                         # (M, 3, 4)
+    p2 = _endpoint_pts(K, cam2w, depth, ix.img2, ix.depth2, state.corr_pix2,
+                       state.corr_doff2)
+    pm = _gather_rows(proj.reshape(-1, 12),
+                      *ix.img1).reshape(-1, 3, 4)      # (M, 3, 4)
     homo = torch.einsum("mij,mj->mi", pm[:, :, :3], p2) + pm[:, :, 3]
     z = homo[:, 2:3]
     z = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
@@ -281,16 +412,19 @@ def _loss_2d(K, cam2w, depth, w2c, state: GAState, gamma: float, alpha):
     return loss / torch.clamp(torch.sum(wgt), min=1e-8)
 
 
-def _loss_dust3r(pts3d, cam2w, state: GAState, gamma: float):
+def _loss_dust3r(pts3d, cam2w, state: GAState, gamma: float,
+                 ix: _GatherIndices):
     """Regression fallback for low-matching pairs
     (reference reconstruct.py:283-323)."""
     bad = ~state.pair_matching_ok
     both_frozen = state.freeze[state.pair_img1] & state.freeze[state.pair_img2]
     pair_w = bad & (~both_frozen)
-    Tp = cam2w[state.pair_img2]
+    Tp = _gather_rows(cam2w.reshape(-1, 16), *ix.pair_img2).reshape(-1, 4, 4)
     tgt = (torch.einsum("pij,psj->psi", Tp[:, :3, :3], state.preds21_pts)
            + Tp[:, None, :3, 3])
-    ours = pts3d[state.pair_img1]
+    c, s = pts3d.shape[0], pts3d.shape[1]
+    ours = _gather_rows(pts3d.reshape(c, s * 3),
+                        *ix.pair_img1).reshape(-1, s, 3)  # (P, S, 3)
     dist = _norm(ours - tgt + 1e-12)
     wgt = state.preds21_conf * pair_w[:, None]
     loss = torch.sum(wgt * meta_gamma_loss(dist, gamma, 0.0))
@@ -359,12 +493,14 @@ class _Phase:
         K, w2c, cam2w, depth = make_K_cam_depth(
             self.params, state, cfg.depth_mode, cfg.shared_intrinsics,
             cfg.exp_depth)
+        ix = state.gathers
         if self.phase == 1:
-            main = _loss_3d(K, cam2w, depth, state, self.gamma, alpha)
+            main = _loss_3d(K, cam2w, depth, state, self.gamma, alpha, ix)
         else:
-            main = _loss_2d(K, cam2w, depth, w2c, state, self.gamma, alpha)
+            main = _loss_2d(K, cam2w, depth, w2c, state, self.gamma, alpha,
+                            ix)
         reg = _loss_dust3r(_core_pts3d(K, cam2w, depth, state), cam2w, state,
-                           cfg.gamma_d)
+                           cfg.gamma_d, ix)
         return main + cfg.loss_dust3r_w * reg
 
     def step(self):

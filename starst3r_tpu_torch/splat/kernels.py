@@ -43,6 +43,7 @@ _EXPORTS = {
     "composite_bwd": {"composite_bwd": [_P] * 8 + [_I] * 7 + [_P],
                       "composite_bwd_packed": [_P] * 9 + [_I] * 7 + [_P]},
     "gather_entries": {"gather_entries": [_P] * 4 + [ctypes.c_int64, _P]},
+    "gather_rows_bwd": {"gather_rows_bwd": [_P] * 4 + [_I] * 3 + [_P]},
 }
 KERNELS = tuple(_EXPORTS)
 _SOURCE_OF = {fn: name for name, fns in _EXPORTS.items() for fn in fns}

@@ -55,6 +55,11 @@ Tolerances:
   - the lora GA on the card against the CPU on a planted sphere scene:
     1e-4, tests/test_torch_ga.py's tolerance, poses in the root camera's
     frame (the GA's free rigid motion);
+  - the GA's row-gather backward (`csrc/gather_rows_bwd.cu`) against its
+    plain version ``index_add_`` on the card, at the six gather sites'
+    shapes: 1e-5 (1 + max|plain|) (float32 sums in another order; the
+    kernel has no atomics); empty rows exactly 0; two launches, and a
+    launch replayed in a CUDA graph, equal to the eager launch bit for bit;
   - the GA's captured step replayed on the card against the same step run
     eagerly on the card: poses in the root frame, K, depth and the phase
     losses, each scaled by its largest magnitude, within twice the
@@ -952,6 +957,98 @@ def test_lora_ga_on_cuda_matches_cpu(dev):
                                atol=1e-4)
     np.testing.assert_allclose(g.loss_coarse, c.loss_coarse, rtol=1e-4)
     np.testing.assert_allclose(g.loss_fine, c.loss_fine, rtol=1e-4)
+
+
+ROWS_TOL = 1e-5
+
+
+def _rows_inputs(name, dev):
+    """One of tests/torch_ga_scene.py's gather cases on the card, with its
+    CSR."""
+    from torch_ga_scene import gather_case
+    from starst3r_tpu_torch.alignment import ga
+    r, idx, ct = gather_case(name)
+    idx = torch.from_numpy(idx).to(dev)
+    return r, idx, torch.from_numpy(ct).to(dev), ga._gather_csr(idx, r)
+
+
+@pytest.mark.parametrize("name", ["depth", "K", "cam2w", "proj",
+                                  "pair_cam2w", "pair_pts3d", "empty_rows",
+                                  "one_row"])
+def test_gather_rows_bwd_matches_plain(dev, name):
+    from starst3r_tpu_torch.alignment import ga
+    r, idx, ct, (order, offsets) = _rows_inputs(name, dev)
+    before = ga.gather_rows_bwd_cuda.launches
+    got = ga.gather_rows_bwd_cuda(ct, order, offsets)
+    torch.cuda.synchronize()
+    assert ga.gather_rows_bwd_cuda.launches == before + 1
+    want = ga._gather_rows_bwd_plain(idx, ct, r)
+    assert got.shape == want.shape == (r, ct.shape[1])
+    tol = ROWS_TOL * (1 + float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    empty = torch.bincount(idx, minlength=r) == 0
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["depth", "cam2w", "pair_pts3d"])
+def test_gather_rows_bwd_is_deterministic(dev, name):
+    from starst3r_tpu_torch.alignment import ga
+    _, _, ct, csr = _rows_inputs(name, dev)
+    a = ga.gather_rows_bwd_cuda(ct, *csr)
+    b = ga.gather_rows_bwd_cuda(ct, *csr)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["depth", "K", "pair_pts3d"])
+def test_gather_rows_bwd_in_a_cuda_graph(dev, name):
+    from starst3r_tpu_torch.alignment import ga
+    _, _, ct, csr = _rows_inputs(name, dev)
+    eager = ga.gather_rows_bwd_cuda(ct, *csr)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ga.gather_rows_bwd_cuda(ct, *csr)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_gather_rows_bwd_no_entries(dev):
+    from starst3r_tpu_torch.alignment import ga
+    idx = torch.zeros(0, dtype=torch.int64, device=dev)
+    csr = ga._gather_csr(idx, 5)
+    got = ga.gather_rows_bwd_cuda(torch.zeros((0, 7), device=dev), *csr)
+    torch.cuda.synchronize()
+    assert got.shape == (5, 7) and bool((got == 0).all())
+
+
+@pytest.mark.parametrize("d", [3, 33, 45, 100])
+def test_gather_rows_bwd_width_not_a_multiple_of_32(dev, d):
+    from starst3r_tpu_torch.alignment import ga
+    rng = np.random.default_rng(d)
+    r, m = 11, 3000
+    idx = torch.from_numpy(rng.integers(0, r - 2, m)).to(dev)
+    ct = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev)
+    got = ga.gather_rows_bwd_cuda(ct, *ga._gather_csr(idx, r))
+    want = ga._gather_rows_bwd_plain(idx, ct, r)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ROWS_TOL * (
+        1 + float(want.abs().max()))
+    assert bool((got[r - 2:] == 0).all())
+
+
+def test_gather_rows_autograd_launches_the_kernel(dev):
+    from starst3r_tpu_torch.alignment import ga
+    r, idx, ct, csr = _rows_inputs("cam2w", dev)
+    table = torch.zeros((r, ct.shape[1]), device=dev, requires_grad=True)
+    out = ga._gather_rows(table, idx, csr)
+    assert torch.equal(out, table.detach()[idx])
+    before = ga.gather_rows_bwd_cuda.launches
+    (grad,) = torch.autograd.grad(out, table, ct)
+    torch.cuda.synchronize()
+    assert ga.gather_rows_bwd_cuda.launches == before + 1
+    assert torch.equal(grad, ga.gather_rows_bwd_cuda(ct, *csr))
 
 
 def _eager_phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg):

@@ -5,6 +5,9 @@ GA tests that must not import JAX (tests/test_torch_cuda.py).
 The planted-pose sphere scene (anchored endpoints, 4 cameras, 64 px, an
 8 x 8 core grid), with two pairs marked as failed matches so the dust3r
 fallback loss is live, a noisy fallback target and scaled confidences.
+
+Also the shapes of the GA's six row gathers on the main path
+(`gather_case`), for the row-gather backward's CPU and GPU tests.
 """
 
 import numpy as np
@@ -29,3 +32,28 @@ def ga_scene(n_cams=4, seed=0):
         corr_conf=(data.corr_conf * rng.uniform(1, 3, size=data.corr_conf
                                                 .shape)).astype(np.float32))
     return data, mst
+
+
+GATHER_S = 784          # core points of a 224 px view at subsample 8
+GATHER_M = 20_000       # correspondences, about what the main path's GA holds
+GATHER_SITES = ("depth", "K", "cam2w", "proj", "pair_cam2w", "pair_pts3d")
+
+
+def gather_case(name, c=6, seed=0):
+    """(R, idx (M,) int64, ct (M, D) float32) of one of the JAX GA's six
+    `_gather_rows` sites at C = c cameras, S = GATHER_S, M = GATHER_M and
+    P = c (c - 1) pairs; or "empty_rows", a depth-shaped index over the
+    first two cameras' rows only, or "one_row", an index whose entries all
+    fall in one of the C rows."""
+    rng = np.random.default_rng(seed)
+    s, m = GATHER_S, GATHER_M
+    img = rng.integers(0, c, m)
+    pairs = rng.integers(0, c, c * (c - 1))
+    r, d, idx = {
+        "depth": (c * s, 1, img * s + rng.integers(0, s, m)),
+        "K": (c, 9, img), "cam2w": (c, 16, img), "proj": (c, 12, img),
+        "pair_cam2w": (c, 16, pairs), "pair_pts3d": (c, s * 3, pairs),
+        "empty_rows": (c * s, 1, rng.integers(0, 2 * s, 500)),
+        "one_row": (c, 16, np.full(m, 2))}[name]
+    ct = (3.0 * rng.normal(size=(len(idx), d))).astype(np.float32)
+    return r, idx.astype(np.int64), ct
