@@ -56,6 +56,12 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      starst3r_tpu_torch/csrc (a parent commit's, unpacked with git
      archive), built with the same nvcc line, held to these and timed
      beside them in turns on the render's and the trained scene's entries;
+     and its row-gather backward (its `gather_rows_bwd` export), right
+     after step 18, held to this one and timed beside it in turns (parent,
+     new, new, parent) at both of step 18's operating points, in a
+     replayed coarse step, and in whole GAs (the main path's two calls on
+     their recorded arguments, the turntable's, `[ga-512]`'s) with each
+     kernel in the GA's backward;
   9. `[checkpoint]`: Scene.save of the trained scene and Scene.load on the
      card (every array equal bit for bit), 10 training steps on the loaded
      scene (finite losses); save_pretrained of the large model and
@@ -143,16 +149,29 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      on a `[stages] slice 8:` line;
  18. `[ga-gather]` (run after step 2, before `[ga-graph]`): the GA's
      row-gather backward kernel against its plain version
-     (``index_add_``) on the card, at each of the six gather sites'
-     shapes on the first add_images call's condensed data (its GAState's
-     indices and their CSR, a seeded cotangent): within 1e-5 (1 +
-     max|plain|), empty rows exactly 0, two launches equal bit for bit, a
+     (``index_add_``, summed in float64) on the card, at each of the six
+     gather sites' shapes on two GAStates: the first add_images call's
+     condensed data and the JAX package's 512 px operating point
+     (`[ga-512]`'s scene), with their indices' CSR and a seeded
+     cotangent: within 1e-5 (1 + max|plain|), equal bit for bit to
+     `_gather_rows_bwd_in_order` (the kernel's summation order in
+     PyTorch), empty rows exactly 0, two launches equal bit for bit, a
      launch replayed in a CUDA graph equal to the eager one; each site's
-     kernel time, the library call ``zeros(R, D).index_add_(0, idx, ct)``,
-     the autograd backward of ``table[idx]`` (the port's route before
-     this kernel), the plain version and the bound. The `kernels` line's
-     `gather_rows_bwd` row sums the six sites. Its seconds are on a
-     `[stages] slice 10:` line.
+     kernel time, launch shape and blocks (at most that many SMs), the
+     library call ``zeros(R, D).index_add_(0, idx, ct)`` (float32), the
+     autograd backward of ``table[idx]``, the plain version and the
+     bound. The `kernels` line's `gather_rows_bwd` row sums the main
+     path's six sites (`at_512px` the other six). Its seconds are on a
+     `[stages] slice 10:` line;
+ 19. `[ga-512]` (after `[ga-graph]`): run_global_alignment at the JAX
+     package's 512 px operating point
+     (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory: 10
+     cameras, 4,096 core points, 368,640 correspondences, GA 50 + 20 at
+     jit_chunk 10): finite poses, the graph route's counts, the row-gather
+     backward's launches (56: each phase's warm-up steps and capture); the
+     GA's seconds, the ATE, one replayed coarse step's time and its five
+     costliest kernels. Its seconds are on the `[stages] slice 10:`
+     line.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -299,9 +318,15 @@ GA_COUNTERS = ("captures", "replays", "host_reads")
 # graph the counter sees each phase's warm-up steps and capture, not the
 # replays
 GATHER_LAUNCHES = {1: 8, 2: 6}
-# `[ga-gather]`: the kernel against index_add_ (float32 sums of up to
-# thousands of terms in another order)
+# `[ga-gather]`: the kernel against index_add_ summed in float64 (float32
+# sums of up to tens of thousands of terms)
 GATHER_TOL = 1e-5
+# `[ga-512]`: the JAX package's 512 px GA operating point
+# (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory): 10 cameras,
+# S = 4,096 core points, 368,640 anchored correspondences
+GA512_SCENE = dict(n_cams=10, hw=512, focal=720.0, subsample=8,
+                   anchored=True, orbit=True, sph_r=1.2, spread=0.2)
+GA512_CFG = dict(niter1=50, niter2=20, jit_chunk=10)
 POLISH = {
     "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
                     lm_mode="lm"),
@@ -1265,7 +1290,7 @@ def side_by_side(parent_csrc, render_in, real):
     Times in turns parent, new, new, parent, launch against launch (no
     allocation in the timed loop)."""
     import torch
-    from starst3r_tpu_torch.splat import kernels
+    from starst3r_tpu_torch import kernels
 
     fns = {"parent": {n: getattr(kernels.library(n, parent_csrc), n)
                       for n in SIDE_BY_SIDE},
@@ -2160,91 +2185,297 @@ def ga_gather_launches(cfg):
                for phase, n in ((1, cfg.niter1), (2, cfg.niter2)) if n)
 
 
-def ga_gather_phase(call, dev):
+def gather_sites(state):
+    """The six JAX `_gather_rows` sites on ``state``'s indices: (name, line
+    in starst3r_tpu/alignment/ga.py, table rows R, width D, idx, its
+    CSR)."""
+    ix = state.gathers
+    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
+    return (("depth", 346, c * s, 1, *ix.depth1),
+            ("K", 348, c, 9, *ix.img1),
+            ("cam2w", 354, c, 16, *ix.img1),
+            ("proj", 385, c, 12, *ix.img1),
+            ("pair_cam2w", 405, c, 16, *ix.pair_img2),
+            ("pair_pts3d", 411, c, s * 3, *ix.pair_img1))
+
+
+def site_cotangent(m, d, dev, seed=0):
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((3.0 * rng.normal(size=(m, d))).astype(
+        np.float32)).to(dev)
+
+
+def ga512_inputs():
+    """The JAX package's 512 px GA operating point: (data, mst, gt c2w,
+    GAConfig)."""
+    from starst3r_tpu_torch.config import GAConfig
+    from starst3r_tpu_torch.utils.synthetic import synthetic_ga_scene
+    data, mst, gt, _ = synthetic_ga_scene(**GA512_SCENE)
+    return data, mst, gt, GAConfig(**GA512_CFG)
+
+
+def ga_gather_phase(points, dev):
     """`[ga-gather]`: the row-gather backward kernel against its plain
     version on the card at the six JAX gather sites' shapes, on the
-    GAState of ``call`` (the main path's first GA). Returns the kernels
-    line's case (the six sites summed) and the seconds."""
+    GAStates of ``points`` ({name: GAState}: the main path's first GA and
+    the 512 px operating point). Returns the kernels line's case (the main
+    path's six sites summed), the 512 px sites' sum and the seconds."""
     import torch
     from starst3r_tpu_torch.alignment import ga
     t0 = time.perf_counter()
-    (data, mst, cfg), _ = call
-    state = ga.make_state(data, mst, cfg, device=dev)
-    ix = state.gathers
-    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
-    sites = (("depth", 346, c * s, 1, ix.depth1),
-             ("K", 348, c, 9, ix.img1),
-             ("cam2w", 354, c, 16, ix.img1),
-             ("proj", 385, c, 12, ix.img1),
-             ("pair_cam2w", 405, c, 16, ix.pair_img2),
-             ("pair_pts3d", 411, c, s * 3, ix.pair_img1))
-    rng = np.random.default_rng(0)
-    out = []
-    for name, line, r, d, (idx, csr) in sites:
-        m = idx.numel()
-        ct = torch.from_numpy((3.0 * rng.normal(size=(m, d))).astype(
-            np.float32)).to(dev)
-        kernel = lambda: ga.gather_rows_bwd_cuda(ct, *csr)
-        got, again = kernel(), kernel()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            replayed = kernel()
-        replayed.zero_()
-        graph.replay()
-        want = ga._gather_rows_bwd_plain(idx, ct, r)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = GATHER_TOL * (1 + float(want.abs().max()))
-        empty = torch.bincount(idx, minlength=r) == 0
-        n_empty = int(empty.sum())
-        check(err <= tol, f"[ga-gather] {name}: max|kernel - plain| = {err}"
-              f" (limit {tol})")
-        check(bool((got[empty] == 0).all()),
-              f"[ga-gather] {name}: an empty row is not 0")
-        check(torch.equal(got, again),
-              f"[ga-gather] {name}: two launches differ")
-        check(torch.equal(replayed, got),
-              f"[ga-gather] {name}: the graph replay differs from the eager "
-              "launch")
-        graph.reset()
-        table = torch.zeros((r, d), device=dev, requires_grad=True)
-        gathered = table[idx]
-        # what the kernel reads and writes: the cotangent, the int32 row
-        # order, the int32 offsets and the output; one add per cotangent
-        # element
-        n_bytes = 4 * m * d + 4 * m + 4 * (r + 1) + 4 * r * d
-        # the plain version is the library call, zeros + index_add_: one
-        # timing fills both fields
-        plain_ms = device_ms(lambda: ga._gather_rows_bwd_plain(idx, ct, r),
-                             reps=50)
-        case = {
-            "name": name, "replaces": f"starst3r_tpu/alignment/ga.py:{line}",
-            "rows": r, "width": d, "entries": m, "empty_rows": n_empty,
-            "max_abs_err": err, "bytes": n_bytes, "ops": m * d,
-            "ms": device_ms(kernel, reps=50), "library_ms": plain_ms,
-            "autograd_ms": device_ms(lambda: torch.autograd.grad(
-                gathered, table, ct, retain_graph=True), reps=50),
-            "plain_ms": plain_ms}
-        case["bound_ms"] = bound(n_bytes, m * d)[0]
-        out.append(case)
-        print(f"[ga-gather] {name} (ga.py:{line}): table ({r}, {d}), {m} "
-              f"entries, {n_empty} empty rows; max|kernel - plain| = {err:.3g}"
-              f" (limit {tol:.3g}); kernel {case['ms']:.4f} ms, plain "
-              f"version (the library call zeros + index_add_) "
-              f"{plain_ms:.4f} ms, autograd backward of table[idx] "
-              f"{case['autograd_ms']:.4f} ms, bound {case['bound_ms']:.3g} "
-              f"ms", flush=True)
-        del gathered, table
-    total = {key: sum(c[key] for c in out)
-             for key in ("bytes", "ops", "ms", "library_ms", "autograd_ms",
-                         "plain_ms")}
-    total["max_abs_err"] = max(c["max_abs_err"] for c in out)
-    total["gathers"] = out
-    print(f"[ga-gather] the six sites summed: kernel {total['ms']:.4f} ms, "
-          f"plain (library) {total['plain_ms']:.4f} ms, autograd "
-          f"{total['autograd_ms']:.4f} ms, bound "
-          f"{bound(total['bytes'], total['ops'])[0]:.3g} ms", flush=True)
-    return total, {"ga_gather": time.perf_counter() - t0}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    totals = {}
+    for point, state in points.items():
+        out = []
+        for name, line, r, d, idx, csr in gather_sites(state):
+            m = idx.numel()
+            ct = site_cotangent(m, d, dev)
+            kernel = lambda: ga.gather_rows_bwd_cuda(ct, *csr)
+            got, again = kernel(), kernel()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = kernel()
+            replayed.zero_()
+            graph.replay()
+            # the plain version summed in float64: float32 index_add_ adds
+            # with atomics, as far from the exact sum as the kernel
+            want = ga._gather_rows_bwd_plain(idx, ct.double(), r)
+            in_order = ga._gather_rows_bwd_in_order(ct, *csr)
+            torch.cuda.synchronize()
+            err = float((got.double() - want).abs().max())
+            tol = GATHER_TOL * (1 + float(want.abs().max()))
+            empty = torch.bincount(idx, minlength=r) == 0
+            n_empty = int(empty.sum())
+            tag = f"[ga-gather] {point} {name}"
+            check(err <= tol, f"{tag}: max|kernel - plain| = {err} (limit "
+                  f"{tol})")
+            check(torch.equal(got, in_order), f"{tag}: the kernel differs "
+                  "from its summation order in PyTorch")
+            check(bool((got[empty] == 0).all()), f"{tag}: an empty row is "
+                  "not 0")
+            check(torch.equal(got, again), f"{tag}: two launches differ")
+            check(torch.equal(replayed, got), f"{tag}: the graph replay "
+                  "differs from the eager launch")
+            graph.reset()
+            del want, in_order
+            table = torch.zeros((r, d), device=dev, requires_grad=True)
+            gathered = table[idx]
+            # what the kernel reads and writes: the cotangent, the int32
+            # row order, the int32 offsets and the output; one add per
+            # cotangent element
+            n_bytes = 4 * m * d + 4 * m + 4 * (r + 1) + 4 * r * d
+            # the plain version is the library call, zeros + index_add_:
+            # one timing fills both fields
+            plain_ms = device_ms(
+                lambda: ga._gather_rows_bwd_plain(idx, ct, r), reps=50)
+            plan = ga._gather_plan(m, r, d)
+            gx, gy = plan.grid(r, d)
+            case = {
+                "name": name,
+                "replaces": f"starst3r_tpu/alignment/ga.py:{line}",
+                "rows": r, "width": d, "entries": m, "empty_rows": n_empty,
+                "max_abs_err": err, "bytes": n_bytes, "ops": m * d,
+                "ms": device_ms(kernel, reps=50), "library_ms": plain_ms,
+                "autograd_ms": device_ms(lambda: torch.autograd.grad(
+                    gathered, table, ct, retain_graph=True), reps=50),
+                "plain_ms": plain_ms, "plan": plan._asdict(),
+                "blocks": gx * gy}
+            case["bound_ms"] = bound(n_bytes, m * d)[0]
+            out.append(case)
+            print(f"{tag} (ga.py:{line}): table ({r}, {d}), {m} entries, "
+                  f"{n_empty} empty rows; max|kernel - plain| = {err:.3g} "
+                  f"(limit {tol:.3g}), equal to its order in PyTorch; "
+                  f"kernel {case['ms']:.4f} ms, plain version (the library "
+                  f"call zeros + index_add_) {plain_ms:.4f} ms, autograd "
+                  f"backward of table[idx] {case['autograd_ms']:.4f} ms, "
+                  f"bound {case['bound_ms']:.3g} ms ({case['ms'] / case[
+                      'bound_ms']:.1f}x); {gx * gy} blocks of "
+                  f"{plan.threads} threads ({gx // plan.cluster} row blocks"
+                  f" x {gy} column tiles, clusters of {plan.cluster}): at "
+                  f"most {min(gx * gy, n_sm)} of {n_sm} SMs; plan "
+                  f"{tuple(plan)}", flush=True)
+            del gathered, table
+        total = {key: sum(c[key] for c in out)
+                 for key in ("bytes", "ops", "ms", "library_ms",
+                             "autograd_ms", "plain_ms")}
+        total["max_abs_err"] = max(c["max_abs_err"] for c in out)
+        total["gathers"] = out
+        totals[point] = total
+        print(f"[ga-gather] {point}: the six sites summed: kernel "
+              f"{total['ms']:.4f} ms, plain (library) "
+              f"{total['plain_ms']:.4f} ms, autograd "
+              f"{total['autograd_ms']:.4f} ms, bound "
+              f"{bound(total['bytes'], total['ops'])[0]:.3g} ms", flush=True)
+    return totals, {"ga_gather": time.perf_counter() - t0}
+
+
+def replayed_step(data, mst, cfg, dev):
+    """One replayed coarse step of the GA on ``data``: (ms by CUDA events
+    over 50 replays, device-busy ms by torch.profiler or None, {kernel:
+    ms a step}). CUDA events around a loop of replays, not `device_ms`: a
+    replay queues hundreds of kernels, so the spin would fill the launch
+    queue."""
+    from starst3r_tpu_torch.alignment import ga
+    ph = ga._Phase(ga.init_params(data, device=dev),
+                   ga.make_state(data, mst, cfg, device=dev), cfg.niter1,
+                   cfg.lr1, cfg.lr_end, cfg.gamma1, 1, cfg)
+    graph = ga._capture(ph)
+    step_ms = cuda_ms(graph.replay, 50)
+    busy_ms, by_kernel = profiled_ms(graph.replay, 10)
+    graph.reset()
+    return step_ms, busy_ms, by_kernel
+
+
+def ga512_phase(dev):
+    """`[ga-512]`: run_global_alignment at the JAX package's 512 px
+    operating point (tests/test_ga_groundtruth.py::
+    test_ga_512px_scale_memory's scene and GAConfig) on the card: finite
+    poses, the graph route's counts, the row-gather backward's launches
+    (each phase's warm-up steps and capture); the GA's seconds, the ATE,
+    and one replayed coarse step's time and kernels. Returns the
+    seconds."""
+    import torch
+    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.utils.eval import ate_rmse
+    data, mst, gt, cfg = ga512_inputs()
+    set_ga_counts(0)
+    before = ga.gather_rows_bwd_cuda.launches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res, _ = ga.run_global_alignment(data, mst, cfg, device=dev)
+    pred = res.cam2w.cpu().numpy()
+    secs = time.perf_counter() - t
+    launches = ga.gather_rows_bwd_cuda.launches - before
+    counts = read_ga_counts()
+    ate, scale = ate_rmse(pred, gt), traj_scale(gt)
+    want = {"captures": 2, "replays": cfg.niter1 + cfg.niter2,
+            "host_reads": ga_reads(cfg)}
+    print(f"[ga-512] {data.pps.shape[0]} cameras, "
+          f"{len(data.corr_idx1)} correspondences, "
+          f"{data.core_pix.shape[0]} core points, GA {cfg.niter1} + "
+          f"{cfg.niter2}, jit_chunk {cfg.jit_chunk}: {secs:.3f} s; losses "
+          f"({res.loss_coarse}, {res.loss_fine}); ATE {ate:.6g} = "
+          f"{ate / scale:.6g} x the trajectory scale; gather_rows_bwd "
+          f"launches {launches} (want {ga_gather_launches(cfg)}); counts "
+          f"{counts} (want {want})", flush=True)
+    check(np.isfinite(pred).all(), "[ga-512] poses not finite")
+    check(counts == want, f"[ga-512] counts {counts}, want {want}")
+    check(launches == ga_gather_launches(cfg),
+          f"[ga-512] {launches} row-gather backward launches, want "
+          f"{ga_gather_launches(cfg)}")
+    step_ms, busy_ms, by_kernel = replayed_step(data, mst, cfg, dev)
+    g1 = sum(v for k, v in by_kernel.items() if "gather_rows_bwd" in k)
+    print(f"[ga-512] a replayed coarse step: {step_ms:.4f} ms (CUDA events "
+          f"over 50 replays); torch.profiler: "
+          + (f"{busy_ms:.4f} ms device busy, {len(by_kernel)} kernel "
+             f"names, gather_rows_bwd {g1:.4f} ms a step" if busy_ms else
+             "no device events (not measured)"), flush=True)
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"[ga-512]   {ms:8.4f} ms/step  {name[:100]}", flush=True)
+    return {"ga_512": secs}
+
+
+def parent_rows_bwd(parent_csrc):
+    """The parent revision's row-gather backward (its `gather_rows_bwd`
+    export: one block a row, its shape chosen in C) as a stand-in for
+    `ga.gather_rows_bwd_cuda`, counting its own launches; None where the
+    parent's source has no such export."""
+    import torch
+    from starst3r_tpu_torch import kernels
+    fn = getattr(kernels.library("gather_rows_bwd", parent_csrc),
+                 "gather_rows_bwd", None)
+    if fn is None:
+        return None
+
+    def run(ct, order, offsets):
+        rows, (m, width) = offsets.numel() - 1, ct.shape
+        d = torch.empty((rows, width), dtype=torch.float32,
+                        device=ct.device)
+        err = fn(ct.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+                 d.data_ptr(), rows, width, m,
+                 torch.cuda.current_stream(ct.device).cuda_stream)
+        check(err == 0, f"the parent's gather_rows_bwd: CUDA error {err}")
+        run.launches += 1
+        return d
+
+    run.launches = 0
+    return run
+
+
+def ga_side_by_side(parent_csrc, points, ga_calls, dev):
+    """The parent's row-gather backward (built from ``parent_csrc``) and
+    this one in one process, in turns (parent, new, new, parent): each
+    gather site at both operating points (the outputs within GATHER_TOL
+    of each other: two summation orders), one replayed coarse step, and
+    whole GAs (the main path's two calls on their recorded arguments, the
+    turntable's GA, `[ga-512]`'s) with each kernel in the GA's backward."""
+    import torch
+    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.config import GAConfig
+    from starst3r_tpu_torch.utils.synthetic import synthetic_image_scene
+    parent = parent_rows_bwd(parent_csrc)
+    if parent is None:
+        print("[side-by-side] the parent's source has no gather_rows_bwd: "
+              "the GA's row gather is not compared", flush=True)
+        return
+    routes = {"parent": parent, "new": ga.gather_rows_bwd_cuda}
+    turns = ("parent", "new", "new", "parent")
+    for point, state in points.items():
+        sums = {side: 0.0 for side in routes}
+        for name, _, r, d, idx, csr in gather_sites(state):
+            ct = site_cotangent(idx.numel(), d, dev)
+            a, b = parent(ct, *csr), routes["new"](ct, *csr)
+            torch.cuda.synchronize()
+            diff = float((a - b).abs().max())
+            tol = GATHER_TOL * (1 + float(a.abs().max()))
+            check(diff <= tol, f"[side-by-side] {point} {name}: the new "
+                  f"row-gather backward is {diff} from the parent's")
+            ms = {side: [] for side in routes}
+            for side in turns:
+                ms[side].append(device_ms(
+                    lambda: routes[side](ct, *csr), reps=50))
+            for side in routes:
+                sums[side] += float(np.mean(ms[side]))
+            print(f"[side-by-side] gather_rows_bwd {point} {name}: parent "
+                  f"{np.mean(ms['parent']):.4f} ms {ms['parent']}, new "
+                  f"{np.mean(ms['new']):.4f} ms {ms['new']}; max |new - "
+                  f"parent| {diff:.3g}", flush=True)
+        print(f"[side-by-side] gather_rows_bwd {point}, the six sites "
+              f"summed: parent {sums['parent']:.4f} ms, new "
+              f"{sums['new']:.4f} ms", flush=True)
+
+    tt = synthetic_image_scene(n_cams=8, hw=128, subsample=2, spread=0.25,
+                               focal=180.0)
+    data512, mst512, _, cfg512 = ga512_inputs()
+    gas = [(f"main call {i + 1}", args, kw)
+           for i, (args, kw) in enumerate(ga_calls)]
+    gas += [("turntable", (tt[0], tt[1], GAConfig(niter1=500, niter2=200,
+                                                  lr2=0.004)), {}),
+            ("512px", (data512, mst512, cfg512), {})]
+    steps = {"main": ga_calls[0][0], "512px": (data512, mst512, cfg512)}
+    for side in turns:
+        ga.gather_rows_bwd_cuda = routes[side]
+        try:
+            for name, (data, mst, cfg) in steps.items():
+                step_ms, busy_ms, _ = replayed_step(data, mst, cfg, dev)
+                print(f"[side-by-side] {side}: a replayed coarse step, "
+                      f"{name}: {step_ms:.4f} ms (CUDA events), device busy"
+                      f" {busy_ms if busy_ms is None else round(busy_ms, 4)}"
+                      " ms", flush=True)
+            for name, args, kw in gas:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res, _ = ga.run_global_alignment(
+                    *args, **dict(kw, device=dev))
+                torch.cuda.synchronize()
+                print(f"[side-by-side] {side}: GA {name} "
+                      f"{time.perf_counter() - t:.3f} s, losses "
+                      f"({res.loss_coarse}, {res.loss_fine})", flush=True)
+        finally:
+            ga.gather_rows_bwd_cuda = routes["new"]
+    check(parent.launches > 0, "[side-by-side] the parent's row-gather "
+          "backward was never launched")
 
 
 def ga_graph_phase(call, dev):
@@ -2314,17 +2545,9 @@ def ga_graph_phase(call, dev):
               f"{err} (limit {tol})")
 
     # one replayed coarse step's time and its kernels, on a phase captured
-    # from the same data at the GA's start (reported, not checked). CUDA
-    # events around a loop of replays, not `device_ms`: a replay queues
-    # hundreds of kernels, so the spin would fill the launch queue; where
+    # from the same data at the GA's start (reported, not checked); where
     # the profiler's device-busy time matches it, the step is device-bound
-    ph = ga._Phase(ga.init_params(data, device=dev),
-                   ga.make_state(data, mst, cfg, device=dev), cfg.niter1,
-                   cfg.lr1, cfg.lr_end, cfg.gamma1, 1, cfg)
-    graph = ga._capture(ph)
-    step_ms = cuda_ms(graph.replay, 50)
-    busy_ms, by_kernel = profiled_ms(graph.replay, 10)
-    graph.reset()
+    step_ms, busy_ms, by_kernel = replayed_step(data, mst, cfg, dev)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     print(f"[ga-graph] a replayed coarse step: {step_ms:.4f} ms (CUDA "
           f"events over 50 replays); torch.profiler: "
@@ -2703,7 +2926,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import starst3r_tpu_torch as stt
-    from starst3r_tpu_torch.splat import kernels
+    from starst3r_tpu_torch import kernels
     from starst3r_tpu_torch.splat.mcmc import grow_target
     from starst3r_tpu_torch.splat.train import mcmc_config_from
 
@@ -2719,7 +2942,8 @@ def main():
     built = kernels.build()
     if args.parent_csrc:
         built.update({f"parent {n}": v for n, v in kernels.build(
-            SIDE_BY_SIDE, csrc=args.parent_csrc).items()})
+            SIDE_BY_SIDE + ("gather_rows_bwd",),
+            csrc=args.parent_csrc).items()})
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t:.2f} s "
           "(one nvcc each, in parallel)", flush=True)
     for name, (secs, log) in built.items():
@@ -2802,13 +3026,27 @@ def main():
           f"the GA launched gather_rows_bwd "
           f"{render_launches['gather_rows_bwd']} times, want {want}")
     fwd_cases, render_in = check_composite_kernel(stt, scene, dev)
-    gather_rows, ten = ga_gather_phase(ga_calls[0], dev)
+    from starst3r_tpu_torch.alignment import ga
+    (data, mst, ga_cfg), _ = ga_calls[0]
+    data512, mst512, _, cfg512 = ga512_inputs()
+    points = {"main": ga.make_state(data, mst, ga_cfg, device=dev),
+              "512px": ga.make_state(data512, mst512, cfg512, device=dev)}
+    gathers, ten = ga_gather_phase(points, dev)
+    gather_rows = dict(gathers["main"], at_512px={
+        k: gathers["512px"][k] for k in ("ms", "library_ms", "autograd_ms",
+                                          "bytes", "ops", "gathers")})
+    if args.parent_csrc:
+        t = time.perf_counter()
+        ga_side_by_side(args.parent_csrc, points, ga_calls, dev)
+        ten["side_by_side"] = time.perf_counter() - t
+    del points
     t = time.perf_counter()
     eight = ga_graph_phase(ga_calls[0], dev)
     eight["slice8"] = time.perf_counter() - t
     print("[stages] slice 8: " + " ".join(f"{k}={v:.3f}s"
                                           for k, v in eight.items()),
           flush=True)
+    ten.update(ga512_phase(dev))
     print("[stages] slice 10: " + " ".join(f"{k}={v:.3f}s"
                                            for k, v in ten.items()),
           flush=True)
@@ -2971,8 +3209,9 @@ def main():
             "pairs_walked": pairs.get("walked"),
             "pairs_in_boxes": pairs.get("in_boxes"),
             "pairs_passing": pairs.get("passing"),
-            **({"autograd_ms": case["autograd_ms"],
-                "gathers": case["gathers"]} if "gathers" in case else {})})
+            **({key: case[key] for key in ("autograd_ms", "gathers",
+                                             "at_512px")}
+               if "gathers" in case else {})})
         print(f"[kernel] {name} ({function}): {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}"

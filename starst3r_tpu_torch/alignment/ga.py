@@ -30,9 +30,10 @@ phase as a CUDA graph and replayed, the counterpart of the JAX package's
 jitted ``fori_loop`` chunk; a capture that fails raises. The losses' six
 gathers of camera and depth rows (the JAX package's `_gather_rows` sites)
 go through `_gather_rows`, whose backward sums each table row's cotangent
-rows: on the card a kernel written for it (`csrc/gather_rows_bwd.cu`, a
-fixed summation order and no atomics, so a step gives the same bits every
-time), on the CPU ``index_add_``. Its indices' row order (CSR) is built
+rows: on the card a kernel written for it (`csrc/gather_rows_bwd.cu`: a
+long row's entries split over a thread-block cluster, a fixed summation
+order and no atomics, so a step gives the same bits every time), on the
+CPU ``index_add_``. Its indices' row order (CSR) is built
 once a GA call, by `make_state`, outside the captured step. The
 correspondences are float32 and the matmuls run at full float32 (no TF32:
 the GA has no convolutions and CUDA matmuls default to full precision).
@@ -46,7 +47,7 @@ import numpy as np
 import torch
 
 from ..config import GAConfig
-from ..splat.kernels import launch
+from ..kernels import launch
 from ..utils.checkpoint import tree_prefix_overwrite
 from ..utils.device import resolve_device
 from ..utils.schedules import cosine_schedule, meta_gamma_loss
@@ -249,11 +250,106 @@ def _gather_rows_bwd_plain(idx: torch.Tensor, ct: torch.Tensor,
     return ct.new_zeros((nrows,) + tuple(ct.shape[1:])).index_add_(0, idx, ct)
 
 
+# the row-gather backward kernel's launch limits (csrc/gather_rows_bwd.cu):
+# threads a block, columns a tile, blocks a cluster (the portable size); a
+# block of fewer than _MIN_THREADS threads takes several short rows. The
+# plan gives each row about mean / _ENTRIES_PER_THREAD threads (the
+# kernel's batch of loads in flight), spread over a cluster only once a
+# row needs more than _CLUSTER_FROM of them (the cluster's syncs cost more
+# than they save on shorter rows)
+_MAX_THREADS, _MIN_THREADS, _MAX_TILE, _MAX_CLUSTER = 1024, 256, 32, 8
+_ENTRIES_PER_THREAD, _CLUSTER_FROM = 8, 64
+
+
+class _RowsPlan(NamedTuple):
+    """The row-gather backward kernel's launch shape: ``vec`` floats a
+    thread loads at once (4 where D is a multiple of 4), ``tile_w``
+    threads across a tile of tile_w * vec columns, ``groups`` threads
+    splitting each row's share of entries (a power of two, combined by a
+    tree), ``rows_per_block`` rows a block and ``cluster`` blocks (a
+    thread-block cluster) splitting each row's entries into consecutive
+    shares."""
+
+    vec: int
+    tile_w: int
+    groups: int
+    rows_per_block: int
+    cluster: int
+
+    @property
+    def threads(self) -> int:
+        return self.tile_w * self.groups * self.rows_per_block
+
+    def grid(self, rows: int, width: int) -> Tuple[int, int]:
+        """(blocks along x: row blocks times the cluster, column tiles)."""
+        cols = width // self.vec
+        return (-(-rows // self.rows_per_block) * self.cluster,
+                -(-cols // self.tile_w))
+
+
+def _next_pow2(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def _gather_plan(entries: int, rows: int, width: int) -> _RowsPlan:
+    """The kernel's launch shape for ``entries`` cotangent rows of
+    ``width`` floats summed into ``rows`` rows, from the shapes alone (so
+    the summation order, and the bits, depend on nothing else)."""
+    vec = 4 if width % 4 == 0 else 1
+    tile_w = max(min(width // vec, _MAX_TILE), 1)
+    mean = max(-(-entries // max(rows, 1)), 1)
+    per_row = _next_pow2(-(-mean // _ENTRIES_PER_THREAD))
+    cluster = min(max(per_row // _CLUSTER_FROM, 1), _MAX_CLUSTER)
+    most = 1 << ((_MAX_THREADS // tile_w).bit_length() - 1)
+    groups = min(per_row // cluster, most)
+    rows_per_block = max(min(_MIN_THREADS // (tile_w * groups), rows), 1)
+    return _RowsPlan(vec, tile_w, groups, rows_per_block, cluster)
+
+
+def _gather_rows_bwd_in_order(ct: torch.Tensor, order: torch.Tensor,
+                              offsets: torch.Tensor) -> torch.Tensor:
+    """The kernel's function with its exact summation order, in plain
+    PyTorch (float32 adds in the same order give the same bits): each
+    row's entries cut into the plan's ``cluster`` consecutive shares, each
+    share's entries g, g + groups, ... summed in turn, a tree over the
+    groups, then the shares in rank order. The card's tests hold the
+    kernel to it bit for bit."""
+    m, width = ct.shape
+    rows = offsets.numel() - 1
+    plan = _gather_plan(m, rows, width)
+    n_rank, groups = plan.cluster, plan.groups
+    off = offsets.long()
+    counts = off[1:] - off[:-1]
+    row = torch.repeat_interleave(torch.arange(rows, device=ct.device),
+                                  counts)
+    pos = torch.arange(m, device=ct.device) - off[row]
+    share = ((counts + n_rank - 1) // n_rank)[row]
+    rank, within = pos // share, pos % share
+    step = within // groups
+    depth = int(step.max()) + 1 if m else 0
+    slot = torch.full((rows, n_rank, groups, depth), m, dtype=torch.long,
+                      device=ct.device)
+    slot[row, rank, within % groups, step] = order.long()
+    padded = torch.cat([ct, ct.new_zeros((1, width))])
+    acc = ct.new_zeros((rows, n_rank, groups, width))
+    for i in range(depth):
+        acc = acc + padded[slot[..., i]]
+    s = groups // 2
+    while s:
+        acc[:, :, :s] = acc[:, :, :s] + acc[:, :, s:2 * s]
+        s //= 2
+    out = acc[:, 0, 0]
+    for q in range(1, n_rank):
+        out = out + acc[:, q, 0]
+    return out
+
+
 def gather_rows_bwd_cuda(ct: torch.Tensor, order: torch.Tensor,
                          offsets: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA row-sum kernel: d[r] = sum of ct[order[k]] for k in
     [offsets[r], offsets[r+1]), (R, D) float32, every row written (an
-    empty row is 0). Checks device, types, shapes and layout."""
+    empty row is 0), with `_gather_plan`'s launch shape. Checks device,
+    types, shapes and layout."""
     if not ct.is_cuda:
         raise ValueError("gather_rows_bwd_cuda needs CUDA tensors")
     if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
@@ -267,13 +363,17 @@ def gather_rows_bwd_cuda(ct: torch.Tensor, order: torch.Tensor,
                              f"device, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
     rows = offsets.numel() - 1
-    if rows < 0 or width > 65535 * 32:
+    plan = _gather_plan(m, max(rows, 0), width)
+    if rows < 0 or plan.grid(rows, width)[1] > 65535:
         raise ValueError(f"{rows} rows of width {width}: offsets needs R + 1 "
-                         "entries and the kernel's grid D <= 2,097,120")
+                         "entries and the kernel's grid at most 65,535 "
+                         "column tiles")
+    if plan.vec == 4 and ct.data_ptr() % 16:
+        ct = ct.clone()          # the kernel reads float4s: 16-byte aligned
     d = torch.empty((rows, width), dtype=torch.float32, device=ct.device)
     with torch.cuda.device(ct.device):
-        launch("gather_rows_bwd", ct.data_ptr(), order.data_ptr(),
-               offsets.data_ptr(), d.data_ptr(), rows, width, m,
+        launch("gather_rows_bwd_split", ct.data_ptr(), order.data_ptr(),
+               offsets.data_ptr(), d.data_ptr(), rows, width, *plan,
                torch.cuda.current_stream(ct.device).cuda_stream)
     gather_rows_bwd_cuda.launches += 1
     return d

@@ -2,15 +2,17 @@
 
 Each source is compiled on first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -shared`` into `starst3r_tpu_torch/_build/`,
-or the directory `utils.enable_compilation_cache` chose (the file name carries a hash of the source and of the shared headers, so
-an edited source builds anew) and loaded with ctypes. Each exports C
-functions (one named after its file, the compositing sources also a
-``_packed`` route) that launch a kernel on the stream they are given and
-return the CUDA error code; `launch` raises on a non-zero code. `build`
-compiles several sources at once, one `nvcc` each, all started together.
-`build` and `library` also take another directory of the same sources
-(another revision of `csrc/`), which chip_smoke.py uses to time a parent
-commit's kernels beside these with the same nvcc line.
+or the directory `utils.enable_compilation_cache` chose (the file name
+carries a hash of the source and of the shared headers, so an edited
+source builds anew) and loaded with ctypes. Each exports C functions
+(one named after its file, or ``gather_rows_bwd_split``; the compositing
+sources also a ``_packed`` route) that launch a kernel on the stream
+they are given and return the CUDA error code; `launch` raises on a
+non-zero code. `build` compiles several sources at once, one `nvcc`
+each, all started together. `build` and `library` also take another
+directory of the same sources (another revision of `csrc/`), which
+chip_smoke.py uses to time a parent commit's kernels beside these with
+the same nvcc line.
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
-from ..utils.compile_cache import build_dir
+from .utils.compile_cache import build_dir
 
 __all__ = ("KERNELS", "build", "launch", "library")
 
-_PKG = Path(__file__).resolve().parent.parent
+_PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -43,7 +45,10 @@ _EXPORTS = {
     "composite_bwd": {"composite_bwd": [_P] * 8 + [_I] * 7 + [_P],
                       "composite_bwd_packed": [_P] * 9 + [_I] * 7 + [_P]},
     "gather_entries": {"gather_entries": [_P] * 4 + [ctypes.c_int64, _P]},
-    "gather_rows_bwd": {"gather_rows_bwd": [_P] * 4 + [_I] * 3 + [_P]},
+    # gather_rows_bwd is an earlier revision's launcher (one block a row,
+    # its shape chosen in C), which this revision's source no longer has
+    "gather_rows_bwd": {"gather_rows_bwd": [_P] * 4 + [_I] * 3 + [_P],
+                        "gather_rows_bwd_split": [_P] * 4 + [_I] * 7 + [_P]},
 }
 KERNELS = tuple(_EXPORTS)
 _SOURCE_OF = {fn: name for name, fns in _EXPORTS.items() for fn in fns}

@@ -21,7 +21,7 @@ package's Pallas `_fwd_kernel`, and `csrc/composite_bwd.cu`, replacing
     path: the tests and chip_smoke.py's work counts use it.
   - `composite_tiles_cuda` / `composite_tiles_bwd_cuda`: launch the forward
     and the backward kernel on the current stream (built on first use by
-    `splat.kernels`) and count their launches in ``.launches``.
+    `starst3r_tpu_torch.kernels`) and count their launches in ``.launches``.
   - `composite_tiles`: compositing of gathered entries. CPU tensors take
     the plain version; CUDA tensors go through `CompositeTiles`, a
     torch.autograd.Function whose forward is the forward kernel and whose
@@ -58,7 +58,7 @@ from typing import Optional, Tuple
 import torch
 
 from .gather import gather_entries_plain
-from .kernels import launch
+from ..kernels import launch
 
 __all__ = ("CompositePacked", "CompositeTiles", "composite_packed",
            "composite_packed_bwd_cuda", "composite_packed_bwd_plain",

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import launch
+from ..kernels import launch
 
 __all__ = ("GatherEntries", "gather_entries", "gather_entries_cuda",
            "gather_entries_plain")

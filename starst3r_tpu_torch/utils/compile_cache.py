@@ -2,7 +2,7 @@
 the JAX package's persistent compilation cache (`utils/jaxcache.py`).
 
 The JAX package caches XLA executables on disk. The port compiles its CUDA
-kernels (`splat/kernels.py`, nvcc) and its C++ host library (`native/`,
+kernels (`kernels.py`, nvcc) and its C++ host library (`native/`,
 g++) at first use into `starst3r_tpu_torch/_build/`; the file names carry a
 hash of their sources, so a directory holds the builds of every revision
 and is reused across processes. `enable_compilation_cache(path)` moves

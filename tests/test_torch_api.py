@@ -340,7 +340,7 @@ def test_compilation_cache_and_forced_native_build(tmp_path, monkeypatch):
 
 
 def test_kernel_builds_go_to_the_cache_dir(tmp_path, monkeypatch):
-    from starst3r_tpu_torch.splat import kernels
+    from starst3r_tpu_torch import kernels
     monkeypatch.setattr(compile_cache, "_dir", None)
     before = kernels._so_path("gather_entries")
     stt.utils.enable_compilation_cache(tmp_path)

@@ -56,12 +56,16 @@ Tolerances:
     1e-4, tests/test_torch_ga.py's tolerance, poses in the root camera's
     frame (the GA's free rigid motion);
   - the GA's row-gather backward (`csrc/gather_rows_bwd.cu`) against its
-    plain version ``index_add_`` on the card, at the six gather sites'
-    shapes: 1e-5 (1 + max|plain|) (float32 sums in another order; the
-    kernel has no atomics); empty rows exactly 0; two launches, and a
-    launch replayed in a CUDA graph, equal to the eager launch bit for bit;
+    plain version ``index_add_`` summed in float64 on the card, at the six
+    gather sites' shapes, on a row of 368,640 entries (split over a
+    cluster of blocks) and on odd widths: 1e-5 (1 + max|plain|) (float32
+    sums in another order; the kernel has no atomics); bit for bit against
+    `_gather_rows_bwd_in_order`, its own summation order in PyTorch; empty
+    rows exactly 0; two launches, and a launch replayed in a CUDA graph,
+    equal to the eager launch bit for bit;
   - the GA's captured step replayed on the card against the same step run
-    eagerly on the card: poses in the root frame, K, depth and the phase
+    eagerly on the card, on a small scene and at the JAX package's 512 px
+    operating point: poses in the root frame, K, depth and the phase
     losses, each scaled by its largest magnitude, within twice the
     distance of two eager runs from each other, never below 1e-6;
   - checkpoints: bit for bit;
@@ -972,25 +976,39 @@ def _rows_inputs(name, dev):
     return r, idx, torch.from_numpy(ct).to(dev), ga._gather_csr(idx, r)
 
 
-@pytest.mark.parametrize("name", ["depth", "K", "cam2w", "proj",
-                                  "pair_cam2w", "pair_pts3d", "empty_rows",
-                                  "one_row"])
-def test_gather_rows_bwd_matches_plain(dev, name):
+def _check_rows(got, idx, ct, csr, r):
+    """The kernel's output against its plain version summed in float64
+    (on the card ``index_add_`` in float32 adds with atomics, which on a
+    row of 368,640 entries sits ~0.04 from the exact sum, beyond 1e-5 (1 +
+    max)), and bit for bit against `_gather_rows_bwd_in_order`, its own
+    summation order in PyTorch; empty rows exactly 0."""
     from starst3r_tpu_torch.alignment import ga
-    r, idx, ct, (order, offsets) = _rows_inputs(name, dev)
-    before = ga.gather_rows_bwd_cuda.launches
-    got = ga.gather_rows_bwd_cuda(ct, order, offsets)
-    torch.cuda.synchronize()
-    assert ga.gather_rows_bwd_cuda.launches == before + 1
-    want = ga._gather_rows_bwd_plain(idx, ct, r)
+    want = ga._gather_rows_bwd_plain(idx, ct.double(), r)
     assert got.shape == want.shape == (r, ct.shape[1])
-    tol = ROWS_TOL * (1 + float(want.abs().max()))
-    assert float((got - want).abs().max()) <= tol
+    assert float((got.double() - want).abs().max()) <= ROWS_TOL * (
+        1 + float(want.abs().max()))
+    assert torch.equal(got, ga._gather_rows_bwd_in_order(ct, *csr))
     empty = torch.bincount(idx, minlength=r) == 0
     assert bool((got[empty] == 0).all())
 
 
-@pytest.mark.parametrize("name", ["depth", "cam2w", "pair_pts3d"])
+@pytest.mark.parametrize("name", ["depth", "K", "cam2w", "proj",
+                                  "pair_cam2w", "pair_pts3d", "empty_rows",
+                                  "one_row", "long_row", "split_short_row"])
+def test_gather_rows_bwd_matches_plain(dev, name):
+    from starst3r_tpu_torch.alignment import ga
+    r, idx, ct, csr = _rows_inputs(name, dev)
+    before = ga.gather_rows_bwd_cuda.launches
+    got = ga.gather_rows_bwd_cuda(ct, *csr)
+    torch.cuda.synchronize()
+    assert ga.gather_rows_bwd_cuda.launches == before + 1
+    _check_rows(got, idx, ct, csr, r)
+    if name in ("long_row", "split_short_row"):
+        assert ga._gather_plan(ct.shape[0], r, ct.shape[1]).cluster > 1
+
+
+@pytest.mark.parametrize("name", ["depth", "cam2w", "pair_pts3d",
+                                  "long_row"])
 def test_gather_rows_bwd_is_deterministic(dev, name):
     from starst3r_tpu_torch.alignment import ga
     _, _, ct, csr = _rows_inputs(name, dev)
@@ -1000,7 +1018,8 @@ def test_gather_rows_bwd_is_deterministic(dev, name):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", ["depth", "K", "pair_pts3d"])
+@pytest.mark.parametrize("name", ["depth", "K", "pair_pts3d", "long_row",
+                                  "split_short_row"])
 def test_gather_rows_bwd_in_a_cuda_graph(dev, name):
     from starst3r_tpu_torch.alignment import ga
     _, _, ct, csr = _rows_inputs(name, dev)
@@ -1023,19 +1042,35 @@ def test_gather_rows_bwd_no_entries(dev):
     assert got.shape == (5, 7) and bool((got == 0).all())
 
 
+@pytest.mark.parametrize("m", [3000, 200_000])
 @pytest.mark.parametrize("d", [3, 33, 45, 100])
-def test_gather_rows_bwd_width_not_a_multiple_of_32(dev, d):
+def test_gather_rows_bwd_width_not_a_multiple_of_32(dev, d, m):
+    """Odd widths, in rows short enough for one block and long enough for
+    a cluster of blocks; the last two rows empty."""
     from starst3r_tpu_torch.alignment import ga
     rng = np.random.default_rng(d)
-    r, m = 11, 3000
+    r = 11
     idx = torch.from_numpy(rng.integers(0, r - 2, m)).to(dev)
     ct = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev)
-    got = ga.gather_rows_bwd_cuda(ct, *ga._gather_csr(idx, r))
-    want = ga._gather_rows_bwd_plain(idx, ct, r)
+    csr = ga._gather_csr(idx, r)
+    got = ga.gather_rows_bwd_cuda(ct, *csr)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= ROWS_TOL * (
-        1 + float(want.abs().max()))
+    _check_rows(got, idx, ct, csr, r)
     assert bool((got[r - 2:] == 0).all())
+
+
+def test_gather_rows_bwd_misaligned_cotangent(dev):
+    """A cotangent that does not start on 16 bytes (the kernel reads
+    float4s where D is a multiple of 4) is copied first: the same bits."""
+    from starst3r_tpu_torch.alignment import ga
+    r, idx, ct, csr = _rows_inputs("cam2w", dev)
+    buf = torch.empty(ct.numel() + 1, device=dev)
+    shifted = buf[1:].view(ct.shape)
+    shifted.copy_(ct)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    got = ga.gather_rows_bwd_cuda(shifted, *csr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ga.gather_rows_bwd_cuda(ct, *csr))
 
 
 def test_gather_rows_autograd_launches_the_kernel(dev):
@@ -1098,8 +1133,14 @@ def test_ga_graph_route_matches_eager_steps_on_cuda(dev, monkeypatch):
     monkeypatch.setattr(ga, "_optimize_phase", _eager_phase)
     eager = [ga.run_global_alignment(data, mst, cfg, device=dev)[0]
              for _ in range(2)]
-    root = mst[0]
+    _check_graph_against_eager(graph, eager, mst[0])
 
+
+def _check_graph_against_eager(graph, eager, root):
+    """The graph route's GA result against two eager runs': poses in the
+    root camera's frame, K, depth and the phase losses, each scaled by its
+    largest magnitude, within twice the eager runs' distance from each
+    other, never held tighter than 1e-6."""
     def errors(a, b):
         rel = lambda m: (np.linalg.inv(m[root].astype(np.float64))[None]
                          @ m.astype(np.float64))
@@ -1117,6 +1158,34 @@ def test_ga_graph_route_matches_eager_steps_on_cuda(dev, monkeypatch):
     got = errors(graph, eager[0])
     for name, err in got.items():
         assert err <= max(2 * spread[name], 1e-6), (name, err, spread)
+
+
+def test_ga_512px_scale_on_cuda(dev, monkeypatch):
+    """The JAX package's 512 px GA operating point
+    (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory: 10 cameras,
+    S = 4,096 core points, 368,640 anchored correspondences, GA 50 + 20 at
+    jit_chunk 10) on the card: finite poses, the row-gather backward
+    launched in each phase's warm-up steps and capture (8 a coarse step, 6
+    a fine one) with its long camera rows split over clusters of blocks,
+    and the graph route against the eager steps as above."""
+    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.utils.synthetic import synthetic_ga_scene
+    data, mst, _, _ = synthetic_ga_scene(
+        n_cams=10, hw=512, focal=720.0, subsample=8, anchored=True,
+        orbit=True, sph_r=1.2, spread=0.2)
+    cfg = stt.GAConfig(niter1=50, niter2=20, jit_chunk=10)
+    m = len(data.corr_idx1)
+    assert m == 368_640
+    assert ga._gather_plan(m, 10, 16).cluster == 8
+    before = ga.gather_rows_bwd_cuda.launches
+    graph, _ = ga.run_global_alignment(data, mst, cfg, device=dev)
+    assert ga.gather_rows_bwd_cuda.launches - before == (
+        ga._WARMUP_STEPS + 1) * (8 + 6)
+    assert np.isfinite(graph.cam2w.cpu().numpy()).all()
+    monkeypatch.setattr(ga, "_optimize_phase", _eager_phase)
+    eager = [ga.run_global_alignment(data, mst, cfg, device=dev)[0]
+             for _ in range(2)]
+    _check_graph_against_eager(graph, eager, mst[0])
 
 
 def test_scene_checkpoint_round_trip_on_cuda(dev, tmp_path):

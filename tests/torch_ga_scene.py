@@ -6,7 +6,8 @@ The planted-pose sphere scene (anchored endpoints, 4 cameras, 64 px, an
 8 x 8 core grid), with two pairs marked as failed matches so the dust3r
 fallback loss is live, a noisy fallback target and scaled confidences.
 
-Also the shapes of the GA's six row gathers on the main path
+Also the shapes of the GA's six row gathers on the main path, and rows
+long and short enough for each of the kernel's launch shapes
 (`gather_case`), for the row-gather backward's CPU and GPU tests.
 """
 
@@ -39,14 +40,23 @@ GATHER_M = 20_000       # correspondences, about what the main path's GA holds
 GATHER_SITES = ("depth", "K", "cam2w", "proj", "pair_cam2w", "pair_pts3d")
 
 
-def gather_case(name, c=6, seed=0):
+# one camera row of the 512 px operating point's correspondences, rounded
+# up (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory: 36,864 a
+# camera, 368,640 in all)
+LONG_ROW = 368_640
+
+
+def gather_case(name, c=6, seed=0, m=GATHER_M, s=GATHER_S):
     """(R, idx (M,) int64, ct (M, D) float32) of one of the JAX GA's six
-    `_gather_rows` sites at C = c cameras, S = GATHER_S, M = GATHER_M and
-    P = c (c - 1) pairs; or "empty_rows", a depth-shaped index over the
-    first two cameras' rows only, or "one_row", an index whose entries all
-    fall in one of the C rows."""
+    `_gather_rows` sites at C = c cameras, S = s core points, M = m
+    correspondences and P = c (c - 1) pairs; or "empty_rows", a
+    depth-shaped index over the first two cameras' rows only; "one_row",
+    an index whose entries all fall in one of the C rows; "long_row", one
+    row of LONG_ROW entries (the kernel splits it over a cluster of
+    blocks); "split_short_row", a row of 40,000 entries beside one of 3,
+    shuffled (the kernel splits both rows alike, so a block of the short
+    row's cluster gets no entry)."""
     rng = np.random.default_rng(seed)
-    s, m = GATHER_S, GATHER_M
     img = rng.integers(0, c, m)
     pairs = rng.integers(0, c, c * (c - 1))
     r, d, idx = {
@@ -54,6 +64,10 @@ def gather_case(name, c=6, seed=0):
         "K": (c, 9, img), "cam2w": (c, 16, img), "proj": (c, 12, img),
         "pair_cam2w": (c, 16, pairs), "pair_pts3d": (c, s * 3, pairs),
         "empty_rows": (c * s, 1, rng.integers(0, 2 * s, 500)),
-        "one_row": (c, 16, np.full(m, 2))}[name]
+        "one_row": (c, 16, np.full(m, 2)),
+        "long_row": (c, 16, np.full(LONG_ROW, 1)),
+        "split_short_row": (c, 16, np.random.default_rng(seed + 1)
+                            .permutation(np.repeat([0, 3], [40_000, 3])))
+    }[name]
     ct = (3.0 * rng.normal(size=(len(idx), d))).astype(np.float32)
     return r, idx.astype(np.int64), ct
