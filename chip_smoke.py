@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (`starst3r_tpu_torch`) end to end on one
 NVIDIA GPU and hold its CUDA kernels against their plain versions.
 
-    python3 chip_smoke.py [--parent-csrc DIR]
+    python3 chip_smoke.py [--parent-csrc DIR] [--res512-record PATH]
 
 from the root of a checkout, on a machine with one CUDA card, `nvcc` (on the
 PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
@@ -171,7 +171,37 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      backward's launches (56: each phase's warm-up steps and capture); the
      GA's seconds, the ATE, one replayed coarse step's time and its five
      costliest kernels. Its seconds are on the `[stages] slice 10:`
-     line.
+     line;
+ 20. `[res512]` (after step 15, on the same model): the main path on 4:3
+     photos at the checkpoint's 512 px: six 640 x 480 PNGs of
+     make_views' scene through load_images(size=512) on the native route
+     ((3, 384, 512) each), Scene.add_images(4) and add_images(2) at the
+     default GA (500 + 200) with conf_thres 1.0, init_3dgs (more dense
+     points than SplatConfig.cap_max, so the pool is the points and MCMC
+     growth is inert: N, the pool and cap_max printed and checked),
+     render_3dgs_original(512, 384) and 8 path views, run_3dgs_optim with
+     MCMC for RES_STEPS steps (the main phase's refines at 100 and 150,
+     cut in depth only), the renders again. Checks: the shapes, finite
+     orthonormal poses, every principal point nearer (256, 192) than
+     (192, 256), finite dense points no more than 6 x 512 x 384, finite
+     losses whose last RES_WINDOW fall below their first, n_alive within
+     the pool and as gsplat's rule says, no non-finite value out of the
+     packed backward, K1 and K2 launched, and the row-gather backward
+     launched 112 times where the counter sees it (as on the main path).
+     Then the packed forward on the renders' inputs against its plain
+     version (within ATOL) and equal to the entries route bit for bit;
+     the packed backward on the trained scene against its plain version
+     run one camera at a time (within BWD_SCALED_TOL, scaled; the plain
+     backward of six such cameras at once would hold several times the
+     memory) and within 1e-6 (scaled) of the entries route's index_add_
+     (`[fused]`'s gate); the row-gather backward at the six sites of the
+     first GA call (`[ga-gather]`'s gates); each kernel's and its plain
+     version's times beside its bound; the seconds per stage (a
+     `[stages] slice 12:` line), the ms per training step (host clock,
+     and CUDA events per stage), the peak device memory per stage,
+     tile_overflow and n_tiles_clipped. With --res512-record PATH the
+     phase's two GA calls (inputs and results) are written to PATH for
+     tools/res512_ga_against_jax.py.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -327,6 +357,16 @@ GATHER_TOL = 1e-5
 GA512_SCENE = dict(n_cams=10, hw=512, focal=720.0, subsample=8,
                    anchored=True, orbit=True, sph_r=1.2, spread=0.2)
 GA512_CFG = dict(niter1=50, niter2=20, jit_chunk=10)
+# `[res512]`: the main path on six 4:3 photos (640 x 480 PNGs of
+# make_views' scene) through load_images at the checkpoint's 512 px, which
+# gives 512 x 384 views; training cut in depth only, to the refines at 100
+# and 150 of the main phase's schedule; the losses' first and last
+# RES_WINDOW steps compared
+RES_PHOTO_HW = (480, 640)
+RES_SIZE = 512
+RES_HW = (384, 512)
+RES_STEPS = 150
+RES_WINDOW = 10
 POLISH = {
     "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
                     lm_mode="lm"),
@@ -354,7 +394,10 @@ def card_line():
 def make_views(n, hw, seed=0):
     """n views of a coloured 3D point grid seen from a camera that turns
     about the vertical axis (examples/demo.py's synthetic scene), as the
-    port's processed (3, H, W) images in [-1, 1]."""
+    port's processed (3, h, w) images in [-1, 1]. ``hw`` is (h, w), or one
+    int for square views; the focal is 0.8 w and the principal point the
+    image centre (the 224 px views are the same for 224 and (224, 224))."""
+    h, w = (hw, hw) if np.ndim(hw) == 0 else hw
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-1, 1, size=(4000, 3)).astype(np.float32)
     pts[:, 2] += 4.0
@@ -365,11 +408,11 @@ def make_views(n, hw, seed=0):
         R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
                       [-np.sin(ang), 0, np.cos(ang)]], np.float32)
         p = pts @ R.T
-        img = np.full((hw, hw, 3), 0.12, np.float32)
-        f = hw * 0.8
-        u = (f * p[:, 0] / p[:, 2] + hw / 2).astype(int)
-        v = (f * p[:, 1] / p[:, 2] + hw / 2).astype(int)
-        ok = (u >= 1) & (u < hw - 1) & (v >= 1) & (v < hw - 1)
+        img = np.full((h, w, 3), 0.12, np.float32)
+        f = w * 0.8
+        u = (f * p[:, 0] / p[:, 2] + w / 2).astype(int)
+        v = (f * p[:, 1] / p[:, 2] + h / 2).astype(int)
+        ok = (u >= 1) & (u < w - 1) & (v >= 1) & (v < h - 1)
         far_first = np.argsort(-p[:, 2])
         ok = ok[far_first]
         uu, vv, cc = u[far_first][ok], v[far_first][ok], cols[far_first][ok]
@@ -381,50 +424,64 @@ def make_views(n, hw, seed=0):
     return views
 
 
+def timed_stage(secs, peak, device, name, fn):
+    """Run ``fn`` as stage ``name``: its host seconds into ``secs`` and, on
+    the card, the most device memory allocated during it into ``peak``.
+    Returns what ``fn`` returns."""
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated(device)
+    secs[name] = time.perf_counter() - t
+    return out
+
+
 def drive_main_path(stt, model, views, device, n_novel, cache_dir):
-    """The serving half of the README Quickstart. Returns the scene, the
-    renders and the host seconds per stage."""
+    """The serving half of the README Quickstart on the (3, h, w) views
+    (the renders at their size). Returns the scene, the renders, the host
+    seconds per stage and the peak device memory per stage."""
     import torch
     from starst3r_tpu_torch.utils.metrics import MetricsLogger
 
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-
     logger = MetricsLogger()
     scene = stt.Scene(cache_dir=cache_dir, device=device, logger=logger)
-    secs = {}
-    t = time.perf_counter()
-    # random weights' confidences carry no information: keep every pixel
-    # that survives the cross-view cleaning (conf 1 marks the rejected),
-    # so the renders see a point cloud of full size
-    scene.add_images(model, views[:4], conf_thres=1.0)
-    scene.add_images(model, views[4:], conf_thres=1.0)
-    secs["add_images"] = time.perf_counter() - t
+    secs, peak = {}, {}
+
+    def stage(name, fn):
+        return timed_stage(secs, peak, device, name, fn)
+
+    def add_images():
+        # random weights' confidences carry no information: keep every
+        # pixel that survives the cross-view cleaning (conf 1 marks the
+        # rejected), so the renders see a point cloud of full size
+        scene.add_images(model, views[:4], conf_thres=1.0)
+        scene.add_images(model, views[4:], conf_thres=1.0)
+
+    stage("add_images", add_images)
     for rec in logger.records:
-        for stage in ("inference", "matching", "canonical", "condense", "ga"):
-            secs[stage] = secs.get(stage, 0.0) + rec[stage]
-    t = time.perf_counter()
-    scene.init_3dgs()
-    sync()
-    secs["init_3dgs"] = time.perf_counter() - t
+        for name in ("inference", "matching", "canonical", "condense", "ga"):
+            secs[name] = secs.get(name, 0.0) + rec[name]
+    stage("init_3dgs", scene.init_3dgs)
     h, w = scene.imgs[0].shape[:2]
-    t = time.perf_counter()
-    rgb, alpha, info = scene.render_3dgs_original(w, h)
-    sync()
-    secs["render_original"] = time.perf_counter() - t
+    orig = stage("render_original", lambda: scene.render_3dgs_original(w, h))
     path = stt.interp_se3_path(scene.c2w[0], scene.c2w[-1], n_novel)
     w2c = torch.linalg.inv(path)
     Ks = np.repeat(scene.intrinsics[:1], n_novel, 0)
-    t = time.perf_counter()
-    rgb_n, alpha_n, info_n = scene.render_3dgs(w2c, Ks, w, h)
-    sync()
-    secs["render_novel"] = time.perf_counter() - t
-    return scene, (rgb, alpha, info), (rgb_n, alpha_n, info_n), secs
+    novel = stage("render_novel", lambda: scene.render_3dgs(w2c, Ks, w, h))
+    return scene, orig, novel, secs, peak
 
 
 def check_outputs(scene, orig, novel, n_views, hw, n_novel):
+    """Finite orthonormal poses, finite intrinsics and points, and renders
+    of (n, h, w) in range and not empty; ``hw`` is (h, w) or one int."""
     import torch
+    h, w = (hw, hw) if np.ndim(hw) == 0 else hw
     c2w = np.asarray(scene.c2w)
     check(c2w.shape == (n_views, 4, 4) and np.isfinite(c2w).all(),
           f"cam2w {c2w.shape} not finite")
@@ -436,8 +493,8 @@ def check_outputs(scene, orig, novel, n_views, hw, n_novel):
     check(pts.shape[0] > 0 and np.isfinite(pts).all(),
           f"dense points: {pts.shape[0]}, finite {np.isfinite(pts).all()}")
     for (rgb, alpha, _), n in ((orig, n_views), (novel, n_novel)):
-        check(tuple(rgb.shape) == (n, hw, hw, 3), f"rgb {tuple(rgb.shape)}")
-        check(tuple(alpha.shape) == (n, hw, hw, 1),
+        check(tuple(rgb.shape) == (n, h, w, 3), f"rgb {tuple(rgb.shape)}")
+        check(tuple(alpha.shape) == (n, h, w, 1),
               f"alpha {tuple(alpha.shape)}")
         check(bool(torch.isfinite(rgb).all() & torch.isfinite(alpha).all()),
               "render not finite")
@@ -684,6 +741,30 @@ def run_fwd(x, route):
     return comp.composite_tiles_cuda(x["entries"], x["counts"], *geometry(x))
 
 
+def bwd_work(x, done):
+    """The packed backward's bound inputs on ``x``, in the batches ``done``
+    says the forward processed: bytes (reads: the entries walked, index
+    and row, counts and done, T_fin, rgb and the two pixel gradients;
+    writes: a reduction add of 36 bytes into the table per entry that
+    contributed, the rest of the table being the caller's zeros), bytes
+    counted in 32-byte sectors, operations in the cull boxes and over
+    every pair walked, and the pair counts."""
+    counts = x["counts"]
+    h, w, tile, tw, th = geometry(x)
+    c, t = counts.shape
+    p = tile * tile
+    pairs = pair_counts(x["entries"], counts, done, tile, tw, th)
+    fixed = c * t * 8 + c * t * p * 4 + c * h * w * (12 + 12 + 4)
+    n_walked, n_added = pairs["entries"], pairs["contributing"]
+    out = {"bytes": (n_walked * (INDEX_BYTES + ROW_BYTES) + fixed
+                     + n_added * ROW_BYTES),
+           "bytes_sector": (n_walked * (INDEX_BYTES + ROW_SECTOR_BYTES)
+                            + fixed + n_added * ROW_SECTOR_BYTES),
+           "pairs": pairs}
+    out["ops"], out["ops_walked"] = work(pairs, BWD_PASS_OPS)
+    return out
+
+
 def composite_case(name, x, route, timed):
     """A forward route against the plain version on one input. Returns
     the errors and, when ``timed``, the two times and the work the data
@@ -746,10 +827,9 @@ def small_inputs(kind, dev):
                        kw["width"], 16, 2, 2)
 
 
-def check_composite_kernel(stt, scene, dev):
-    """composite_fwd, both routes, on the real render's inputs and on the
-    two small scenes. Returns the timed packed case of the render and the
-    render's inputs."""
+def render_case_inputs(scene, dev):
+    """The compositing input of a render of the scene's own cameras at the
+    scene's budgets (`render_3dgs_original`'s)."""
     import torch
     from starst3r_tpu_torch.splat.rasterize import _project_and_bin
     from starst3r_tpu_torch.splat.train import render_inputs
@@ -764,7 +844,14 @@ def check_composite_kernel(stt, scene, dev):
     packed, gidx, valid, counts, _ = _project_and_bin(
         *gauss, w2c, Ks, w, h, cfg.sh_degree, tile,
         cfg.max_tiles_per_gaussian, cfg.max_per_tile, None)
-    render_in = case_inputs(packed, gidx, valid, counts, h, w, tile, tw, th)
+    return case_inputs(packed, gidx, valid, counts, h, w, tile, tw, th)
+
+
+def check_composite_kernel(stt, scene, dev):
+    """composite_fwd, both routes, on the real render's inputs and on the
+    two small scenes. Returns the timed packed case of the render and the
+    render's inputs."""
+    render_in = render_case_inputs(scene, dev)
     cases = [composite_case("render", render_in, "packed", timed=True),
              composite_case("render", render_in, "entries", timed=False)]
     for kind in ("wall", "multi"):
@@ -824,9 +911,9 @@ def read_nonfinite():
             "gather_backward": int(gat.GatherEntries.nonfinite)}
 
 
-def drive_training(stt, scene, n_novel):
-    """The training path: Scene.run_3dgs_optim with MCMC pruning, then the
-    original and novel views again. Returns the losses, the loop's host
+def drive_training(stt, scene, n_novel, steps=TRAIN_STEPS):
+    """The training path: Scene.run_3dgs_optim for ``steps`` steps with
+    MCMC pruning, then the original and novel views again. Returns the losses, the loop's host
     seconds, the launch and non-finite counts of the loop, the launch
     counts of the renders after it, and the renders."""
     import dataclasses
@@ -839,7 +926,7 @@ def drive_training(stt, scene, n_novel):
     h, w = scene.imgs[0].shape[:2]
     set_launches(0)
     t = time.perf_counter()
-    losses = scene.run_3dgs_optim(TRAIN_STEPS, enable_pruning=True)
+    losses = scene.run_3dgs_optim(steps, enable_pruning=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     train_launches = read_launches()
@@ -939,7 +1026,7 @@ def bwd_case(name, x, route, g_rgb, g_alpha, timed, keep=False):
     import torch
 
     counts = x["counts"]
-    h, w, tile, tw, th = geometry(x)
+    tile, tw, th = geometry(x)[2:]
     fwd_out = run_fwd(x, route)
     done = fwd_out[3]
     got = run_bwd(x, route, fwd_out, g_rgb, g_alpha)
@@ -954,21 +1041,7 @@ def bwd_case(name, x, route, g_rgb, g_alpha, timed, keep=False):
     if keep:
         out.update(got=got, want=want, done=done)
     if timed:
-        c, t = counts.shape
-        p = tile * tile
-        pairs = pair_counts(x["entries"], counts, done, tile, tw, th)
-        # reads: the entries walked (index and row), counts and done, T_fin,
-        # rgb and the two pixel gradients; writes: a reduction add of 36
-        # bytes into the table per entry that contributed (the rest of the
-        # table is the caller's zeros)
-        fixed = c * t * 8 + c * t * p * 4 + c * h * w * (12 + 12 + 4)
-        n_walked, n_added = pairs["entries"], pairs["contributing"]
-        out["bytes"] = (n_walked * (INDEX_BYTES + ROW_BYTES) + fixed
-                        + n_added * ROW_BYTES)
-        out["bytes_sector"] = (n_walked * (INDEX_BYTES + ROW_SECTOR_BYTES)
-                               + fixed + n_added * ROW_SECTOR_BYTES)
-        out["ops"], out["ops_walked"] = work(pairs, BWD_PASS_OPS)
-        out["pairs"] = pairs
+        out.update(bwd_work(x, done))
         out["ms"] = device_ms(lambda: run_bwd(x, route, fwd_out, g_rgb,
                                               g_alpha), reps=20)
         out["ms_events"] = cuda_ms(lambda: run_bwd(x, route, fwd_out, g_rgb,
@@ -2449,7 +2522,7 @@ def ga_side_by_side(parent_csrc, points, ga_calls, dev):
                                focal=180.0)
     data512, mst512, _, cfg512 = ga512_inputs()
     gas = [(f"main call {i + 1}", args, kw)
-           for i, (args, kw) in enumerate(ga_calls)]
+           for i, (args, kw, _) in enumerate(ga_calls)]
     gas += [("turntable", (tt[0], tt[1], GAConfig(niter1=500, niter2=200,
                                                   lr2=0.004)), {}),
             ("512px", (data512, mst512, cfg512), {})]
@@ -2485,8 +2558,7 @@ def ga_graph_phase(call, dev):
     import dataclasses
     import torch
     from starst3r_tpu_torch.alignment import ga
-    args, kw = call
-    data, mst, cfg = args
+    (data, mst, cfg), kw, _ = call
     cfg = dataclasses.replace(cfg, niter1=GRAPH_GA[0], niter2=GRAPH_GA[1])
     real_phase = ga._optimize_phase
     runs = []
@@ -2908,6 +2980,264 @@ def k2_margin(case, x, g_rgb, g_alpha, top=16, max_tiles=4):
     return out
 
 
+def packed_bwd_plain_by_camera(x, done, g_rgb, g_alpha):
+    """The packed backward's plain version (`composite_packed_bwd_plain`,
+    autograd through the plain forward) on input ``x``, one camera at a
+    time, the cameras' tables summed: the function splits by camera (a
+    camera's slots, pixels and gradients are its own), and on six 512 x
+    384 cameras at once autograd would hold several times the memory."""
+    import torch
+    from starst3r_tpu_torch.splat import composite as comp
+    c, t = x["counts"].shape
+    done = done.reshape(c, t)
+    out = torch.zeros_like(x["packed"])
+    for ci in range(c):
+        out += comp.composite_packed_bwd_plain(
+            x["packed"], x["gidx"][ci:ci + 1], x["counts"][ci:ci + 1],
+            done[ci], g_rgb[ci:ci + 1], g_alpha[ci:ci + 1], *geometry(x))
+    return out
+
+
+def save_ga_calls(calls, path):
+    """Each recorded GA call's inputs (condensed data, MST, GAConfig, warm
+    start) and the card's result, as numpy, pickled to ``path``."""
+    import dataclasses
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump([dict(
+            data=args[0]._asdict(), mst=args[1],
+            cfg=dataclasses.asdict(args[2]),
+            prev=None if kw.get("prev_params") is None
+            else [p.detach().cpu().numpy() for p in kw["prev_params"]],
+            cam2w=out[0].cam2w.cpu().numpy(), K=out[0].K.cpu().numpy(),
+            losses=(out[0].loss_coarse, out[0].loss_fine))
+            for args, kw, out in calls], f)
+    print(f"[res512] recorded {len(calls)} GA calls to {path}", flush=True)
+
+
+def res512_phase(stt, model, dev, work_dir, record=None):
+    """`[res512]`: the main path on 4:3 photos at the checkpoint's 512 px,
+    on ``model``: six 640 x 480 PNGs through `load_images(size=512)` (the
+    native route), then `drive_main_path` (`Scene.add_images` 4 + 2 at the
+    default GA, `init_3dgs` with more dense points than `cap_max`, so the
+    pool is the points, full, and the renders), `run_3dgs_optim` with MCMC
+    for RES_STEPS steps, the renders again; then K1, K2 (packed) and G1
+    held to their plain versions at these shapes and timed beside their
+    bounds. With ``record`` (a path) the two GA calls' inputs and the
+    card's results are written there for tools/res512_ga_against_jax.py.
+    Returns the host seconds per stage and {kernel: its times, bound and
+    error}."""
+    import glob
+    import torch
+    import starst3r_tpu_torch.reconstruct as reconstruct_mod
+    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.splat.mcmc import grow_target
+    from starst3r_tpu_torch.splat.train import mcmc_config_from
+    from torch_slice_inputs import recorded_calls
+
+    t0 = time.perf_counter()
+    h, w = RES_HW
+    imgdir = os.path.join(work_dir, "res512")
+    write_view_pngs(make_views(N_VIEWS, RES_PHOTO_HW), imgdir)
+    paths = sorted(glob.glob(os.path.join(imgdir, "*.png")))
+    load_secs, load_peak = {}, {}
+    imgs = timed_stage(load_secs, load_peak, dev, "load_images",
+                       lambda: stt.load_images(paths, size=RES_SIZE,
+                                               impl="native"))
+    check([im.shape for im in imgs] == [(3, h, w)] * N_VIEWS,
+          f"[res512] load_images gave {[im.shape for im in imgs]}")
+
+    set_launches(0)
+    with recorded_calls(reconstruct_mod) as ga_calls:
+        scene, orig, novel, secs, peak = drive_main_path(
+            stt, model, imgs, dev, N_NOVEL,
+            os.path.join(work_dir, "res512_pairs"))
+    path_launches = read_launches()
+    secs, peak = dict(load_secs, **secs), dict(load_peak, **peak)
+    if record:
+        save_ga_calls(ga_calls, record)
+    c2w, K = np.asarray(scene.c2w), np.asarray(scene.intrinsics)
+    pp = K[:, :2, 2]
+    near = np.linalg.norm(pp - [w / 2, h / 2], axis=-1)
+    swapped = np.linalg.norm(pp - [h / 2, w / 2], axis=-1)
+    n_pts = int(scene.dense_pts_flat.shape[0])
+    ga_cfg = ga_calls[0].args[2]
+    want_g1 = len(ga_calls) * ga_gather_launches(ga_cfg)
+    g1_launches = path_launches["gather_rows_bwd"]
+    print(f"[res512] {N_VIEWS} photos of {RES_PHOTO_HW[1]} x "
+          f"{RES_PHOTO_HW[0]} -> load_images(size={RES_SIZE}) "
+          f"{imgs[0].shape}; GA losses {scene.reconstruction.losses}; "
+          f"principal points {np.round(pp, 2).tolist()} (distance to "
+          f"({w / 2}, {h / 2}) {np.round(near, 2).tolist()}, to the swap "
+          f"({h / 2}, {w / 2}) {np.round(swapped, 2).tolist()}); focals "
+          f"{np.round(K[:, 0, 0], 2).tolist()}; dense points {n_pts} (at "
+          f"most {N_VIEWS * h * w}); row-gather backward launches "
+          f"{g1_launches} (want {want_g1})", flush=True)
+    check(len(ga_calls) == 2, f"[res512] {len(ga_calls)} GA calls")
+    check(bool((near < swapped).all()), "[res512] a principal point is "
+          "nearer the swapped image centre")
+    check(0 < n_pts <= N_VIEWS * h * w
+          and bool(np.isfinite(scene.dense_pts_flat).all()),
+          f"[res512] dense points: {n_pts}, finite "
+          f"{np.isfinite(scene.dense_pts_flat).all()}")
+    check(g1_launches == want_g1 == 112, f"[res512] the GA launched "
+          f"gather_rows_bwd {g1_launches} times, want {want_g1} (112)")
+
+    cfg = scene.config.splat
+    pool = int(scene.gs_state.params["means"].shape[0])
+    n0 = int(scene.gs_state.n_alive)
+    reserved = min(cfg.cap_max, int(cfg.pool_headroom * n_pts))
+    print(f"[res512] init_3dgs: N {n_pts} dense points, pool_size {pool}, "
+          f"n_alive {n0}, cap_max {cfg.cap_max} (reserved min(cap_max, "
+          f"{cfg.pool_headroom} N) = {reserved})", flush=True)
+    check(n_pts > cfg.cap_max and reserved < n_pts and pool == n0 == n_pts,
+          "[res512] init_3dgs did not take the full-pool branch")
+
+    check_outputs(scene, orig, novel, N_VIEWS, RES_HW, N_NOVEL)
+    check(path_launches["composite_fwd_packed"] > 0,
+          "[res512] the renders did not launch the packed forward kernel")
+    tiles = -(-w // cfg.tile_size) * -(-h // cfg.tile_size)
+    print(f"[res512] renders: {tiles} tiles a camera; original views "
+          f"tile_overflow {orig[2]['tile_overflow'].tolist()} "
+          f"n_tiles_clipped {orig[2]['n_tiles_clipped'].tolist()}, mean "
+          f"alpha {float(orig[1].mean()):.4f}; novel views tile_overflow "
+          f"{novel[2]['tile_overflow'].tolist()} n_tiles_clipped "
+          f"{novel[2]['n_tiles_clipped'].tolist()}; launches over the "
+          f"path {path_launches}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (losses, train_s, train_launches, nonfinite, after_launches, orig_t,
+     novel_t) = drive_training(stt, scene, N_NOVEL, steps=RES_STEPS)
+    secs["train"] = train_s
+    peak["train"] = torch.cuda.max_memory_allocated(dev)
+    n1 = int(scene.gs_state.n_alive)
+    first = float(np.mean(losses[:RES_WINDOW]))
+    last = float(np.mean(losses[-RES_WINDOW:]))
+    params_bad = {k: int((~torch.isfinite(v)).sum())
+                  for k, v in scene.gs_state.params.items()}
+    want_n = n0
+    mcfg = mcmc_config_from(scene.config.splat)
+    for _ in range(REFINE_START, RES_STEPS + 1, REFINE_EVERY):
+        want_n = grow_target(want_n, pool, mcfg)
+    print(f"[res512] train {RES_STEPS} steps in {train_s:.3f} s: "
+          f"{1e3 * train_s / RES_STEPS:.3f} ms/step (host clock); loss "
+          f"first {losses[0]:.6f} last {losses[-1]:.6f}, mean of the first "
+          f"{RES_WINDOW} {first:.6f}, of the last {RES_WINDOW} {last:.6f}; "
+          f"n_alive {n0} -> {n1} (pool {pool}, grow_target {want_n}); "
+          f"non-finite out of the backward kernels {nonfinite}, in the "
+          f"trained parameters {params_bad}; launches {train_launches}, "
+          f"in the renders after {after_launches}", flush=True)
+    check(len(losses) == RES_STEPS and all(np.isfinite(losses)),
+          "[res512] a training loss is not finite")
+    check(last < first, f"[res512] the loss did not fall ({first} -> "
+          f"{last})")
+    check(n1 <= pool and n1 == want_n, f"[res512] n_alive {n1}, pool "
+          f"{pool}, grow_target {want_n}")
+    check(sum(params_bad.values()) == 0, f"[res512] non-finite trained "
+          f"parameters {params_bad}")
+    check(nonfinite["composite_bwd_packed"] == 0, f"[res512] K2 gave "
+          f"{nonfinite['composite_bwd_packed']} non-finite values")
+    for name in ("composite_fwd_packed", "composite_bwd_packed"):
+        check(train_launches[name] > 0, f"[res512] training did not "
+              f"launch {name}")
+    check_outputs(scene, orig_t, novel_t, N_VIEWS, RES_HW, N_NOVEL)
+    print(f"[res512] after training, mean alpha: original views "
+          f"{float(orig_t[1].mean()):.4f}, novel views "
+          f"{float(novel_t[1].mean()):.4f}", flush=True)
+    stages, wall_ms, busy_ms, host, _ = profile_train_steps(scene)
+    print("[res512] train-stages stream ms per step (CUDA events): "
+          + " ".join(f"{k}={v:.3f}" for k, v in stages.items())
+          + f" total={sum(stages.values()):.3f}; 5 steps under "
+          f"torch.profiler: wall {wall_ms / 5:.3f} ms a step, device busy "
+          + (f"{busy_ms / 5:.3f} ms a step" if busy_ms else "not measured")
+          + "; host ms per step by stage: "
+          + " ".join(f"{k}={v:.3f}" for k, v in host.items()), flush=True)
+
+    # the kernels at these shapes: K1 on the renders' inputs, K2 on the
+    # trained scene's, G1 at the six sites of the first GA call
+    render_in = render_case_inputs(scene, dev)
+    packed_out = run_fwd(render_in, "packed")
+    entries_out = run_fwd(render_in, "entries")
+    torch.cuda.synchronize()
+    for name, a, b in zip(("rgb", "alpha", "tfin", "done"), packed_out,
+                          entries_out):
+        check(torch.equal(a, b), f"[res512] K1's packed {name} differs "
+              "from the entries route's")
+    del packed_out, entries_out
+    k1 = composite_case("res512 render", render_in, "packed", timed=True)
+    del render_in
+
+    real = trained_inputs(scene, dev)
+    x, g_rgb, g_alpha = real["x"], real["g_rgb"], real["g_alpha"]
+    del real
+    geo = geometry(x)
+    fwd = run_fwd(x, "packed")
+    done = fwd[3]
+    got = run_bwd(x, "packed", fwd, g_rgb, g_alpha)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "[res512] K2's gradient is not "
+          "finite")
+    check_done("res512 trained", x["entries"], x["counts"], done,
+               *geo[2:])
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    want = packed_bwd_plain_by_camera(x, done, g_rgb, g_alpha)
+    plain_peak = torch.cuda.max_memory_allocated(dev) - base
+    k2_err = max(scaled_errors(got, want))
+    k2_abs = float((got - want).abs().max())
+    del want
+    grad = run_bwd(x, "entries", fwd, g_rgb, g_alpha)
+    chain = torch.zeros_like(x["packed"]).index_add_(
+        0, x["gidx"].reshape(-1), (grad * x["valid"][..., None]).reshape(-1, 9))
+    del grad
+    chain_err = max(scaled_errors(got, chain))
+    del chain, got
+    print(f"[res512] kernel composite_bwd (packed route) on the trained "
+          f"scene: max scaled |kernel - plain| = {k2_err:.3e} (the plain "
+          f"version one camera at a time, {plain_peak / 2**20:.1f} MiB "
+          f"allocated at its peak; gate {BWD_SCALED_TOL}), max abs "
+          f"{k2_abs:.3e}; against the entries route's index_add_ "
+          f"{chain_err:.3e} (gate {FUSED_SCALED_TOL})", flush=True)
+    check(k2_err <= BWD_SCALED_TOL, f"[res512] K2 (packed) differs from its "
+          f"plain version by {k2_err:.3e} (scaled) > {BWD_SCALED_TOL}")
+    check(chain_err <= FUSED_SCALED_TOL, f"[res512] K2 (packed) differs from "
+          f"the entries route's index_add_ by {chain_err:.3e} (scaled) > "
+          f"{FUSED_SCALED_TOL}")
+    k2 = bwd_work(x, done)
+    k2["ms"] = device_ms(lambda: run_bwd(x, "packed", fwd, g_rgb, g_alpha),
+                         reps=20)
+    k2["plain_ms"] = cuda_ms(lambda: packed_bwd_plain_by_camera(
+        x, done, g_rgb, g_alpha), reps=3, warmup=1)
+    k2["max_abs_err"] = k2_err
+    del fwd, x, g_rgb, g_alpha
+
+    g1 = ga_gather_phase({"res512": ga.make_state(*ga_calls[0].args[:3],
+                                                  device=dev)}, dev)[0]
+    g1 = g1["res512"]
+    kernels = {}
+    for name, case in (("composite_fwd", k1), ("composite_bwd", k2),
+                       ("gather_rows_bwd", g1)):
+        b_ms, b_by = bound(case["bytes"], case["ops"])
+        kernels[name] = {"ms": case["ms"], "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": case["bytes"],
+                         "ops": case["ops"],
+                         "max_abs_err": case["max_abs_err"],
+                         "plain_ms": case.get("plain_ms"),
+                         "library_ms": case.get("library_ms")}
+        print(f"[res512] kernel {name}: {case['ms']:.4f} ms (device_ms), "
+              f"bound {b_ms:.4f} ms ({b_by}: {case['bytes']} B, "
+              f"{case['ops']} ops), {case['ms'] / b_ms:.1f}x; error "
+              f"{case['max_abs_err']:.3e}; plain "
+              f"{case.get('plain_ms')} ms; work {case.get('pairs')}",
+              flush=True)
+    secs["phase"] = time.perf_counter() - t0
+    print("[res512] peak device memory allocated per stage, the model and "
+          "the earlier phases' tensors included (MiB): " + " ".join(
+              f"{k}={v / 2**20:.1f}" for k, v in peak.items()), flush=True)
+    return secs, kernels
+
+
 def main():
     import argparse
     import torch
@@ -2918,13 +3248,20 @@ def main():
         "csrc (the parent commit's): its compositing kernels are built "
         "with the same nvcc line, held to these and timed beside them on "
         "the render's and the trained scene's entries")
+    parser.add_argument(
+        "--res512-record", default=None, metavar="PATH",
+        help="write `[res512]`'s two GA calls (inputs and the card's "
+        "results) to PATH, for tools/res512_ga_against_jax.py")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); the port's entry points run on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    # the tests' GA call recorder (tests/torch_slice_inputs.py)
+    sys.path.append(os.path.join(root, "tests"))
     import starst3r_tpu_torch as stt
     from starst3r_tpu_torch import kernels
     from starst3r_tpu_torch.splat.mcmc import grow_target
@@ -2970,20 +3307,12 @@ def main():
     # slice 1: reconstruct and render; the GA calls' arguments are kept
     # for `[ga-graph]`
     import starst3r_tpu_torch.reconstruct as reconstruct_mod
-    real_ga, ga_calls = reconstruct_mod.run_global_alignment, []
-
-    def recorded_ga(*a, **kw):
-        ga_calls.append((a, kw))
-        return real_ga(*a, **kw)
-
-    reconstruct_mod.run_global_alignment = recorded_ga
+    from torch_slice_inputs import recorded_calls
     set_launches(0)
     set_ga_counts(0)
-    try:
-        scene, orig, novel, secs = drive_main_path(stt, model, views, dev,
-                                                   N_NOVEL, cache_dir)
-    finally:
-        reconstruct_mod.run_global_alignment = real_ga
+    with recorded_calls(reconstruct_mod) as ga_calls:
+        scene, orig, novel, secs, _ = drive_main_path(stt, model, views, dev,
+                                                      N_NOVEL, cache_dir)
     ga_counts = read_ga_counts()
     render_launches = read_launches()
     print("[stages] " + " ".join(f"{k}={v:.3f}s" for k, v in secs.items()),
@@ -3027,7 +3356,7 @@ def main():
           f"{render_launches['gather_rows_bwd']} times, want {want}")
     fwd_cases, render_in = check_composite_kernel(stt, scene, dev)
     from starst3r_tpu_torch.alignment import ga
-    (data, mst, ga_cfg), _ = ga_calls[0]
+    data, mst, ga_cfg = ga_calls[0].args[:3]
     data512, mst512, _, cfg512 = ga512_inputs()
     points = {"main": ga.make_state(data, mst, ga_cfg, device=dev),
               "512px": ga.make_state(data512, mst512, cfg512, device=dev)}
@@ -3167,6 +3496,15 @@ def main():
                                        for k, v in margin.items()),
           flush=True)
 
+    # slice 12: the main path on 4:3 photos at the checkpoint's 512 px
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_res512_") as res_dir:
+        twelve, at_res512 = res512_phase(stt, model, dev, res_dir,
+                                         args.res512_record)
+    print("[stages] slice 12: " + " ".join(f"{k}={v:.3f}s"
+                                           for k, v in twelve.items()),
+          flush=True)
+
     kernels_line = []
     # K1's and K2's rows are their packed routes, the functions the main
     # path launches. composite_bwd's error is the scaled one its tolerance
@@ -3209,6 +3547,7 @@ def main():
             "pairs_walked": pairs.get("walked"),
             "pairs_in_boxes": pairs.get("in_boxes"),
             "pairs_passing": pairs.get("passing"),
+            "at_res512": at_res512.get(name),
             **({key: case[key] for key in ("autograd_ms", "gathers",
                                              "at_512px")}
                if "gathers" in case else {})})

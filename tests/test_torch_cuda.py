@@ -172,7 +172,7 @@ CASE_KW = {"scene": dict(max_tiles_per_gaussian=9, max_per_tile=128),
            "wall": dict(max_tiles_per_gaussian=9, max_per_tile=1024),
            "multichunk": dict(max_tiles_per_gaussian=4, max_per_tile=512)}
 ANY_SHAPES = [(16, 40, 24, 200), (8, 20, 36, 64), (16, 224, 224, 128),
-              (32, 40, 50, 96)]
+              (32, 40, 50, 96), (16, 384, 512, 128)]
 
 
 def _case_args(case):
@@ -807,6 +807,130 @@ def test_scene_defaults_to_cuda(dev):
     rgb, alpha, _ = scene.render_3dgs_original(64, 64)
     assert comp.composite_packed_cuda.launches == before + 1
     assert rgb.shape == (3, 64, 64, 3) and bool(torch.isfinite(rgb).all())
+
+
+def test_rect_slice_on_cuda_matches_cpu(dev, tmp_path):
+    """tests/test_torch_rect.py's slice at (H, W) = (64, 96) on the card
+    against the same calls on the CPU, stage by stage, each stage on the
+    same inputs: the tiny model from seed 0 (its weights copied to the
+    card), three smooth images of seed 7, the GA at 15 + 8, `add_images`
+    2 + 1 and `init_3dgs`. The CPU route is held to the JAX package by
+    tests/test_torch_rect.py, which closes the chain.
+
+      - the network's outputs on the slice's first pair within 2e-5 of
+        each output's largest magnitude (the rect test's REL_TOL);
+      - each `add_images` call's condensed data: the correspondences, the
+        pairs and their flags, the image sizes, principal points and base
+        focals equal, the MST equal; the match confidences within 2e-5 of
+        their largest (the network's bound, as they are its outputs); the
+        core depths, each camera's anchor depths over their median, within
+        4e-5 x (1 + |core depth|) of the camera's largest: the network's
+        bound on the raw depths, and the same bound again through the
+        median they are divided by;
+      - the GA of each call on the CPU call's recorded inputs (data, MST,
+        warm start) on the card: poses within 1e-3 in camera 0's frame,
+        intrinsics within 1e-3 relative (tests/test_torch_slice.py's);
+      - the CPU scene's splats rendered on the card (K1 launched once)
+        within `close_renders`' bounds of the CPU's render;
+      - the card's own scene: principal points nearer (W / 2, H / 2) than
+        the swap, finite renders of (3, H, W).
+
+    The two end-to-end scenes are not held to each other: float32 noise
+    in the network's far points (the depth ratio to an anchor divides by
+    depths near 0) moves the condensed core depths, and the GA turns that
+    into far more than 1e-3 between the two devices' second calls on this
+    scene, as it does between any two float32 programs."""
+    import dataclasses
+    import starst3r_tpu_torch.reconstruct as reconstruct_mod
+    from starst3r_tpu_torch.alignment import ga
+    from torch_slice_inputs import (close_renders, recorded_calls,
+                                    smooth_images)
+    rel_tol = 2e-5
+    h, w = 64, 96
+    imgs = smooth_images(3, h=h, w=w)
+    cpu_model = stt.Mast3rModel.init_random(stt.ModelConfig.tiny(), seed=0,
+                                            device="cpu")
+    card_model = stt.Mast3rModel.init_random(stt.ModelConfig.tiny(),
+                                             seed=0, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    pair = [torch.from_numpy(np.ascontiguousarray(
+        im.transpose(1, 2, 0)[None])) for im in imgs[:2]]
+    want = cpu_model.infer_pair_batch(*pair)
+    got = card_model.infer_pair_batch(*(x.to(dev) for x in pair))
+    for key, val in want.items():
+        scale = float(val.abs().max())
+        assert (float((got[key].cpu() - val).abs().max())
+                <= rel_tol * scale), key
+
+    cfg = stt.default_config()
+    cfg = dataclasses.replace(cfg, ga=dataclasses.replace(cfg.ga, niter1=15,
+                                                          niter2=8))
+    calls, scenes = {}, {}
+    for name, d, model in (("cpu", "cpu", cpu_model),
+                           ("cuda", dev, card_model)):
+        with recorded_calls(reconstruct_mod) as calls[name]:
+            scene = stt.Scene(cache_dir=str(tmp_path / name), config=cfg,
+                              device=d)
+            scene.add_images(model, imgs[:2])
+            scene.add_images(model, imgs[2:])
+            scene.init_3dgs()
+        scenes[name] = scene
+    cpu, card = scenes["cpu"], scenes["cuda"]
+    assert card.gs_state.params["means"].is_cuda
+
+    def in_cam0(c2w):
+        c2w = np.asarray(torch.as_tensor(c2w).cpu(), np.float64)
+        return np.linalg.inv(c2w[0])[None] @ c2w
+
+    for (args_c, kw_c, _), (args_g, _, _) in zip(calls["cpu"],
+                                                  calls["cuda"]):
+        (data_c, mst_c, ga_cfg), (data_g, mst_g) = args_c[:3], args_g[:2]
+        assert mst_g == mst_c
+        for field in ("corr_img1", "corr_idx1", "corr_img2", "corr_idx2",
+                      "corr_pair", "pair_img1", "pair_img2",
+                      "pair_matching_ok", "corr_pix1", "corr_pix2",
+                      "imsizes", "pps", "base_focals", "core_pix"):
+            np.testing.assert_array_equal(getattr(data_g, field),
+                                          getattr(data_c, field),
+                                          err_msg=field)
+        conf_c = data_c.corr_conf
+        assert (np.abs(data_g.corr_conf - conf_c).max()
+                <= rel_tol * np.abs(conf_c).max())
+        core_c, core_g = data_c.core_depth, data_g.core_depth
+        bound = (2 * rel_tol * np.abs(core_c).max(axis=1, keepdims=True)
+                 * (1 + np.abs(core_c)))
+        ratio = np.abs(core_g - core_c) / bound
+        assert ratio.max() <= 1.0, (ratio.max(), np.abs(core_c).max())
+        prev = kw_c["prev_params"]
+        want_ga, _ = ga.run_global_alignment(data_c, mst_c, ga_cfg,
+                                             prev_params=prev, device="cpu")
+        got_ga, _ = ga.run_global_alignment(
+            data_c, mst_c, ga_cfg, device=dev, prev_params=None
+            if prev is None else ga.GAParams(*[p.to(dev) for p in prev]))
+        np.testing.assert_allclose(in_cam0(got_ga.cam2w),
+                                   in_cam0(want_ga.cam2w), atol=1e-3)
+        np.testing.assert_allclose(got_ga.K.cpu().numpy(),
+                                   want_ga.K.numpy(), rtol=1e-3)
+
+    params = cpu.gs_state.params
+    want_rgb, want_alpha, _ = stt.gs.render(
+        params, cpu.w2c, cpu.intrinsics, w, h, cfg.splat,
+        n_alive=cpu.gs_state.n_alive)
+    before = comp.composite_packed_cuda.launches
+    rgb, alpha, _ = stt.gs.render(
+        {k: v.to(dev) for k, v in params.items()}, cpu.w2c, cpu.intrinsics,
+        w, h, cfg.splat, n_alive=cpu.gs_state.n_alive)
+    torch.cuda.synchronize()
+    assert comp.composite_packed_cuda.launches == before + 1
+    assert rgb.shape == (3, h, w, 3) and rgb.is_cuda
+    close_renders(rgb.cpu().numpy(), want_rgb.numpy())
+    close_renders(alpha.cpu().numpy(), want_alpha.numpy())
+    pp = card.intrinsics[:, :2, 2]
+    assert (np.linalg.norm(pp - [w / 2, h / 2], axis=-1)
+            < np.linalg.norm(pp - [h / 2, w / 2], axis=-1)).all(), pp
+    rgb_own, _, _ = card.render_3dgs_original(w, h)
+    assert rgb_own.shape == (3, h, w, 3)
+    assert bool(torch.isfinite(rgb_own).all())
 
 
 def _rotz(a):

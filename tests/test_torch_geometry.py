@@ -44,27 +44,27 @@ def _unit(x):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-def _predictions(seed=0):
-    """Pair predictions for all ordered pairs of N_IMG images: positive
-    depths, confidences >= 1, and descriptor maps where image j's map is a
-    noisy shifted copy of image i's (many mutual matches)."""
+def _predictions(seed=0, h=H, w=W):
+    """Pair predictions for all ordered pairs of N_IMG (h, w) images:
+    positive depths, confidences >= 1, and descriptor maps where image j's
+    map is a noisy shifted copy of image i's (many mutual matches)."""
     rng = np.random.default_rng(seed)
-    base = _unit(rng.normal(size=(N_IMG, H, W, 8))).astype(np.float32)
+    base = _unit(rng.normal(size=(N_IMG, h, w, 8))).astype(np.float32)
     preds = []
     for i, j in jimaging.make_pair_indices(N_IMG):
         def pts():
-            p = rng.normal(size=(H, W, 3)).astype(np.float32) * 0.5
-            p[..., 2] = rng.uniform(1.0, 3.0, size=(H, W))
+            p = rng.normal(size=(h, w, 3)).astype(np.float32) * 0.5
+            p[..., 2] = rng.uniform(1.0, 3.0, size=(h, w))
             return p
         d2 = _unit(np.roll(base[i], 3, axis=1)
-                   + 0.3 * rng.normal(size=(H, W, 8))).astype(np.float32)
+                   + 0.3 * rng.normal(size=(h, w, 8))).astype(np.float32)
         preds.append(dict(
             idx1=i, idx2=j, pts1=pts(), pts2=pts(),
-            conf1=(1 + np.exp(rng.normal(size=(H, W)))).astype(np.float32),
-            conf2=(1 + np.exp(rng.normal(size=(H, W)))).astype(np.float32),
+            conf1=(1 + np.exp(rng.normal(size=(h, w)))).astype(np.float32),
+            conf2=(1 + np.exp(rng.normal(size=(h, w)))).astype(np.float32),
             desc1=base[i], desc2=d2,
-            desc_conf1=np.ones((H, W), np.float32),
-            desc_conf2=np.ones((H, W), np.float32)))
+            desc_conf1=np.ones((h, w), np.float32),
+            desc_conf2=np.ones((h, w), np.float32)))
     return preds
 
 

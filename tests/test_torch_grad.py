@@ -72,7 +72,7 @@ def _scene(seed=0, n=96):
 def _jax_grads(args, impl, kw, loss_kind):
     cams = (jnp.asarray(args[5]), jnp.asarray(args[6]))
     tgt = jnp.asarray(np.random.default_rng(5).uniform(
-        size=(2, 32, 32, 3)).astype(np.float32))
+        size=(2, kw["height"], kw["width"], 3)).astype(np.float32))
 
     def loss(*g):
         rgb, alpha, _ = jr.rasterize(*g, *cams, impl=impl, **kw)

@@ -36,6 +36,9 @@ import starst3r_tpu_torch as stt
 from starst3r_tpu_torch.io.from_jax import (ga_params_from_jax,
                                             mast3r_state_dict_from_jax)
 
+from torch_slice_inputs import close_renders as _close
+from torch_slice_inputs import smooth_images as _images
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -48,21 +51,6 @@ def _cfg(pkg):
         cfg, ga=dataclasses.replace(cfg.ga, niter1=15, niter2=8))
 
 
-def _images(n, seed=7):
-    """Smooth colour fields (not white noise), so the random network's
-    descriptors have structure to match."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:H, 0:W] / H
-    out = []
-    for _ in range(n):
-        f = rng.uniform(1, 4, size=(3, 2))
-        ph = rng.uniform(0, 2 * np.pi, size=3)
-        img = np.stack([np.sin(f[c, 0] * 6 * xx + f[c, 1] * 6 * yy + ph[c])
-                        for c in range(3)])
-        out.append((0.8 * img).astype(np.float32))
-    return out
-
-
 def _in_cam0(c2w, pts=None):
     c2w = np.asarray(c2w, np.float64)
     inv = np.linalg.inv(c2w[0])
@@ -71,15 +59,22 @@ def _in_cam0(c2w, pts=None):
     return pts @ inv[:3, :3].T + inv[:3, 3]
 
 
-@pytest.fixture(scope="module")
-def scenes(tmp_path_factory):
-    imgs = _images(3)
-    jmodel = st.Mast3rModel.init_random(st.ModelConfig.tiny(), seed=1,
-                                        image_hw=(H, W))
-    tmodel = stt.Mast3rModel.init_random(stt.ModelConfig.tiny(),
-                                         device="cpu")
-    tmodel.load_state_dict(mast3r_state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, jmodel.params)))
+def build_scenes(tmp_path_factory, h, w, seed=7, models=None):
+    """The JAX and the port's scenes after two `add_images` calls and
+    `init_3dgs` on three (3, h, w) images, and the first call's poses in
+    camera 0's frame and dense-point counts per camera, of each.
+    ``models``: (JAX model, port model) with the same weights; by default
+    the JAX tiny model from seed 1, carried over to the port."""
+    imgs = _images(3, seed=seed, h=h, w=w)
+    if models is None:
+        jmodel = st.Mast3rModel.init_random(st.ModelConfig.tiny(), seed=1,
+                                            image_hw=(h, w))
+        tmodel = stt.Mast3rModel.init_random(stt.ModelConfig.tiny(),
+                                             device="cpu")
+        tmodel.load_state_dict(mast3r_state_dict_from_jax(
+            jax.tree_util.tree_map(np.asarray, jmodel.params)))
+    else:
+        jmodel, tmodel = models
     js = st.Scene(cache_dir=str(tmp_path_factory.mktemp("jax")),
                   config=_cfg(st))
     ts = stt.Scene(cache_dir=str(tmp_path_factory.mktemp("port")),
@@ -97,14 +92,26 @@ def scenes(tmp_path_factory):
     return js, ts, first
 
 
-def test_first_add_images_matches_jax(scenes):
+@pytest.fixture(scope="module")
+def scenes(tmp_path_factory):
+    return build_scenes(tmp_path_factory, H, W)
+
+
+def check_first_add_images(scenes):
     _, _, ((jc, jn), (tc, tn)) = scenes
     assert tc.shape == (2, 4, 4)
     np.testing.assert_allclose(tc, jc, atol=1e-3)
     assert tn == jn
 
 
-def test_poses_and_dense_points_match_jax(scenes):
+def test_first_add_images_matches_jax(scenes):
+    check_first_add_images(scenes)
+
+
+def check_poses_and_dense_points(scenes, pts_rtol=0.0):
+    """Poses within 1e-3 in camera 0's frame, intrinsics within 1e-3
+    relative, equal dense-point counts, the points within 1e-3 (plus
+    ``pts_rtol`` of each coordinate's magnitude) in camera 0's frame."""
     js, ts, _ = scenes
     assert ts.c2w.shape == js.c2w.shape == (3, 4, 4)
     np.testing.assert_allclose(_in_cam0(ts.c2w), _in_cam0(js.c2w),
@@ -114,10 +121,14 @@ def test_poses_and_dense_points_match_jax(scenes):
     assert sum(len(p) for p in ts.dense_pts) > 1000
     np.testing.assert_allclose(_in_cam0(ts.c2w, ts.dense_pts_flat),
                                _in_cam0(js.c2w, js.dense_pts_flat),
-                               atol=1e-3)
+                               atol=1e-3, rtol=pts_rtol)
     np.testing.assert_allclose(ts.dense_cols_flat, js.dense_cols_flat,
                                atol=1e-6)
     assert ts.gs_state.n_alive == int(js.gs_state.n_alive)
+
+
+def test_poses_and_dense_points_match_jax(scenes):
+    check_poses_and_dense_points(scenes)
 
 
 def _port_in_jax_frame(js, ts):
@@ -133,14 +144,7 @@ def _port_in_jax_frame(js, ts):
     return params, c2w
 
 
-def _close(got, want):
-    """|got - want| <= 1e-3 for 99% of the values and <= 1e-2 for all."""
-    err = np.abs(np.asarray(got) - np.asarray(want))
-    assert err.max() <= 1e-2, err.max()
-    assert np.mean(err > 1e-3) <= 0.01, np.mean(err > 1e-3)
-
-
-def test_renders_match_jax(scenes):
+def check_renders(scenes, h, w):
     """Renders are compared in the JAX scene's world frame: the SH band-1
     colours are defined on world axes, so the scene's free rigid motion
     changes view-dependent colour. Bound: see `_close`. The reconstructions
@@ -152,10 +156,10 @@ def test_renders_match_jax(scenes):
     cfg = ts.config.splat
     params, c2w = _port_in_jax_frame(js, ts)
     w2c = np.linalg.inv(c2w).astype(np.float32)
-    rgb_j, a_j, info_j = js.render_3dgs_original(W, H)
-    rgb_t, a_t, info_t = stt.gs.render(params, w2c, ts.intrinsics, W, H, cfg,
+    rgb_j, a_j, info_j = js.render_3dgs_original(w, h)
+    rgb_t, a_t, info_t = stt.gs.render(params, w2c, ts.intrinsics, w, h, cfg,
                                        n_alive=ts.gs_state.n_alive)
-    assert rgb_t.shape == (3, H, W, 3) and a_t.shape == (3, H, W, 1)
+    assert rgb_t.shape == (3, h, w, 3) and a_t.shape == (3, h, w, 1)
     _close(rgb_t.numpy(), rgb_j)
     _close(a_t.numpy(), a_j)
     np.testing.assert_allclose(info_t["tile_overflow"].numpy(),
@@ -165,24 +169,32 @@ def test_renders_match_jax(scenes):
     np.testing.assert_allclose(
         stt.interp_se3_path(c2w[0], c2w[2], 3).numpy(), path, atol=1e-3)
     w2c_mid = np.linalg.inv(path[1]).astype(np.float32)
-    rgb_jn, _, _ = js.render_3dgs(w2c_mid, js.intrinsics[0], W, H)
+    rgb_jn, _, _ = js.render_3dgs(w2c_mid, js.intrinsics[0], w, h)
     rgb_tn, _, _ = stt.gs.render(params, w2c_mid[None],
-                                 ts.intrinsics[:1], W, H, cfg,
+                                 ts.intrinsics[:1], w, h, cfg,
                                  n_alive=ts.gs_state.n_alive)
     _close(rgb_tn.numpy(), rgb_jn)
 
 
-def test_port_scene_renders_on_its_own_cameras(scenes):
+def test_renders_match_jax(scenes):
+    check_renders(scenes, H, W)
+
+
+def check_own_renders(scenes, h, w):
     """The port's own entry points: render_3dgs_original and a novel
     render_3dgs, finite, shaped, and with the JAX scene's coverage."""
     js, ts, _ = scenes
-    rgb, alpha, info = ts.render_3dgs_original(W, H)
-    assert rgb.shape == (3, H, W, 3) and torch.isfinite(rgb).all()
+    rgb, alpha, info = ts.render_3dgs_original(w, h)
+    assert rgb.shape == (3, h, w, 3) and torch.isfinite(rgb).all()
     path = stt.interp_se3_path(ts.c2w[0], ts.c2w[2], 4)
     w2c = torch.linalg.inv(path)
     rgb_n, alpha_n, _ = ts.render_3dgs(
-        w2c, np.repeat(ts.intrinsics[:1], 4, 0), W, H)
-    assert rgb_n.shape == (4, H, W, 3) and torch.isfinite(rgb_n).all()
-    _, a_j, _ = js.render_3dgs_original(W, H)
+        w2c, np.repeat(ts.intrinsics[:1], 4, 0), w, h)
+    assert rgb_n.shape == (4, h, w, 3) and torch.isfinite(rgb_n).all()
+    _, a_j, _ = js.render_3dgs_original(w, h)
     np.testing.assert_allclose(alpha.mean().item(),
                                float(np.asarray(a_j).mean()), atol=1e-3)
+
+
+def test_port_scene_renders_on_its_own_cameras(scenes):
+    check_own_renders(scenes, H, W)
