@@ -36,7 +36,13 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      trained scene with the real loss's pixel gradients, and on the two
      small scenes; and the standalone entry-gather kernel against
      ``packed[gidx] * valid``; times each, with the gather's library call
-     ``packed[gidx]``;
+     ``packed[gidx]``. The packed route's parts are timed apart (K2 with
+     the zero fill of its per-slot gradient, the CSR of the binning's
+     indices, the row-sum kernel that sums each table row's slots in a
+     fixed order) beside the packed K2 with float atomics that this
+     route replaced (K2_ATOMIC_MS), each with its bound; the row sum's
+     table is held bit for bit to `_gather_rows_bwd_in_order` of K2's
+     per-slot gradient and to a second launch;
   6. checks that every output is finite and shaped as expected, that the
      loss fell, that no non-finite gradient came out of the backward kernel
      or the gather's backward and no trained parameter is non-finite, and
@@ -49,7 +55,8 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      turns (`device_ms` and CUDA events): the gather and the entries-route
      forward against the packed forward (rgb, alpha, T_fin and done equal bit for bit); the
      backward's zero fill, entries route, mask and ``index_add_`` against
-     the packed backward and its zeroed table (within 1e-6 per attribute);
+     the packed backward (K2's per-slot gradient and the row sum; within
+     1e-6 per attribute);
      and one training step on each route (the same state and bins): its
      peak device memory and, under torch.profiler, its device-busy time;
   8. with --parent-csrc, the compositing kernels of another revision of
@@ -118,11 +125,13 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      inference (`infer_pairs(sharding=)`) equal to the meshless
      predictions; `reconstruct_scene(mesh=)` against the meshless call
      (cache off, GA 100 + 50) in camera 0's frame; `run_optim(mesh=)`
-     for 50 steps with one MCMC refine, K1 and K2 launched 50 times
-     each, its losses against the meshless run's (the first step's to
-     1e-6; the rest to 2e-4 or twice the meshless run's distance from
-     itself run again, the backward's atomics); the sharded LM and Schur
-     polish on the planted problem. (b) Two ranks on the one card over
+     for 50 steps with one MCMC refine, K1, K2 and the row sum launched
+     50 times each, its losses against the meshless run's (the first
+     step's to 1e-6; the rest to 2e-4 or twice the meshless run's
+     distance from two runs whose start was moved one ulp, up and down;
+     a second meshless run from the unmoved start must give the same
+     bits); the sharded LM and Schur polish on the planted problem. (b)
+     Two ranks on the one card over
      gloo, each its own interpreter (`parallel_rank`): the large model's
      tensor-parallel forward (model axis 2) of 8 pairs against the
      meshless bfloat16 forward (at most twice that forward's own distance
@@ -194,14 +203,27 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      run one camera at a time (within BWD_SCALED_TOL, scaled; the plain
      backward of six such cameras at once would hold several times the
      memory) and within 1e-6 (scaled) of the entries route's index_add_
-     (`[fused]`'s gate); the row-gather backward at the six sites of the
-     first GA call (`[ga-gather]`'s gates); each kernel's and its plain
+     (`[fused]`'s gate), its parts timed as step 5 times them; the
+     row-gather backward at the six sites of the first GA call
+     (`[ga-gather]`'s gates); each kernel's and its plain
      version's times beside its bound; the seconds per stage (a
      `[stages] slice 12:` line), the ms per training step (host clock,
      and CUDA events per stage), the peak device memory per stage,
      tile_overflow and n_tiles_clipped. With --res512-record PATH the
      phase's two GA calls (inputs and results) are written to PATH for
      tools/res512_ga_against_jax.py.
+ 21. `[repeat]` (after step 4, and in step 20 after its training): the
+     main path's training repeated twice from its trained state,
+     run_optim for REPEAT_STEPS steps at 224 px (one MCMC refine among
+     them) and REPEAT_RES_STEPS at 512 x 384: the two runs' losses,
+     parameters and Adam moments equal bit for bit, and the row sum
+     launched once per K2 launch; then, at 224 px, one training step
+     with a refine under torch.use_deterministic_algorithms(True,
+     warn_only=True), whose warnings name every operation PyTorch knows
+     as non-deterministic on the card (printed, not checked), and the
+     refine's categorical draw at the pool's size three times from one
+     generator state, by torch.multinomial's default route (printed) and
+     by `splat.mcmc.sample_targets` (the same bits, checked).
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -211,15 +233,15 @@ boxes, each entry's box, and the pairs that pass the culls
 The compositing kernels' rows on the `kernels` line are their packed
 routes, the ones the main path launches: their bytes count each entry
 walked as its 4-byte index and its 36-byte row (and, for the backward,
-36 bytes of reduction adds per entry that contributed), and
+36 bytes stored at its slot per entry that contributed), and
 `bytes_sector` counts each row as the two 32-byte sectors it spans. A
 kernel's `ms` (and `library_ms`) is device time per call: CUDA events
 around a loop of calls queued behind a spin kernel that holds the stream
 until the host has queued them all (`device_ms`), so every kernel the call
-launches counts (the backward's includes the zero fill of its output) and
-the host's launch pace does not; `ms_events` beside it is the CUDA-event
-time per call of the same loop unqueued, which counts the pace too;
-`plain_ms` is CUDA-event time, except the row-gather backward's: its
+launches counts (the packed backward's: its zero fill, the CSR and the row
+sum) and the host's launch pace does not; `ms_events` beside it is the
+CUDA-event time per call of the same loop unqueued, which counts the pace
+too; `plain_ms` is CUDA-event time, except the row-gather backward's: its
 plain version is its library call (`index_add_`), timed once by
 `device_ms` for both fields. torch.profiler only breaks times down and
 sums a training step's device-busy time; where its trace holds no device
@@ -303,9 +325,13 @@ CUDA_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # `[parallel]`: the reconstruction's GA steps (cut from the main path's
 # 500 + 200 to keep the phase short), the sharded training's steps, and
 # the tolerances. Losses rtol 2e-4 (tests/test_distributed.py), or twice
-# the meshless run's largest distance from itself run twice more where
-# that is larger (measured in the same call: the backward's atomics part
-# two runs from the second step on, and Adam's normalised steps carry it
+# the meshless run's spread under float noise where that is larger. The
+# meshless training has no float atomics, so a run from the same state
+# gives the same bits (checked), and the noise is made on purpose:
+# PAR_REPEATS runs from the start with every float parameter moved one
+# ulp (up, then down), each one's largest relative distance from the
+# unmoved run per step (the sharded runs sum the same gradients over the
+# ranks in another order, and Adam's normalised steps carry such noise
 # to ~1% of the loss within a few steps on this scene). The polish on the
 # planted problem: poses within 1e-3 of the meshless run's, as
 # tests/test_lm.py and tests/test_schur.py hold a sharded run, and the
@@ -367,6 +393,15 @@ RES_SIZE = 512
 RES_HW = (384, 512)
 RES_STEPS = 150
 RES_WINDOW = 10
+# `[repeat]`: the training steps repeated from the trained state, at 224 px
+# and at 512 x 384
+REPEAT_STEPS = 50
+REPEAT_RES_STEPS = 20
+# the packed K2 before its gradient was summed by the row sum: float
+# atomic adds into a zero-filled (C*N, 9) table, the fill included, as an
+# earlier revision measured it on an NVIDIA H100 80GB HBM3 at 700 W on
+# these scenes (ms): the figures the new route's parts are printed beside
+K2_ATOMIC_MS = {"224 px": 0.1873, "512 x 384": 0.5196}
 POLISH = {
     "lora+lm": dict(opt_depth=True, lora_depth=True, refine_lm=True,
                     lm_mode="lm"),
@@ -745,8 +780,8 @@ def bwd_work(x, done):
     """The packed backward's bound inputs on ``x``, in the batches ``done``
     says the forward processed: bytes (reads: the entries walked, index
     and row, counts and done, T_fin, rgb and the two pixel gradients;
-    writes: a reduction add of 36 bytes into the table per entry that
-    contributed, the rest of the table being the caller's zeros), bytes
+    writes: 36 bytes at its slot per entry that contributed, the other
+    slots being the caller's zeros), bytes
     counted in 32-byte sectors, operations in the cull boxes and over
     every pair walked, and the pair counts."""
     counts = x["counts"]
@@ -880,7 +915,7 @@ def launch_counters():
     from starst3r_tpu_torch.alignment import ga
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
     return {"composite_fwd_packed": comp.composite_packed_cuda,
-            "composite_bwd_packed": comp.composite_packed_bwd_cuda,
+            "composite_bwd_packed": comp.composite_packed_slots_cuda,
             "composite_fwd": comp.composite_tiles_cuda,
             "composite_bwd": comp.composite_tiles_bwd_cuda,
             "gather_entries": gat.gather_entries_cuda,
@@ -989,7 +1024,9 @@ def profile_train_steps(scene, steps=5):
 def run_bwd(x, route, fwd_out, g_rgb, g_alpha):
     """One launch of the backward kernel's route (its wrapper, zero fill
     included) on the forward's outputs: grad_packed (C*N, 9) on the packed
-    route, grad_entries (C, T, K, 9) on the entries route."""
+    route, the whole backward a training step launches (K2's per-slot
+    gradient, the CSR and the row sum); grad_entries (C, T, K, 9) on the
+    entries route."""
     from starst3r_tpu_torch.splat import composite as comp
     rgb, _, tfin, done = fwd_out
     if route == "packed":
@@ -1041,11 +1078,12 @@ def bwd_case(name, x, route, g_rgb, g_alpha, timed, keep=False):
     if keep:
         out.update(got=got, want=want, done=done)
     if timed:
+        # on the packed route the whole backward a training step launches
+        # (`packed_bwd_parts` times K2, the CSR and the row sum apart)
+        kernel = lambda: run_bwd(x, route, fwd_out, g_rgb, g_alpha)
         out.update(bwd_work(x, done))
-        out["ms"] = device_ms(lambda: run_bwd(x, route, fwd_out, g_rgb,
-                                              g_alpha), reps=20)
-        out["ms_events"] = cuda_ms(lambda: run_bwd(x, route, fwd_out, g_rgb,
-                                                   g_alpha), reps=20)
+        out["ms"] = device_ms(kernel, reps=20)
+        out["ms_events"] = cuda_ms(kernel, reps=20)
         out["plain_ms"] = cuda_ms(lambda: plain_bwd(x, route, done, g_rgb,
                                                     g_alpha), reps=3,
                                   warmup=1)
@@ -1055,6 +1093,97 @@ def bwd_case(name, x, route, g_rgb, g_alpha, timed, keep=False):
           f"{out['max_abs_err']:.3e}", flush=True)
     check(err <= BWD_SCALED_TOL, f"{name}: backward kernel disagrees with "
           f"the plain version ({err:.3e} > {BWD_SCALED_TOL})")
+    return out
+
+
+def packed_bwd_parts(x, fwd_out, g_rgb, g_alpha, label):
+    """The packed backward's parts on input ``x`` (the forward's outputs
+    ``fwd_out``, the pixel gradients): K2 with the zero fill of its
+    per-slot gradient, the CSR of the binning's indices (`packed_csr`),
+    the row sum of the slots into the table (`gather_rows_bwd_cuda`), and
+    the whole backward, each by `device_ms`, printed beside the atomic
+    K2's time at ``label`` (K2_ATOMIC_MS, an earlier revision's figure:
+    printed, never returned). The row sum's table must equal
+    `_gather_rows_bwd_in_order` of the per-slot gradient, a second launch
+    and the whole backward bit for bit, and the float64 ``index_add_`` of
+    the slots within GATHER_TOL (1 + max). Returns the times, and the row
+    sum's case for the kernels line."""
+    import torch
+    from starst3r_tpu_torch.ops import row_sum
+    from starst3r_tpu_torch.splat import composite as comp
+    rgb, _, tfin, done = fwd_out
+    args = (x["packed"], x["gidx"], x["counts"], rgb, tfin, done, g_rgb,
+            g_alpha, *geometry(x))
+    rows, m = x["packed"].shape[0], x["gidx"].numel()
+    flat = x["gidx"].reshape(-1)
+    slots = comp.composite_packed_slots_cuda(*args)
+    csr = comp.packed_csr(x["gidx"], x["counts"], rows)
+    table = row_sum.gather_rows_bwd_cuda(slots, *csr)
+    again = row_sum.gather_rows_bwd_cuda(slots, *csr)
+    whole = comp.composite_packed_bwd_cuda(*args)
+    in_order = row_sum._gather_rows_bwd_in_order(slots, *csr)
+    # the slots past the counts are K2's zeros: index_add_ of every slot
+    # is the library call, and in float64 the plain version
+    want = torch.zeros((rows, 9), dtype=torch.float64,
+                       device=slots.device).index_add_(0, flat,
+                                                       slots.double())
+    torch.cuda.synchronize()
+    n_valid = int(csr[1][-1])
+    tag = f"[k2-parts] {label}"
+    check(n_valid == int(x["counts"].long().sum()), f"{tag}: the CSR holds "
+          f"{n_valid} slots")
+    check(torch.equal(table, in_order), f"{tag}: the row sum differs from "
+          "its summation order in PyTorch")
+    check(torch.equal(table, again), f"{tag}: two row-sum launches differ")
+    check(torch.equal(table, whole), f"{tag}: the whole backward differs "
+          "from its parts")
+    err = float((table.double() - want).abs().max())
+    tol = GATHER_TOL * (1 + float(want.abs().max()))
+    check(err <= tol, f"{tag}: max|row sum - index_add_| = {err} (limit "
+          f"{tol})")
+    del in_order, want, whole, again, table
+    k2_ms = device_ms(lambda: comp.composite_packed_slots_cuda(*args),
+                      reps=20)
+    csr_ms = device_ms(lambda: comp.packed_csr(x["gidx"], x["counts"],
+                                               rows), reps=20)
+    sum_ms = device_ms(lambda: row_sum.gather_rows_bwd_cuda(slots, *csr),
+                       reps=50)
+    whole_ms = device_ms(lambda: comp.composite_packed_bwd_cuda(*args),
+                         reps=20)
+    lib_ms = device_ms(lambda: torch.zeros(
+        (rows, 9), device=slots.device).index_add_(0, flat, slots), reps=20)
+    # the row sum reads each valid slot's 36 bytes and 4-byte order entry
+    # and the offsets, and writes the table; one add per element. The CSR
+    # reads gidx and the counts and writes order and the offsets (a sort
+    # does no float operation). The fill writes the per-slot gradient
+    sum_bytes = n_valid * (ROW_BYTES + INDEX_BYTES) + 4 * (rows + 1) \
+        + ROW_BYTES * rows
+    csr_bytes = 4 * m + 4 * x["counts"].numel() + 4 * m + 4 * (rows + 1)
+    fill_bytes = ROW_BYTES * m
+    plan = row_sum._gather_plan(m, rows, 9)
+    out = {"k2_ms": k2_ms, "csr_ms": csr_ms, "row_sum_ms": sum_ms,
+           "backward_ms": whole_ms,
+           "csr_bound_ms": bound(csr_bytes, 0)[0],
+           "fill_bound_ms": bound(fill_bytes, 0)[0],
+           "slots": m, "valid_slots": n_valid, "rows": rows,
+           "slot_bytes": fill_bytes,
+           "row_sum": {"bytes": sum_bytes, "ops": 9 * n_valid, "ms": sum_ms,
+                       "plain_ms": lib_ms, "library_ms": lib_ms,
+                       "max_abs_err": err, "plan": plan._asdict()}}
+    print(f"{tag}: K2 with the zero fill of its per-slot gradient "
+          f"{k2_ms:.4f} ms ({fill_bytes} B filled, bound of the fill alone "
+          f"{out['fill_bound_ms']:.4f} ms); the CSR {csr_ms:.4f} ms ({m} "
+          f"slots sorted, {n_valid} valid; bound {out['csr_bound_ms']:.4f}"
+          f" ms, bytes); the row sum {sum_ms:.4f} ms ({n_valid} slots into "
+          f"{rows} rows of 9, plan {tuple(plan)}; bound "
+          f"{bound(sum_bytes, 9 * n_valid)[0]:.4f} ms, bytes; the library "
+          f"call zeros + index_add_ {lib_ms:.4f} ms); the whole backward "
+          f"{whole_ms:.4f} ms against {K2_ATOMIC_MS[label]} ms for the "
+          f"atomic K2 with its table fill (an earlier revision's, NVIDIA "
+          f"H100 80GB HBM3 at 700 W); the row sum's table equals its order "
+          f"in PyTorch, a second launch and the whole backward bit for "
+          f"bit, max|row sum - float64 index_add_| = {err:.3g} (limit "
+          f"{tol:.3g})", flush=True)
     return out
 
 
@@ -1288,11 +1417,14 @@ def fused_phase(render_in, real, dev):
             busy.setdefault(route, []).append(profiled_ms(step, reps=10)[0])
     finally:
         rz.composite_packed = comp.composite_packed
+    # the row sum: the packed backward's, or the standalone gather's
     check(launched["fused"]["gather_entries"] == 0
-          and launched["fused"]["composite_bwd_packed"] == 1,
+          and launched["fused"]["composite_bwd_packed"] == 1
+          and launched["fused"]["gather_rows_bwd"] == 1,
           f"[fused] the packed step launched {launched['fused']}")
     check(launched["unfused"]["gather_entries"] == 1
-          and launched["unfused"]["composite_bwd"] == 1,
+          and launched["unfused"]["composite_bwd"] == 1
+          and launched["unfused"]["gather_rows_bwd"] == 1,
           f"[fused] the unfused step launched {launched['unfused']}")
     res["step"] = {"peak_bytes": peak, "busy_ms": busy}
     mib = {k: [round(b / 2**20, 3) for b in v] for k, v in peak.items()}
@@ -2178,6 +2310,112 @@ def copy_state(state):
     return state._replace(generator=gen)
 
 
+def nudged_state(state, toward):
+    """`copy_state` with every float parameter moved one ulp toward
+    ``toward`` (inf or -inf)."""
+    import torch
+    st = copy_state(state)
+    return st._replace(params={
+        k: torch.nextafter(v, torch.full_like(v, toward))
+        if v.is_floating_point() else v for k, v in st.params.items()})
+
+
+def same_bits(a, b):
+    """Two GSStates' parameters and Adam moments equal bit for bit."""
+    import torch
+    return (a.n_alive == b.n_alive
+            and all(torch.equal(v, b.params[k]) for k, v in a.params.items())
+            and all(torch.equal(v, b.opt_state.mu[k])
+                    for k, v in a.opt_state.mu.items())
+            and all(torch.equal(v, b.opt_state.nu[k])
+                    for k, v in a.opt_state.nu.items()))
+
+
+def repeat_phase(label, scene, steps, probe=False):
+    """`[repeat]`: the main path's training (run_optim with MCMC on the
+    arguments Scene.run_3dgs_optim gives it, `par_train_inputs`) run
+    twice for ``steps`` steps from
+    the scene's trained state: the losses, the parameters and the Adam
+    moments must be equal bit for bit, and the row sum launched once per
+    K2 launch. With ``probe``, one more step, a refine step, under
+    torch.use_deterministic_algorithms(True, warn_only=True): the
+    operations PyTorch warns of are printed. Returns the seconds."""
+    import warnings
+    import torch
+    from starst3r_tpu_torch.splat.train import run_optim
+    t0 = time.perf_counter()
+    state = scene.gs_state
+    *train, mcfg = par_train_inputs(scene)
+    refines = [s for s in range(state.step + 1, state.step + steps + 1)
+               if mcfg.refine_start <= s < mcfg.refine_stop
+               and s % mcfg.refine_every == 0]
+    runs = []
+    for _ in range(2):
+        set_launches(0)
+        st, losses = run_optim(copy_state(state), *train[:3], steps,
+                               train[3], enable_pruning=True, mcfg=mcfg)
+        torch.cuda.synchronize()
+        runs.append((st, losses, read_launches()))
+    (a, la, na), (b, lb, nb) = runs
+    same = la == lb and same_bits(a, b)
+    print(f"[repeat] {label}: run_optim {steps} steps from the trained "
+          f"state (steps {state.step + 1}-{state.step + steps}, MCMC "
+          f"refines at {refines}), twice: losses, parameters and Adam "
+          f"moments {'equal bit for bit' if same else 'DIFFER'}; losses "
+          f"first {la[0]:.7f} last {la[-1]:.7f} / {lb[-1]:.7f}; n_alive "
+          f"{a.n_alive}; launches {na}", flush=True)
+    check(same, f"[repeat] {label}: two trainings from one state differ")
+    check(all(np.isfinite(la)), f"[repeat] {label}: a loss is not finite")
+    for n in (na, nb):
+        check(n["composite_bwd_packed"] == n["gather_rows_bwd"] == steps,
+              f"[repeat] {label}: launches {n}")
+    del runs, a, b
+    if probe:
+        # a state one step before a refine: the probe's step refines
+        every = mcfg.refine_every
+        step = max(mcfg.refine_start, (state.step // every + 1) * every) - 1
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run_optim(copy_state(state)._replace(step=step),
+                          *train[:3], 1, train[3], enable_pruning=True,
+                          mcfg=mcfg)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        flagged = sorted({str(w.message).split("\n")[0][:240]
+                          for w in caught
+                          if "determinis" in str(w.message).lower()})
+        print(f"[repeat] {label}: one training step with a refine (step "
+              f"{step + 1}) under torch.use_deterministic_algorithms(True, "
+              f"warn_only=True): {len(flagged)} operations flagged"
+              + "".join(f"\n[repeat]   {m}" for m in flagged), flush=True)
+        # the refine's categorical draw at the pool's size, three times
+        # from one generator state: torch.multinomial as PyTorch runs it
+        # by default (a float scan in no fixed order), and as
+        # `sample_targets` runs it, under deterministic algorithms
+        from starst3r_tpu_torch.splat.mcmc import sample_targets
+        pool = state.params["means"].shape[0]
+        gen = torch.Generator(device=state.generator.device).manual_seed(0)
+        weights = torch.rand(pool, generator=gen, device=gen.device)
+        seeded = lambda: torch.Generator(device=gen.device).manual_seed(1)
+        plain = [torch.multinomial(weights, pool, replacement=True,
+                                   generator=seeded()) for _ in range(3)]
+        port = [sample_targets(weights, torch.ones_like(weights, dtype=bool),
+                               pool, seeded()) for _ in range(3)]
+        same = {name: all(torch.equal(d[0], x) for x in d[1:])
+                for name, d in (("default", plain), ("port", port))}
+        print(f"[repeat] {label}: {pool} categorical draws from one "
+              f"generator state, three times: torch.multinomial by default "
+              f"{'the same' if same['default'] else 'other'} bits; "
+              f"sample_targets {'the same' if same['port'] else 'other'} "
+              f"bits", flush=True)
+        check(same["port"], f"[repeat] {label}: sample_targets gave other "
+              "draws from one generator state")
+    return time.perf_counter() - t0
+
+
 def par_polish(dev, mesh=None):
     """Both refiners on `planted_polish`'s problem, 3 iterations as the JAX
     tests hold a sharded run to a meshless one: {name: (cam2w, costs)}."""
@@ -2708,18 +2946,27 @@ def parallel_phase(stt, model, views, scene, dev, work_dir):
                 "steps": PAR_STEPS},
                os.path.join(work_dir, "par_state.pt"))
     t = time.perf_counter()
-    _, losses1 = run_optim(copy_state(state), gt, w2c, Ks, PAR_STEPS, tcfg,
-                           enable_pruning=True, mcfg=mcfg)
+    st1, losses1 = run_optim(copy_state(state), gt, w2c, Ks, PAR_STEPS,
+                             tcfg, enable_pruning=True, mcfg=mcfg)
     torch.cuda.synchronize()
     secs["par_train_meshless"] = time.perf_counter() - t
-    # the meshless run against itself: K2 and the projection's backward
-    # add gradients with atomics, so two runs part in the last bits from
-    # the second step, and Adam's normalised steps carry that on
+    # the meshless run again from the same state: the same bits (no float
+    # atomics on the step); the limit's noise yardstick is the spread of
+    # PAR_REPEATS runs whose start moved one ulp, up and down
+    st_r, losses_r = run_optim(copy_state(state), gt, w2c, Ks, PAR_STEPS,
+                               tcfg, enable_pruning=True, mcfg=mcfg)
+    same = losses_r == losses1 and same_bits(st_r, st1)
+    del st_r
+    check(same, "[parallel] two meshless runs from one state differ")
+    unmoved = rel_steps(losses_r, losses1)
     spread = np.max([rel_steps(run_optim(
-        copy_state(state), gt, w2c, Ks, PAR_STEPS, tcfg,
+        nudged_state(state, toward), gt, w2c, Ks, PAR_STEPS, tcfg,
         enable_pruning=True, mcfg=mcfg)[1], losses1)
-        for _ in range(PAR_REPEATS)], axis=0)
+        for toward in (np.inf, -np.inf)[:PAR_REPEATS]], axis=0)
     loss_tol = max(PAR_LOSS_RTOL, 2 * float(spread.max()))
+    # the limit as it stood when the yardstick was the unmoved repeats
+    # (what float atomics made them part by), for the record
+    old_tol = max(PAR_LOSS_RTOL, 2 * float(unmoved.max()))
     set_launches(0)
     t = time.perf_counter()
     st_m, losses_m = run_optim(copy_state(state), gt, w2c, Ks, PAR_STEPS,
@@ -2735,18 +2982,26 @@ def parallel_phase(stt, model, views, scene, dev, work_dir):
           f"{secs['par_train_meshless']:.3f} s); losses within "
           f"{rel.max():.3g} relative of the meshless run's (first step "
           f"{rel[0]:.3g}, limit {PAR_FIRST_RTOL}; limit {loss_tol:.3g}: "
-          f"{PAR_LOSS_RTOL} or twice the meshless run's own spread over "
-          f"{PAR_REPEATS} repeats, "
-          f"{spread.max():.3g}), last {losses_m[-1]:.6f}; n_alive "
-          f"{st_m.n_alive}; launches {launches}", flush=True)
-    print(f"[parallel] per step, relative: the meshless repeats against it "
-          f"{np.round(spread, 7).tolist()}; the mesh's against it "
-          f"{np.round(rel, 7).tolist()}", flush=True)
+          f"{PAR_LOSS_RTOL} or twice the meshless run's spread under a "
+          f"one-ulp move of its start, {spread.max():.3g}), last "
+          f"{losses_m[-1]:.6f}; n_alive {st_m.n_alive}; parameters "
+          f"{'equal' if same_bits(st_m, st1) else 'not equal'} bit for bit "
+          f"to the meshless run's; launches {launches}", flush=True)
+    print(f"[parallel] yardsticks: a second meshless run from the same "
+          f"state gives the same bits (largest relative distance "
+          f"{unmoved.max():.3g}: the limit with that yardstick "
+          f"{old_tol:.3g}); the one-ulp runs' spread {spread.max():.3g} "
+          f"(limit {loss_tol:.3g}); world 1's distance {rel.max():.3g}",
+          flush=True)
+    print(f"[parallel] per step, relative: the one-ulp runs against the "
+          f"meshless run {np.round(spread, 7).tolist()}; the mesh's against "
+          f"it {np.round(rel, 7).tolist()}", flush=True)
     check(rel[0] <= PAR_FIRST_RTOL, f"sharded first loss off by {rel[0]}")
     check(rel.max() <= loss_tol, f"sharded losses off by {rel.max()}")
     check(all(bool(torch.isfinite(v).all()) for v in st_m.params.values()),
           "sharded training left non-finite parameters")
-    for name in ("composite_fwd_packed", "composite_bwd_packed"):
+    for name in ("composite_fwd_packed", "composite_bwd_packed",
+                 "gather_rows_bwd"):
         check(launches[name] == PAR_STEPS,
               f"run_optim(mesh=) launched {name} {launches[name]} times")
     check(launches["gather_entries"] == 0,
@@ -2811,12 +3066,14 @@ def parallel_phase(stt, model, views, scene, dev, work_dir):
     print(f"[parallel] world 2: run_optim(mesh=) {PAR_STEPS} steps in "
           f"{o['train_s']:.3f} s (three cameras a rank), losses within "
           f"{rel2.max():.3g} relative of (a)'s meshless run (first step "
-          f"{rel2[0]:.3g}, limit {PAR_FIRST_RTOL}; limit {loss_tol:.3g}); "
-          f"per step {np.round(rel2, 7).tolist()}; launches per rank "
-          f"{o['launches']}", flush=True)
+          f"{rel2[0]:.3g}, limit {PAR_FIRST_RTOL}; limit {loss_tol:.3g}, "
+          f"the one-ulp yardstick; {old_tol:.3g} with the unmoved repeats "
+          f"as the yardstick); per step {np.round(rel2, 7).tolist()}; "
+          f"launches per rank {o['launches']}", flush=True)
     check(rel2[0] <= PAR_FIRST_RTOL, f"world-2 first loss off by {rel2[0]}")
     check(rel2.max() <= loss_tol, f"world-2 losses off by {rel2.max()}")
-    for name in ("composite_fwd_packed", "composite_bwd_packed"):
+    for name in ("composite_fwd_packed", "composite_bwd_packed",
+                 "gather_rows_bwd"):
         check(o["launches"][name] == PAR_STEPS,
               f"rank 0 launched {name} {o['launches'][name]} times")
     check(o["finite"], "world-2 training left non-finite parameters")
@@ -3141,11 +3398,16 @@ def res512_phase(stt, model, dev, work_dir, record=None):
     for name in ("composite_fwd_packed", "composite_bwd_packed"):
         check(train_launches[name] > 0, f"[res512] training did not "
               f"launch {name}")
+    check(train_launches["gather_rows_bwd"]
+          == train_launches["composite_bwd_packed"], "[res512] training "
+          f"launched the row sum {train_launches['gather_rows_bwd']} times, "
+          f"K2 {train_launches['composite_bwd_packed']}")
     check_outputs(scene, orig_t, novel_t, N_VIEWS, RES_HW, N_NOVEL)
     print(f"[res512] after training, mean alpha: original views "
           f"{float(orig_t[1].mean()):.4f}, novel views "
           f"{float(novel_t[1].mean()):.4f}", flush=True)
     stages, wall_ms, busy_ms, host, _ = profile_train_steps(scene)
+    secs["repeat"] = repeat_phase("512 x 384", scene, REPEAT_RES_STEPS)
     print("[res512] train-stages stream ms per step (CUDA events): "
           + " ".join(f"{k}={v:.3f}" for k, v in stages.items())
           + f" total={sum(stages.values()):.3f}; 5 steps under "
@@ -3210,6 +3472,8 @@ def res512_phase(stt, model, dev, work_dir, record=None):
     k2["plain_ms"] = cuda_ms(lambda: packed_bwd_plain_by_camera(
         x, done, g_rgb, g_alpha), reps=3, warmup=1)
     k2["max_abs_err"] = k2_err
+    parts = packed_bwd_parts(x, fwd, g_rgb, g_alpha, "512 x 384")
+    k2["parts"] = {key: v for key, v in parts.items() if key != "row_sum"}
     del fwd, x, g_rgb, g_alpha
 
     g1 = ga_gather_phase({"res512": ga.make_state(*ga_calls[0].args[:3],
@@ -3217,14 +3481,17 @@ def res512_phase(stt, model, dev, work_dir, record=None):
     g1 = g1["res512"]
     kernels = {}
     for name, case in (("composite_fwd", k1), ("composite_bwd", k2),
-                       ("gather_rows_bwd", g1)):
+                       ("gather_rows_bwd", g1),
+                       ("gather_rows_bwd_packed", parts["row_sum"])):
         b_ms, b_by = bound(case["bytes"], case["ops"])
         kernels[name] = {"ms": case["ms"], "bound_ms": b_ms,
                          "bound_by": b_by, "bytes": case["bytes"],
                          "ops": case["ops"],
                          "max_abs_err": case["max_abs_err"],
                          "plain_ms": case.get("plain_ms"),
-                         "library_ms": case.get("library_ms")}
+                         "library_ms": case.get("library_ms"),
+                         **({"parts": case["parts"]} if "parts" in case
+                            else {})}
         print(f"[res512] kernel {name}: {case['ms']:.4f} ms (device_ms), "
               f"bound {b_ms:.4f} ms ({b_by}: {case['bytes']} B, "
               f"{case['ops']} ops), {case['ms'] / b_ms:.1f}x; error "
@@ -3415,6 +3682,10 @@ def main():
           f"{want}")
     for name in ("composite_fwd_packed", "composite_bwd_packed"):
         check(train_launches[name] > 0, f"training did not launch {name}")
+    check(train_launches["gather_rows_bwd"]
+          == train_launches["composite_bwd_packed"], "training launched the "
+          f"row sum {train_launches['gather_rows_bwd']} times, K2 "
+          f"{train_launches['composite_bwd_packed']}")
     check(train_launches["gather_entries"] == 0
           and after_launches["gather_entries"] == 0,
           "training or the renders after it launched the standalone gather")
@@ -3422,6 +3693,8 @@ def main():
     print(f"[render] after training, mean alpha: original views "
           f"{float(orig_t[1].mean()):.4f}, novel views "
           f"{float(novel_t[1].mean()):.4f}", flush=True)
+    repeat_s = repeat_phase("224 px", scene, REPEAT_STEPS, probe=True)
+    print(f"[stages] slice 13: repeat={repeat_s:.3f}s", flush=True)
 
     stages, wall_ms, busy_ms, host, by_kernel = profile_train_steps(scene)
     print("[train-stages] stream ms per step (CUDA events in "
@@ -3442,6 +3715,8 @@ def main():
           f"{real['scfg'].max_tiles_per_gaussian}, max_per_tile "
           f"{real['scfg'].max_per_tile}", flush=True)
     bwd_cases = check_bwd_kernel(real, dev)
+    parts = packed_bwd_parts(real["x"], run_fwd(real["x"], "packed"),
+                             real["g_rgb"], real["g_alpha"], "224 px")
     margin = k2_margin(bwd_cases[1], real["x"], real["g_rgb"],
                        real["g_alpha"])
     for key in ("got", "want", "done"):
@@ -3510,34 +3785,57 @@ def main():
     # path launches. composite_bwd's error is the scaled one its tolerance
     # is stated in: per attribute, max |kernel - plain| over the plain
     # version's largest magnitude (the conic gradients of the trained scene
-    # reach 1e11). The gather's row is the standalone kernel, which the main
-    # path no longer launches. The GA's row-gather backward is not a Pallas
-    # kernel: it replaces the TPU route of the JAX `_gather_rows_bwd`; its
-    # launches are step 2's (the GA's warm-up steps and captures) and its
-    # times the six gather sites' of `[ga-gather]`, summed.
+    # reach 1e11); its ms is the whole packed backward a training step
+    # launches, and `parts` times its pieces: K2 with the zero fill of its
+    # per-slot gradient, the CSR and the row sum. The gather's row is the
+    # standalone kernel, which the main path no longer launches. The
+    # row-gather backward is not a Pallas
+    # kernel. At the GA's site (`gather_rows_bwd`) it replaces the TPU
+    # route of the JAX `_gather_rows_bwd`; its launches are step 2's (the
+    # GA's warm-up steps and captures) and its times the six gather sites'
+    # of `[ga-gather]`, summed. At the packed backward's site
+    # (`gather_rows_bwd_packed`) it sums K2's per-slot gradient into the
+    # table, the JAX `_gather_packed_bwd`; its launches are the training's
+    # (one a K2 launch) and its times `[k2-parts]`'.
+    bwd_cases[0]["parts"] = {k: v for k, v in parts.items()
+                             if k != "row_sum"}
     rows = (("composite_fwd", "composite_fwd_packed",
              "starst3r_tpu/splat/pallas_composite.py:107", fwd_cases[0],
-             max(c["max_abs_err"] for c in fwd_cases), None),
+             max(c["max_abs_err"] for c in fwd_cases), None,
+             train_launches["composite_fwd_packed"],
+             par_launches["composite_fwd_packed"]),
             ("composite_bwd", "composite_bwd_packed",
              "starst3r_tpu/splat/pallas_composite.py:159", bwd_cases[0],
-             max(c["scaled_err"] for c in bwd_cases), None),
+             max(c["scaled_err"] for c in bwd_cases), None,
+             train_launches["composite_bwd_packed"],
+             par_launches["composite_bwd_packed"]),
             ("gather_entries", "gather_entries",
              "tools/probe_mosaic_gather.py:69", gather,
-             gather["max_abs_err"], gather["library_ms"]),
+             gather["max_abs_err"], gather["library_ms"],
+             train_launches["gather_entries"],
+             par_launches["gather_entries"]),
             ("gather_rows_bwd", "gather_rows_bwd",
              "starst3r_tpu/alignment/ga.py:315", gather_rows,
-             gather_rows["max_abs_err"], gather_rows["library_ms"]))
-    main_launches = dict(train_launches, gather_rows_bwd=render_launches[
-        "gather_rows_bwd"])
-    for name, function, replaces, case, err, library_ms in rows:
+             gather_rows["max_abs_err"], gather_rows["library_ms"],
+             render_launches["gather_rows_bwd"], 0),
+            ("gather_rows_bwd_packed", "gather_rows_bwd",
+             "starst3r_tpu/splat/rasterize.py:368", parts["row_sum"],
+             parts["row_sum"]["max_abs_err"],
+             parts["row_sum"]["library_ms"],
+             train_launches["gather_rows_bwd"],
+             par_launches["gather_rows_bwd"]))
+    for (name, function, replaces, case, err, library_ms, launches,
+         launches_parallel) in rows:
         bound_ms, bound_by = bound(case["bytes"], case["ops"])
         walked_ms, _ = bound(case["bytes"], case.get("ops_walked", 0))
         pairs = case.get("pairs", {})
         kernels_line.append({
             "name": name, "route": "cuda",
-            "source": f"starst3r_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": main_launches[function],
-            "launches_parallel": par_launches[function],
+            "source": f"starst3r_tpu_torch/csrc/{function}.cu"
+            if function == "gather_rows_bwd" else
+            f"starst3r_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_parallel": launches_parallel,
             "max_abs_err": err, "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
@@ -3550,7 +3848,8 @@ def main():
             "at_res512": at_res512.get(name),
             **({key: case[key] for key in ("autograd_ms", "gathers",
                                              "at_512px")}
-               if "gathers" in case else {})})
+               if "gathers" in case else {}),
+            **({key: case[key] for key in ("parts", "plan") if key in case})})
         print(f"[kernel] {name} ({function}): {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}"

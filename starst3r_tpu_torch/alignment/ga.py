@@ -30,10 +30,11 @@ phase as a CUDA graph and replayed, the counterpart of the JAX package's
 jitted ``fori_loop`` chunk; a capture that fails raises. The losses' six
 gathers of camera and depth rows (the JAX package's `_gather_rows` sites)
 go through `_gather_rows`, whose backward sums each table row's cotangent
-rows: on the card a kernel written for it (`csrc/gather_rows_bwd.cu`: a
-long row's entries split over a thread-block cluster, a fixed summation
-order and no atomics, so a step gives the same bits every time), on the
-CPU ``index_add_``. Its indices' row order (CSR) is built
+rows (`ops/row_sum.py`): on the card a kernel written for it
+(`csrc/gather_rows_bwd.cu`: a long row's entries split over a
+thread-block cluster, a fixed summation order and no atomics, so a step
+gives the same bits every time), on the CPU ``index_add_``. Its indices'
+row order (CSR) is built
 once a GA call, by `make_state`, outside the captured step. The
 correspondences are float32 and the matmuls run at full float32 (no TF32:
 the GA has no convolutions and CUDA matmuls default to full precision).
@@ -47,7 +48,10 @@ import numpy as np
 import torch
 
 from ..config import GAConfig
-from ..kernels import launch
+# the row sum's helpers: the GA's tests and chip_smoke.py find them here
+from ..ops.row_sum import (_RowsPlan, _gather_csr,  # noqa: F401
+                           _gather_plan, _gather_rows_bwd_in_order,
+                           gather_rows_bwd_cuda)
 from ..utils.checkpoint import tree_prefix_overwrite
 from ..utils.device import resolve_device
 from ..utils.schedules import cosine_schedule, meta_gamma_loss
@@ -248,157 +252,6 @@ def _gather_rows_bwd_plain(idx: torch.Tensor, ct: torch.Tensor,
     """The backward kernel's plain version: d[r] = sum of ct[m] over the
     m with idx[m] == r, (nrows, D). The CPU route and the tests use it."""
     return ct.new_zeros((nrows,) + tuple(ct.shape[1:])).index_add_(0, idx, ct)
-
-
-# the row-gather backward kernel's launch limits (csrc/gather_rows_bwd.cu):
-# threads a block, columns a tile, blocks a cluster (the portable size); a
-# block of fewer than _MIN_THREADS threads takes several short rows. The
-# plan gives each row about mean / _ENTRIES_PER_THREAD threads (the
-# kernel's batch of loads in flight), spread over a cluster only once a
-# row needs more than _CLUSTER_FROM of them (the cluster's syncs cost more
-# than they save on shorter rows)
-_MAX_THREADS, _MIN_THREADS, _MAX_TILE, _MAX_CLUSTER = 1024, 256, 32, 8
-_ENTRIES_PER_THREAD, _CLUSTER_FROM = 8, 64
-
-
-class _RowsPlan(NamedTuple):
-    """The row-gather backward kernel's launch shape: ``vec`` floats a
-    thread loads at once (4 where D is a multiple of 4), ``tile_w``
-    threads across a tile of tile_w * vec columns, ``groups`` threads
-    splitting each row's share of entries (a power of two, combined by a
-    tree), ``rows_per_block`` rows a block and ``cluster`` blocks (a
-    thread-block cluster) splitting each row's entries into consecutive
-    shares."""
-
-    vec: int
-    tile_w: int
-    groups: int
-    rows_per_block: int
-    cluster: int
-
-    @property
-    def threads(self) -> int:
-        return self.tile_w * self.groups * self.rows_per_block
-
-    def grid(self, rows: int, width: int) -> Tuple[int, int]:
-        """(blocks along x: row blocks times the cluster, column tiles)."""
-        cols = width // self.vec
-        return (-(-rows // self.rows_per_block) * self.cluster,
-                -(-cols // self.tile_w))
-
-
-def _next_pow2(v: int) -> int:
-    return 1 << max(v - 1, 0).bit_length()
-
-
-def _gather_plan(entries: int, rows: int, width: int) -> _RowsPlan:
-    """The kernel's launch shape for ``entries`` cotangent rows of
-    ``width`` floats summed into ``rows`` rows, from the shapes alone (so
-    the summation order, and the bits, depend on nothing else)."""
-    vec = 4 if width % 4 == 0 else 1
-    tile_w = max(min(width // vec, _MAX_TILE), 1)
-    mean = max(-(-entries // max(rows, 1)), 1)
-    per_row = _next_pow2(-(-mean // _ENTRIES_PER_THREAD))
-    cluster = min(max(per_row // _CLUSTER_FROM, 1), _MAX_CLUSTER)
-    most = 1 << ((_MAX_THREADS // tile_w).bit_length() - 1)
-    groups = min(per_row // cluster, most)
-    rows_per_block = max(min(_MIN_THREADS // (tile_w * groups), rows), 1)
-    return _RowsPlan(vec, tile_w, groups, rows_per_block, cluster)
-
-
-def _gather_rows_bwd_in_order(ct: torch.Tensor, order: torch.Tensor,
-                              offsets: torch.Tensor) -> torch.Tensor:
-    """The kernel's function with its exact summation order, in plain
-    PyTorch (float32 adds in the same order give the same bits): each
-    row's entries cut into the plan's ``cluster`` consecutive shares, each
-    share's entries g, g + groups, ... summed in turn, a tree over the
-    groups, then the shares in rank order. The card's tests hold the
-    kernel to it bit for bit."""
-    m, width = ct.shape
-    rows = offsets.numel() - 1
-    plan = _gather_plan(m, rows, width)
-    n_rank, groups = plan.cluster, plan.groups
-    off = offsets.long()
-    counts = off[1:] - off[:-1]
-    row = torch.repeat_interleave(torch.arange(rows, device=ct.device),
-                                  counts)
-    pos = torch.arange(m, device=ct.device) - off[row]
-    share = ((counts + n_rank - 1) // n_rank)[row]
-    rank, within = pos // share, pos % share
-    step = within // groups
-    depth = int(step.max()) + 1 if m else 0
-    slot = torch.full((rows, n_rank, groups, depth), m, dtype=torch.long,
-                      device=ct.device)
-    slot[row, rank, within % groups, step] = order.long()
-    padded = torch.cat([ct, ct.new_zeros((1, width))])
-    acc = ct.new_zeros((rows, n_rank, groups, width))
-    for i in range(depth):
-        acc = acc + padded[slot[..., i]]
-    s = groups // 2
-    while s:
-        acc[:, :, :s] = acc[:, :, :s] + acc[:, :, s:2 * s]
-        s //= 2
-    out = acc[:, 0, 0]
-    for q in range(1, n_rank):
-        out = out + acc[:, q, 0]
-    return out
-
-
-def gather_rows_bwd_cuda(ct: torch.Tensor, order: torch.Tensor,
-                         offsets: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA row-sum kernel: d[r] = sum of ct[order[k]] for k in
-    [offsets[r], offsets[r+1]), (R, D) float32, every row written (an
-    empty row is 0), with `_gather_plan`'s launch shape. Checks device,
-    types, shapes and layout."""
-    if not ct.is_cuda:
-        raise ValueError("gather_rows_bwd_cuda needs CUDA tensors")
-    if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
-        raise ValueError("ct must be contiguous float32 (M, D), got "
-                         f"{ct.dtype} {tuple(ct.shape)}")
-    m, width = ct.shape
-    for name, t, n in (("order", order, m), ("offsets", offsets, None)):
-        if t.device != ct.device or t.dtype != torch.int32 or t.dim() != 1 \
-                or not t.is_contiguous() or (n is not None and t.numel() != n):
-            raise ValueError(f"{name} must be contiguous int32 (1-D) on ct's "
-                             f"device, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    rows = offsets.numel() - 1
-    plan = _gather_plan(m, max(rows, 0), width)
-    if rows < 0 or plan.grid(rows, width)[1] > 65535:
-        raise ValueError(f"{rows} rows of width {width}: offsets needs R + 1 "
-                         "entries and the kernel's grid at most 65,535 "
-                         "column tiles")
-    if plan.vec == 4 and ct.data_ptr() % 16:
-        ct = ct.clone()          # the kernel reads float4s: 16-byte aligned
-    d = torch.empty((rows, width), dtype=torch.float32, device=ct.device)
-    with torch.cuda.device(ct.device):
-        launch("gather_rows_bwd_split", ct.data_ptr(), order.data_ptr(),
-               offsets.data_ptr(), d.data_ptr(), rows, width, *plan,
-               torch.cuda.current_stream(ct.device).cuda_stream)
-    gather_rows_bwd_cuda.launches += 1
-    return d
-
-
-# under a CUDA graph this counts the launches Python sees: the warm-up steps
-# and the capture, not the replays
-gather_rows_bwd_cuda.launches = 0
-
-
-def _gather_csr(idx: torch.Tensor, nrows: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The rows of ``idx`` over a table of ``nrows`` rows, as the kernel
-    reads them: (order, offsets), ``order`` (M,) int32 a stable argsort of
-    idx (each row's entries keep their order) and ``offsets`` (nrows + 1,)
-    int32 the cumulative counts, so row r's entries are
-    order[offsets[r]:offsets[r + 1]]."""
-    if idx.numel() >= 2 ** 31:
-        raise ValueError(f"{idx.numel()} entries: the kernel indexes int32")
-    counts = torch.bincount(idx, minlength=nrows)
-    if counts.numel() != nrows:
-        raise ValueError(f"an index reaches past the table's {nrows} rows")
-    offsets = torch.zeros(nrows + 1, dtype=torch.int32, device=idx.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return torch.argsort(idx, stable=True).to(torch.int32), offsets
 
 
 class _GatherRows(torch.autograd.Function):

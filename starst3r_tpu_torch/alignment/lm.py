@@ -8,8 +8,10 @@ gauge) and refined by damped Gauss–Newton: each 3D-3D correspondence
 touches two cameras, so its residual has two 3×8 Jacobian blocks (8
 parameters per camera: quat 4, trans 3, log-focal 1), and the dense
 (8C)² normal matrix is assembled from their per-correspondence outer
-products with index adds. Core depths and principal points stay at their
-GA values.
+products with index adds (`ops/row_sum.py::index_add_rows`: on the card
+the row-sum kernel in a fixed order, so a polish gives the same bits every
+time; on the CPU ``index_add_``). Core depths and principal points stay at
+their GA values.
 
 Everything runs on ``device`` (the card unless "cpu"); the host reads one
 cost per iteration to accept or reject the step. With a ``mesh``
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from ..ops.row_sum import index_add_rows
 from ..utils.device import resolve_device
 from ..utils.se3 import quat_normalize, quat_to_rotmat, rotmat_to_quat
 
@@ -92,19 +95,17 @@ def _normal_eqs(thetas, img1, idx1, img2, idx2, conf, core_pix, pps, depths,
     ar = torch.arange(_NP, device=thetas.device)
     bi = img1[:, None] * _NP + ar                              # (M, 8)
     bj = img2[:, None] * _NP + ar
-    g = torch.zeros(n, dtype=thetas.dtype, device=thetas.device)
-    g.index_add_(0, bi.reshape(-1),
-                 torch.sum(J1 * wr[:, :, None], dim=1).reshape(-1))
-    g.index_add_(0, bj.reshape(-1),
-                 torch.sum(J2 * wr[:, :, None], dim=1).reshape(-1))
-    H = torch.zeros(n * n, dtype=thetas.dtype, device=thetas.device)
+    g = index_add_rows(
+        torch.zeros(n, dtype=thetas.dtype, device=thetas.device),
+        (bi.reshape(-1), torch.sum(J1 * wr[:, :, None], dim=1).reshape(-1)),
+        (bj.reshape(-1), torch.sum(J2 * wr[:, :, None], dim=1).reshape(-1)))
     j12 = _outer(J1, J2, conf)
-    for rows, cols, blk in ((bi, bi, _outer(J1, J1, conf)),
-                            (bj, bj, _outer(J2, J2, conf)),
-                            (bi, bj, j12),
-                            (bj, bi, j12.transpose(1, 2))):
-        flat = rows[:, :, None] * n + cols[:, None, :]
-        H.index_add_(0, flat.reshape(-1), blk.reshape(-1))
+    blocks = ((bi, bi, _outer(J1, J1, conf)), (bj, bj, _outer(J2, J2, conf)),
+              (bi, bj, j12), (bj, bi, j12.transpose(1, 2)))
+    H = index_add_rows(
+        torch.zeros(n * n, dtype=thetas.dtype, device=thetas.device),
+        *(((rows[:, :, None] * n + cols[:, None, :]).reshape(-1),
+           blk.reshape(-1)) for rows, cols, blk in blocks))
     return H.reshape(n, n), g, cost
 
 

@@ -19,11 +19,14 @@ the gauge.
 On the device: tracks stream through a loop over chunks of 2048 (the JAX
 package's `lax.scan` chunks); per chunk the observations' world points and
 3 x 8 Jacobians (`torch.func.vmap` over `jacfwd`), the per-camera segment
-sums of the gradient and of the diagonal blocks (`index_add_`), and the
-Schur correction as 8 x 8 blocks G_ma^T G_mb / wsum_m of every pair of a
-track's observations scattered into the (C, 8, C, 8) system. Every product
-is an elementwise float32 product and sum, so no TF32 matmul rounds it (the
-JAX package runs them at `Precision.HIGHEST`). With a ``mesh`` the tracks
+sums of the gradient and of the diagonal blocks, and the Schur correction
+as 8 x 8 blocks G_ma^T G_mb / wsum_m of every pair of a track's
+observations scattered into the (C, 8, C, 8) system, each with
+`ops/row_sum.py::index_add_rows` (on the card the row-sum kernel in a
+fixed order, so a polish gives the same bits every time; on the CPU
+``index_add_``). Every product is an elementwise float32 product and sum,
+so no TF32 matmul rounds it (the JAX package runs them at
+`Precision.HIGHEST`). With a ``mesh`` the tracks
 are padded to a multiple of the mesh size, split contiguously over its
 first axis (the keyframe-block partitioning) and the partial (S, g, cost)
 summed with an all-reduce, as `lm.py` does with correspondences.
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from ..ops.row_sum import index_add_rows
 from ..utils.device import resolve_device
 from ..utils.se3 import rotmat_to_quat
 from .lm import (gauss_newton, sharded_system, thetas_to_numpy,
@@ -170,11 +174,11 @@ def _reduced_system(thetas, t_cam, t_pt, t_w, core_pix, pps, depths,
         # gradient: w J^T r per observation, summed per camera (r is
         # centred, so the point term vanishes)
         g_obs = torch.sum(J * r[..., None], dim=2) * w[..., None]
-        g.index_add_(0, cam, g_obs.reshape(-1, _NP))
+        index_add_rows(g, (cam, g_obs.reshape(-1, _NP)))
         # diagonal observation term: w J^T J per camera
         jtj = torch.sum(J[..., :, None] * J[..., None, :], dim=2)
-        s_diag.index_add_(0, cam, (jtj * w[..., None, None])
-                          .reshape(-1, _NP, _NP))
+        index_add_rows(s_diag, (cam, (jtj * w[..., None, None])
+                                .reshape(-1, _NP, _NP)))
         # Schur correction: -(w_a J_a)^T (w_b J_b) / wsum for every pair
         # (a, b) of a track's observations, at block (cam_a, cam_b)
         wj = J * (w / torch.sqrt(wsum)[:, None])[..., None, None]
@@ -182,8 +186,8 @@ def _reduced_system(thetas, t_cam, t_pt, t_w, core_pix, pps, depths,
                         * wj[:, None, :, :, None, :], dim=3)  # (Mc,K,K,8,8)
         rows = tc[:, :, None, None, None] * _NP + ar[:, None]  # (Mc,K,1,8,1)
         cols = tc[:, None, :, None, None] * _NP + ar           # (Mc,1,K,1,8)
-        s_corr.index_add_(0, (rows * n + cols).reshape(-1),
-                          -blk.reshape(-1))
+        index_add_rows(s_corr, ((rows * n + cols).reshape(-1),
+                                -blk.reshape(-1)))
     if not with_system:
         return None, None, cost
     S = s_corr.reshape(c, _NP, c, _NP)

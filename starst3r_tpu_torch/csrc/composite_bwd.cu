@@ -46,19 +46,20 @@
 //     the batch adds, per gradient element, the sums of the warps still in
 //     the entry's set (in warp order) and writes the batch's gradients
 //     with coalesced stores. No zero is stored for a warp that did not
-//     contribute. On the entries route one block owns its tile's slots, so
-//     no global atomics; slots the walk does not reach keep the zeros of
-//     the caller's torch.zeros output;
+//     contribute. One block owns its tile's slots, so no global atomics;
+//     slots the walk does not reach keep the zeros of the caller's
+//     torch.zeros output;
 //   - on the rasterizer's route (composite_bwd_packed) the batches are
 //     staged from the projected table through the binning's indices, as
 //     the forward's packed route stages them (composite_common.cuh::
-//     PackedRows), and the epilogue is the entry gather's gradient: each
-//     sum goes straight into its table row with a global reduction add,
-//     for the entries some warp contributed to (~1.6M adds per training
-//     step instead of an index_add_ of every slot's 9 values, most of them
-//     zeros, and no (C*T, K, 9) gradient written, masked and read back).
-//     The order of the adds into a row is not fixed, as index_add_'s is
-//     not on the card;
+//     PackedRows), and the epilogue stores each slot's sums at the slot,
+//     as on the entries route (an entry no warp contributed to keeps the
+//     caller's zero): the same bits as the entries route's gradient. The
+//     caller sums each table row's slots with the row-sum kernel
+//     (gather_rows_bwd.cu) through a CSR of the binning's indices, in a
+//     fixed order, which is the JAX package's scatter-free backward of its
+//     packed gather (rasterize.py::_gather_packed, through Bins.bw_idx):
+//     a training step gives the same bits every time;
 //   - the falloff and the culls come from composite_common.cuh, the same
 //     function the forward calls, so the backward culls exactly the
 //     entries the forward culled.
@@ -71,13 +72,13 @@
 // entries walked and their gradients, the pixel gradients, rgb, T_fin),
 // whichever is larger (chip_smoke.py counts both from the run's data; on
 // the packed route an entry walked reads its 4-byte index and its 36-byte
-// row, and each contributing entry adds its 36 bytes into the table).
+// row, and each contributing entry stores its 36 bytes at its slot).
 //
 // Layouts: entries (C*T, K, 9) float32, or packed (C*N, 9) and gidx
 // (C*T, K) int32; counts, done (C*T,) int32; rgb (C, H, W, 3) the forward's
 // output; tfin (C*T, tile*tile) float32 from the forward; grad_rgb
-// (C, H, W, 3) and grad_alpha (C, H, W) float32 in image layout. Output:
-// grad_entries (C*T, K, 9), or grad_packed (C*N, 9), float32, zero-filled
+// (C, H, W, 3) and grad_alpha (C, H, W) float32 in image layout. Output,
+// on both routes: the per-slot gradient (C*T, K, 9) float32, zero-filled
 // by the caller.
 
 #include <cuda_runtime.h>
@@ -272,21 +273,21 @@ extern "C" int composite_bwd(const float* entries, const int* counts,
 }
 
 // The packed route, the rasterizer's: rows staged from packed (C*N, 9)
-// through gidx (C*T, K) as the forward's packed route stages them, and the
-// entry gather's gradient scattered from the epilogue into grad_packed
-// (C*N, 9), zero-filled by the caller.
+// through gidx (C*T, K) as the forward's packed route stages them, and
+// each slot's gradient stored into grad_slots (C*T, K, 9), zero-filled by
+// the caller, which sums it into the table's rows.
 extern "C" int composite_bwd_packed(const float* packed, const int* gidx,
                                     const int* counts, const int* done,
                                     const float* rgb, const float* tfin,
                                     const float* grad_rgb,
                                     const float* grad_alpha,
-                                    float* grad_packed, int n_tiles, int k,
+                                    float* grad_slots, int n_tiles, int k,
                                     int tile, int tw, int th, int h, int w,
                                     void* stream) {
   PackedRows rows{};
   rows.packed = packed;
   rows.gidx = gidx;
-  rows.grad = grad_packed;
+  rows.grad = grad_slots;
   rows.k = k;
   return launch(rows, counts, done, rgb, tfin, grad_rgb, grad_alpha, n_tiles,
                 k, tile, tw, th, h, w, stream);

@@ -333,15 +333,18 @@ struct EntryRows {
 // thread waits on a global load before it walks: in advance(b), batch b's
 // rows and batch b + 1's indices land (one group, issued a batch earlier),
 // then batch b + 2's indices and batch b + 1's rows are issued as one
-// group. Batch b's indices stay in ring slot b % 3 through the batch, for
-// the backward's epilogue, which adds each sum into its table row.
+// group. The backward's epilogue stores each slot's sums at the slot, as
+// EntryRows' does, into a (C*T, K, 9) per-slot gradient; the caller sums
+// each table row's slots in a fixed order (the row-sum kernel,
+// gather_rows_bwd.cu), so no two blocks ever write one address.
 struct PackedRows {
   static constexpr int kRingWords = 3 * kBatch;
   static constexpr bool kSkipsEmpty = true;
   const float* packed;
   const int* gidx;
-  float* grad;            // the backward's (C*N, 9) output, or null
+  float* grad;            // the backward's (C*T, K, 9) output, or null
   int k;
+  size_t tile;            // the tile's first float in grad
   const int* idx;
   int* ring;
   int count, n_batches;
@@ -361,6 +364,7 @@ struct PackedRows {
     count = count_;
     n_batches = n_batches_;
     ring = ring_;
+    tile = static_cast<size_t>(ct) * k * kAttr;
     idx = gidx + static_cast<size_t>(ct) * k;
     if (n_batches <= 0) return;
     stage_index(0);
@@ -379,7 +383,8 @@ struct PackedRows {
     cp_async_wait<0>();
     __syncthreads();
     // ring slot (b + 2) % 3 held batch b - 1's indices, whose last reader
-    // (the epilogue of b - 1) finished before the barrier above
+    // (the row copies of b - 1, issued in advance(b - 2)) finished before
+    // the barrier above
     if (b + 1 < n_batches) {
       if (b + 2 < n_batches) stage_index(b + 2);
       copy_rows(next, packed, ring + ((b + 1) % 3) * kBatch,
@@ -388,14 +393,13 @@ struct PackedRows {
     }
   }
 
-  // the backward's epilogue: one reduction add (red.global.add.f32, the
-  // result unused) per attribute of an entry some warp contributed to; an
-  // entry with an empty warp set would add an exact zero and is skipped
-  __device__ __forceinline__ void put(int b, int j, int q, int /*i*/,
+  // the backward's epilogue: element i (entry j, attribute q) of batch b's
+  // gradients at its slot, for the entries some warp contributed to; an
+  // entry with an empty warp set keeps the caller's zero, the sum of no
+  // warps that EntryRows stores
+  __device__ __forceinline__ void put(int b, int /*j*/, int /*q*/, int i,
                                       float sum) {
-    atomicAdd(grad + static_cast<size_t>(ring[(b % 3) * kBatch + j]) * kAttr +
-                  q,
-              sum);
+    grad[tile + static_cast<size_t>(b) * kBatch * kAttr + i] = sum;
   }
 };
 

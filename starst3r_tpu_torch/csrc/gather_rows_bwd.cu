@@ -9,7 +9,16 @@
 //   d[r, j] = sum over k in [offsets[r], offsets[r+1]) of ct[order[k], j]
 // with ct (M, D) float32, order (M,) int32 a stable argsort of the gather's
 // index, offsets (R+1,) int32 the cumulative counts of each row, and d
-// (R, D) float32. Every row of d is written; an empty row gets 0.
+// (R, D) float32. Every row of d is written; an empty row gets 0. Entries
+// of order past offsets[R] belong to no row and are never read.
+//
+// It also sums the rasterizer's packed gradient (splat/composite.py::
+// CompositePacked): K2's per-slot gradient, M = C*T*K slots of D = 9, into
+// the R = C*N rows of the projected table, each row's slots in ascending
+// position (at most max_tiles_per_gaussian of them), the slots past each
+// tile's count in the tail of order. That is the JAX package's
+// scatter-free backward of its packed gather (rasterize.py::
+// _gather_packed_bwd, a fixed-length sum through Bins.bw_idx).
 //
 // Bound on this card: bytes. Each cotangent element is read once and each
 // output element written once, plus the row order and the offsets; one add

@@ -31,13 +31,17 @@ package's Pallas `_fwd_kernel`, and `csrc/composite_bwd.cu`, replacing
     tests and chip_smoke.py use it; the rasterizer does not.
   - the packed routes, the rasterizer's: the same kernels with the entry
     gather as their staging (`csrc/composite_common.cuh::PackedRows`), so
-    no (C, T, K, 9) entries or entry gradients are materialised.
-    `composite_packed_cuda` / `composite_packed_bwd_cuda` launch them (the
-    backward adds each entry's gradient into its row of a (C*N, 9) table,
-    zero-filled here) and count their launches in ``.launches``;
-    `composite_packed_bwd_plain` is the backward's yardstick (an
-    ``index_add_`` of `composite_tiles_bwd_plain` into the table);
-    `composite_packed`, the rasterizer's entry, takes the plain chain
+    no (C, T, K, 9) entries are materialised. `composite_packed_cuda` /
+    `composite_packed_slots_cuda` launch them and count their launches in
+    ``.launches``. The backward kernel stores each slot's gradient into a
+    (C*T*K, 9) buffer, zero-filled here, and `composite_packed_bwd_cuda`
+    sums each table row's slots in a fixed order with the row-sum kernel
+    (`ops/row_sum.py::gather_rows_bwd_cuda`) through `packed_csr`, the
+    port's form of the JAX package's ``Bins.bw_idx``: no atomics, so a
+    training step gives the same bits every time. `composite_packed_bwd_plain`
+    is the backward's yardstick (an ``index_add_`` of
+    `composite_tiles_bwd_plain` into the table); `composite_packed`, the
+    rasterizer's entry, takes the plain chain
     ``composite_tiles_plain(gather_entries_plain(...))`` for CPU tensors
     (autograd differentiates it) and `CompositePacked` for CUDA tensors
     (non-finite gradient elements counted in
@@ -59,13 +63,15 @@ import torch
 
 from .gather import gather_entries_plain
 from ..kernels import launch
+from ..ops.row_sum import gather_rows_bwd_cuda, masked_csr
 
 __all__ = ("CompositePacked", "CompositeTiles", "composite_packed",
            "composite_packed_bwd_cuda", "composite_packed_bwd_plain",
-           "composite_packed_cuda", "composite_tiles",
-           "composite_tiles_bwd_cuda", "composite_tiles_bwd_plain",
-           "composite_tiles_cuda", "composite_tiles_plain",
-           "cull_boxes_plain", "done_plain", "slot_valid")
+           "composite_packed_cuda", "composite_packed_slots_cuda",
+           "composite_tiles", "composite_tiles_bwd_cuda",
+           "composite_tiles_bwd_plain", "composite_tiles_cuda",
+           "composite_tiles_plain",
+           "cull_boxes_plain", "done_plain", "packed_csr", "slot_valid")
 
 BATCH = 128     # the kernels' batch of entries (the TPU kernels' chunk)
 
@@ -473,44 +479,79 @@ def composite_packed_bwd_plain(packed: torch.Tensor, gidx: torch.Tensor,
     return out
 
 
+def packed_csr(gidx: torch.Tensor, counts: torch.Tensor, rows: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each table row's slots, as the row-sum kernel reads them: (order
+    (C*T*K,) int32, offsets (rows + 1,) int32), row r's slots
+    order[offsets[r]:offsets[r + 1]] in ascending slot position (the order
+    of the JAX package's ``bw_idx``, its binning's second sort) and the
+    slots at or past each tile's count after offsets[rows]. The port's
+    form of ``Bins.bw_idx``, made from the binning's gidx (C, T, K) and
+    counts (C, T)."""
+    return masked_csr(gidx.reshape(-1),
+                      slot_valid(gidx, counts).reshape(-1), rows)
+
+
+def composite_packed_slots_cuda(packed: torch.Tensor, gidx: torch.Tensor,
+                                counts: torch.Tensor, rgb: torch.Tensor,
+                                tfin: torch.Tensor, done: torch.Tensor,
+                                grad_rgb: torch.Tensor,
+                                grad_alpha: torch.Tensor, h: int, w: int,
+                                tile: int, tw: int, th: int) -> torch.Tensor:
+    """Launch the backward kernel's packed route on the forward's outputs
+    (rgb (C, H, W, 3), tfin (C*T, tile*tile), done (C*T,)) and the pixel
+    gradients grad_rgb (C, H, W, 3), grad_alpha (C, H, W). The kernel
+    stores each processed slot's gradient into a zero-filled (C*T*K, 9)
+    buffer, which is returned: bit for bit the entries route's gradient
+    (`composite_tiles_bwd_cuda`) on the gathered entries."""
+    _check_packed("composite_packed_slots_cuda", packed, gidx, counts, h, w,
+                  tile, tw, th)
+    c, t_total, k = gidx.shape
+    dev = packed.device
+    _check_forward_outputs(dev, c, t_total, rgb, tfin, done, grad_rgb,
+                           grad_alpha, h, w, tile)
+    slots = torch.zeros((c * t_total * k, 9), dtype=torch.float32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        launch("composite_bwd_packed", packed.data_ptr(), gidx.data_ptr(),
+               counts.data_ptr(), done.data_ptr(), rgb.data_ptr(),
+               tfin.data_ptr(), grad_rgb.data_ptr(), grad_alpha.data_ptr(),
+               slots.data_ptr(), c * t_total, k, tile, tw, th, h, w,
+               torch.cuda.current_stream(dev).cuda_stream)
+    composite_packed_slots_cuda.launches += 1
+    return slots
+
+
+composite_packed_slots_cuda.launches = 0
+
+
 def composite_packed_bwd_cuda(packed: torch.Tensor, gidx: torch.Tensor,
                               counts: torch.Tensor, rgb: torch.Tensor,
                               tfin: torch.Tensor, done: torch.Tensor,
                               grad_rgb: torch.Tensor,
                               grad_alpha: torch.Tensor, h: int, w: int,
                               tile: int, tw: int, th: int) -> torch.Tensor:
-    """Launch the backward kernel's packed route on the forward's outputs
-    (rgb (C, H, W, 3), tfin (C*T, tile*tile), done (C*T,)) and the pixel
-    gradients grad_rgb (C, H, W, 3), grad_alpha (C, H, W). Returns
-    grad_packed (C*N, 9): each processed entry's gradient added into the
-    row it came from (in no fixed order)."""
-    _check_packed("composite_packed_bwd_cuda", packed, gidx, counts, h, w,
-                  tile, tw, th)
-    c, t_total, k = gidx.shape
-    dev = packed.device
-    _check_forward_outputs(dev, c, t_total, rgb, tfin, done, grad_rgb,
-                           grad_alpha, h, w, tile)
-    grad = torch.zeros_like(packed)
-    with torch.cuda.device(dev):
-        launch("composite_bwd_packed", packed.data_ptr(), gidx.data_ptr(),
-               counts.data_ptr(), done.data_ptr(), rgb.data_ptr(),
-               tfin.data_ptr(), grad_rgb.data_ptr(), grad_alpha.data_ptr(),
-               grad.data_ptr(), c * t_total, k, tile, tw, th, h, w,
-               torch.cuda.current_stream(dev).cuda_stream)
-    composite_packed_bwd_cuda.launches += 1
-    return grad
-
-
-composite_packed_bwd_cuda.launches = 0
+    """The packed backward: `composite_packed_slots_cuda`'s per-slot
+    gradient summed per table row in a fixed order (`packed_csr`, then the
+    row-sum kernel, `gather_rows_bwd_cuda`). Returns grad_packed (C*N,
+    9)."""
+    slots = composite_packed_slots_cuda(packed, gidx, counts, rgb, tfin,
+                                        done, grad_rgb, grad_alpha, h, w,
+                                        tile, tw, th)
+    return gather_rows_bwd_cuda(slots, *packed_csr(gidx, counts,
+                                                   packed.shape[0]))
 
 
 class CompositePacked(torch.autograd.Function):
     """The rasterizer's compositing on the card with its gradient: the
     forward kernel's packed route, which gathers each entry's row from the
     projected table as it stages it, and the backward kernel's packed
-    route, which walks the same batches again and adds each entry's
-    gradient into its table row. Nothing of size (C, T, K, 9) is saved or
-    made."""
+    route, which walks the same batches again and stores each slot's
+    gradient, summed per table row in a fixed order by the row-sum kernel
+    (`composite_packed_bwd_cuda`). The row order (`packed_csr`) is made
+    here from the saved gidx and counts, so the render-only paths pay
+    nothing for it. Nothing of size (C, T, K, 9) is saved; the slots'
+    (C*T*K, 9) gradient lives through the backward."""
 
     nonfinite = 0
 

@@ -10,10 +10,11 @@ packed (already offset by camera), ent_valid (C, T, K) bool. Returns
 (C, T, K, 9) float32.
 
 The rasterizer does not launch it: on its path the compositing kernels
-stage each entry's row from ``packed`` themselves and their backward adds
-the gradients into ``packed``'s rows (`splat.composite.composite_packed`).
-`rasterize.tile_entries` still gathers here, for `composite_tiles`' callers,
-the tests and chip_smoke.py, which holds the kernel to its plain version.
+stage each entry's row from ``packed`` themselves and their backward's
+per-slot gradient is summed into ``packed``'s rows by the row-sum kernel
+(`splat.composite.composite_packed`). `rasterize.tile_entries` still
+gathers here, for `composite_tiles`' callers, the tests and chip_smoke.py,
+which holds the kernel to its plain version.
 
   - `gather_entries_plain`: ``packed[gidx] * ent_valid[..., None]``; the CPU
     path (autograd differentiates it) and the kernel's yardstick.
@@ -21,12 +22,11 @@ the tests and chip_smoke.py, which holds the kernel to its plain version.
     counts the launch in `gather_entries_cuda.launches`.
   - `gather_entries`: CPU tensors take the plain version; CUDA tensors go
     through `GatherEntries`, a torch.autograd.Function whose forward is the
-    kernel and whose backward is a plain ``index_add_`` of the entries'
-    gradients into a (C*N, 9) zero matrix, whose non-finite elements are
-    counted on the device in ``GatherEntries.nonfinite``. The JAX
-    package's backward (`_gather_packed`'s pre-composed ``bw_idx`` gather)
-    exists only for the TPU's scatter costs and has no TPU kernel, so it is
-    not ported.
+    kernel and whose backward sums each row's valid slots of the entries'
+    gradient in a fixed order (`ops/row_sum.py`: the row-sum kernel
+    through `masked_csr`, the JAX package's ``bw_idx`` backward of
+    `_gather_packed`), with its non-finite elements counted on the device
+    in ``GatherEntries.nonfinite``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import launch
+from ..ops.row_sum import gather_rows_bwd_cuda, masked_csr
 
 __all__ = ("GatherEntries", "gather_entries", "gather_entries_cuda",
            "gather_entries_plain")
@@ -75,8 +76,9 @@ gather_entries_cuda.launches = 0
 
 
 class GatherEntries(torch.autograd.Function):
-    """The CUDA gather with its gradient: ``index_add_`` of the valid
-    slots' gradients into the packed rows they came from."""
+    """The CUDA gather with its gradient: the valid slots' gradients
+    summed into the packed rows they came from, each row's in ascending
+    slot position, by the row-sum kernel."""
 
     nonfinite = 0
 
@@ -89,9 +91,8 @@ class GatherEntries(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         gidx, ent_valid = ctx.saved_tensors
-        g = (grad * ent_valid[..., None]).reshape(-1, 9)
-        out = grad.new_zeros((ctx.rows, 9))
-        out.index_add_(0, gidx.reshape(-1), g)
+        csr = masked_csr(gidx.reshape(-1), ent_valid.reshape(-1), ctx.rows)
+        out = gather_rows_bwd_cuda(grad.reshape(-1, 9).contiguous(), *csr)
         # a 0-dim device tensor once added to: no wait for the card
         GatherEntries.nonfinite += (~torch.isfinite(out)).sum()
         return out, None, None

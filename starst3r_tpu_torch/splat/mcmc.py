@@ -18,7 +18,12 @@ Sampling is split from the math: `sample_targets` draws the categorical
 targets and `add_position_noise` the normal noise from a torch.Generator;
 `relocate_dead` and `add_position_noise` also take ``targets`` / ``eps``
 directly, which is how the tests feed both packages the same draws (a JAX
-key and a torch.Generator give different numbers from one seed).
+key and a torch.Generator give different numbers from one seed). On the
+card the categorical draw runs under PyTorch's deterministic algorithms:
+``torch.multinomial`` draws through a float cumulative sum, and PyTorch's
+default one on the card (a scan whose partial sums meet in no fixed
+order) gives other bits from call to call past a few thousand entries, so
+the same generator state would pick other targets.
 """
 
 from __future__ import annotations
@@ -67,8 +72,19 @@ def sample_targets(opacities: torch.Tensor, live: torch.Tensor, n: int,
     weights = torch.where(live, opacities, torch.zeros_like(opacities))
     if not bool(live.any()):
         return torch.zeros((n,), dtype=torch.long, device=opacities.device)
-    return torch.multinomial(weights, n, replacement=True,
-                             generator=generator)
+    draw = lambda: torch.multinomial(weights, n, replacement=True,
+                                     generator=generator)
+    if not weights.is_cuda:
+        return draw()
+    # on the card under deterministic algorithms (the module docstring says
+    # why), the caller's setting restored after
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return draw()
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
 
 def relocate_dead(params: Dict[str, torch.Tensor],

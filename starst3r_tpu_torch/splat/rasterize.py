@@ -18,10 +18,12 @@ info).
   3. the (tile, slot) -> attributes gather from a packed (C*N, 9) matrix
      and the compositing, in one: `splat.composite.composite_packed`. For
      CUDA tensors the hand-written forward and backward kernels stage each
-     entry's row from the packed matrix through the binning's indices, and
-     the backward adds each entry's gradient straight into its row; no
-     (C, T, K, 9) entries tensor is made. For CPU tensors, plain indexing
-     and the plain compositing, differentiated by autograd.
+     entry's row from the packed matrix through the binning's indices; the
+     backward stores each slot's gradient and the row-sum kernel sums each
+     row's slots in a fixed order (the JAX package's ``bw_idx`` backward),
+     so training repeats bit for bit; no (C, T, K, 9) entries tensor is
+     made. For CPU tensors, plain indexing and the plain compositing,
+     differentiated by autograd.
 
 `tile_entries` stops after the gather (`splat.gather.gather_entries`, the
 standalone gather kernel on the card) and returns the entries, for

@@ -2,9 +2,10 @@
 card: the compositing forward (`composite_fwd.cu`) and backward
 (`composite_bwd.cu`), on both routes (the gathered entries, and the
 rasterizer's packed route, which stages each entry's row through the
-binning's index and scatters the gradient into the table), the entry
-gather (`gather_entries.cu`), and a training step on the card against the
-same step on the CPU. Also the stock-PyTorch stages that must run in full
+binning's index and stores each slot's gradient, which the row-sum kernel
+sums into the table in a fixed order), the entry gather
+(`gather_entries.cu`), and a training step on the card against the same
+step on the CPU. Also the stock-PyTorch stages that must run in full
 float32 on the card: the LM and Schur polish and the GA with spectral
 low-rank depth, each on the card against the same call on the CPU; and the
 scene and model checkpoints, round trips on the card.
@@ -32,9 +33,18 @@ Tolerances:
   - the gather: exact;
   - the packed forward against the entries route on the entries the
     gather gives: bit for bit (the same walk and arithmetic, only the
-    staging differs); the packed backward against ``index_add_`` of the
-    entries route's gradient: 1e-6 of each attribute's largest value (the
-    same per-entry sums, added into the rows in another order);
+    staging differs); the packed backward's per-slot gradient against the
+    entries route's: bit for bit; its table against
+    `_gather_rows_bwd_in_order` of that gradient (the row-sum kernel's
+    order in PyTorch): bit for bit; against ``index_add_`` of the entries
+    route's gradient: 1e-6 of each attribute's largest value (the same
+    per-entry sums, added into the rows in another order);
+  - determinism: two launches of the packed backward, two `run_optim`
+    runs of 30 steps with an MCMC refine from one state, three MCMC
+    categorical draws at a pool's size from one generator state, two
+    builds of the polish's systems and two whole `lm_refine` and
+    `schur_refine` runs give the same bits (no float atomics on these
+    paths);
   - a training step on the card against the CPU: the loss to 1e-4
     relative (other summation orders, and the kernels' own rounding), and
     each parameter's gradient (Adam's first moment after one step, 0.1
@@ -43,8 +53,9 @@ Tolerances:
   - the polish on the card against the CPU, on planted problems (the
     construction of tests/test_lm.py and tests/test_schur.py): the normal
     equations and the Schur system at the perturbed start within 1e-5 of
-    their largest entry (the same products, added with atomics in another
-    order), the cost to 1e-5 relative; the refined poses within 1e-3 of
+    their largest entry (the same products, added in another order: the
+    row-sum kernel's on the card, index_add_'s on the CPU), the cost to
+    1e-5 relative; the refined poses within 1e-3 of
     the CPU's, and the JAX tests' own bounds against the planted poses
     (1e-2 LM, 2e-2 Schur; the cost below 1e-4 of the first). The cost
     sequences are not compared: the damped system's condition number
@@ -90,6 +101,7 @@ import torch
 
 import starst3r_tpu_torch as stt
 from starst3r_tpu_torch.config import SplatConfig
+from starst3r_tpu_torch.ops import row_sum
 from starst3r_tpu_torch.splat import composite as comp
 from starst3r_tpu_torch.splat import gather as gat
 from starst3r_tpu_torch.splat import train as train_mod
@@ -480,7 +492,7 @@ def test_composite_autograd_launches_both_kernels(dev):
     launches = (comp.composite_tiles_cuda.launches,
                 comp.composite_tiles_bwd_cuda.launches,
                 comp.composite_packed_cuda.launches,
-                comp.composite_packed_bwd_cuda.launches,
+                comp.composite_packed_slots_cuda.launches,
                 gat.gather_entries_cuda.launches)
     nonfinite = (int(comp.CompositeTiles.nonfinite),
                  int(comp.CompositePacked.nonfinite))
@@ -492,7 +504,7 @@ def test_composite_autograd_launches_both_kernels(dev):
     assert (comp.composite_tiles_cuda.launches,
             comp.composite_tiles_bwd_cuda.launches,
             comp.composite_packed_cuda.launches,
-            comp.composite_packed_bwd_cuda.launches,
+            comp.composite_packed_slots_cuda.launches,
             gat.gather_entries_cuda.launches) == tuple(
                 x + 1 for x in launches[:4]) + launches[4:]
     assert e.grad.shape == e.shape and bool(torch.isfinite(e.grad).all())
@@ -636,12 +648,12 @@ def test_packed_bwd_matches_index_add_of_entries_route(dev, case):
                                            g_rgb, g_alpha, h, w, tile, tw, th)
     want = torch.zeros_like(packed).index_add_(
         0, gidx.reshape(-1), (grad_e * valid[..., None]).reshape(-1, 9))
-    before = comp.composite_packed_bwd_cuda.launches
+    before = comp.composite_packed_slots_cuda.launches
     got = comp.composite_packed_bwd_cuda(packed, gidx, counts, rgb, tfin,
                                          done, g_rgb, g_alpha, h, w, tile,
                                          tw, th)
     torch.cuda.synchronize()
-    assert comp.composite_packed_bwd_cuda.launches == before + 1
+    assert comp.composite_packed_slots_cuda.launches == before + 1
     _assert_packed_grad(got, want)
     unused = torch.ones(packed.shape[0], dtype=torch.bool, device=dev)
     unused[gidx[valid].long()] = False
@@ -696,7 +708,7 @@ def test_train_step_on_cuda_matches_cpu(dev):
     losses, moments = {}, {}
     launches = (gat.gather_entries_cuda.launches,
                 comp.composite_packed_cuda.launches,
-                comp.composite_packed_bwd_cuda.launches)
+                comp.composite_packed_slots_cuda.launches)
     for d in ("cpu", dev):
         state = train_mod.init_gaussians(pts, cols, cfg, device=d)
         state, loss = train_mod.train_step(state, gt.to(d), w2c.to(d),
@@ -707,7 +719,7 @@ def test_train_step_on_cuda_matches_cpu(dev):
                    for v in state.params.values())
     assert (gat.gather_entries_cuda.launches,
             comp.composite_packed_cuda.launches,
-            comp.composite_packed_bwd_cuda.launches) == (
+            comp.composite_packed_slots_cuda.launches) == (
                 launches[0], launches[1] + 1, launches[2] + 1)
     np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
     for k, want in moments["cpu"].items():
@@ -996,8 +1008,8 @@ def _thetas(cam2w, focals):
 def _assert_system(dev, fn, thetas, data):
     """A normal-equation builder on the card against the CPU at one point:
     the matrix and the gradient within 1e-5 of their largest entries (the
-    same products, summed with atomics in another order), the cost to
-    1e-5 relative."""
+    same products, summed in another order), the cost to 1e-5
+    relative."""
     want = fn(thetas, *_to("cpu", *data))
     got = fn(thetas.to(dev), *_to(dev, *data))
     for g, w in zip(got[:2], want[:2]):
@@ -1369,7 +1381,7 @@ def test_model_checkpoint_round_trip_on_cuda(dev, tmp_path):
 
 def _launches():
     return {"composite_fwd_packed": comp.composite_packed_cuda.launches,
-            "composite_bwd_packed": comp.composite_packed_bwd_cuda.launches}
+            "composite_bwd_packed": comp.composite_packed_slots_cuda.launches}
 
 
 def test_cli_end_to_end_on_cuda(dev, tmp_path):
@@ -1606,3 +1618,198 @@ def test_compilation_cache_builds_a_kernel_there(dev, tmp_path,
     assert any(p.name.startswith("gather_entries_")
                for p in tmp_path.glob("*.so"))
     assert torch.equal(got, gat.gather_entries_plain(packed, gidx, valid))
+
+
+# ---------------------------------------------------------------------------
+# Determinism: K2's packed gradient summed per Gaussian by the row-sum
+# kernel, the polish's normal equations likewise.
+
+def _packed_bwd_inputs(case, dev):
+    """A packed case with the forward's outputs and seeded pixel
+    gradients: (packed, gidx, counts, ent, fwd outputs, g_rgb, g_alpha,
+    geometry)."""
+    packed, gidx, counts, tile, h, w, tw, th = _packed_case(case, dev)
+    ent = gat.gather_entries_plain(packed, gidx,
+                                   comp.slot_valid(gidx, counts))
+    fwd = comp.composite_tiles_cuda(ent, counts, h, w, tile, tw, th)
+    c = counts.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g_rgb = torch.randn((c, h, w, 3), generator=gen, device=dev)
+    g_alpha = torch.randn((c, h, w), generator=gen, device=dev)
+    return (packed, gidx, counts, ent, fwd, g_rgb, g_alpha,
+            (h, w, tile, tw, th))
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_bwd_slots_equal_entries_route(dev, case):
+    """K2's packed route stores each slot's gradient: equal bit for bit to
+    the entries route's grad_entries on the same case (the staging
+    differs, the arithmetic does not); the slots past the counts, and
+    those the walk did not reach, are 0 on both."""
+    packed, gidx, counts, ent, fwd, g_rgb, g_alpha, geo = \
+        _packed_bwd_inputs(case, dev)
+    rgb, _, tfin, done = fwd
+    before = (comp.composite_packed_slots_cuda.launches,
+              row_sum.gather_rows_bwd_cuda.launches)
+    slots = comp.composite_packed_slots_cuda(packed, gidx, counts, rgb, tfin,
+                                             done, g_rgb, g_alpha, *geo)
+    want = comp.composite_tiles_bwd_cuda(ent, counts, rgb, tfin, done,
+                                         g_rgb, g_alpha, *geo)
+    torch.cuda.synchronize()
+    assert (comp.composite_packed_slots_cuda.launches,
+            row_sum.gather_rows_bwd_cuda.launches) == (before[0] + 1,
+                                                    before[1])
+    assert slots.shape == (gidx.numel(), 9)
+    assert torch.equal(slots, want.reshape(-1, 9))
+    assert float(slots.abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_bwd_table_is_the_in_order_row_sum(dev, case):
+    """The packed backward's table is `_gather_rows_bwd_in_order` of its
+    per-slot gradient through `packed_csr`, bit for bit; one row-sum
+    launch a backward; two launches give the same bits."""
+    packed, gidx, counts, ent, fwd, g_rgb, g_alpha, geo = \
+        _packed_bwd_inputs(case, dev)
+    rgb, _, tfin, done = fwd
+    args = (packed, gidx, counts, rgb, tfin, done, g_rgb, g_alpha, *geo)
+    before = (comp.composite_packed_slots_cuda.launches,
+              row_sum.gather_rows_bwd_cuda.launches)
+    got = comp.composite_packed_bwd_cuda(*args)
+    again = comp.composite_packed_bwd_cuda(*args)
+    slots = comp.composite_packed_slots_cuda(*args)
+    torch.cuda.synchronize()
+    assert (comp.composite_packed_slots_cuda.launches,
+            row_sum.gather_rows_bwd_cuda.launches) == (before[0] + 3,
+                                                    before[1] + 2)
+    order, offsets = comp.packed_csr(gidx, counts, packed.shape[0])
+    assert int(offsets[-1]) == int(counts.long().sum())
+    want = row_sum._gather_rows_bwd_in_order(slots, order, offsets)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+def test_gather_entries_backward_is_the_row_sum(dev):
+    """The standalone gather's backward on the card: the valid slots'
+    gradients summed per row in a fixed order, equal to the in-order sum
+    bit for bit and to index_add_ within 1e-6 of the largest value."""
+    packed, gidx, counts, *_ = _packed_case("multichunk", dev)
+    valid = comp.slot_valid(gidx, counts)
+    p = packed.clone().requires_grad_(True)
+    cot = torch.randn(tuple(gidx.shape) + (9,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    before = row_sum.gather_rows_bwd_cuda.launches
+    (got,) = torch.autograd.grad(gat.gather_entries(p, gidx, valid), p, cot)
+    (again,) = torch.autograd.grad(gat.gather_entries(p, gidx, valid), p,
+                                   cot)
+    assert row_sum.gather_rows_bwd_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    want = row_sum._gather_rows_bwd_in_order(
+        cot.reshape(-1, 9), *row_sum.masked_csr(
+            gidx.reshape(-1), valid.reshape(-1), packed.shape[0]))
+    assert torch.equal(got, want)
+    plain = torch.zeros_like(packed).index_add_(
+        0, gidx.reshape(-1), (cot * valid[..., None]).reshape(-1, 9))
+    _assert_packed_grad(got, plain)
+
+
+def _train_case(dev):
+    """A small scene, a pool with headroom and a refine at step 20."""
+    import dataclasses
+    rng = np.random.default_rng(4)
+    n, c = 600, 3
+    pts = rng.normal(size=(n, 3)).astype(np.float32) * 0.5
+    pts[:, 2] += 3.0
+    cols = rng.uniform(size=(n, 3)).astype(np.float32)
+    gt = torch.from_numpy(rng.uniform(size=(c, 48, 64, 3)).astype(
+        np.float32)).to(dev)
+    w2c = torch.eye(4).repeat(c, 1, 1)
+    w2c[:, 0, 3] = torch.tensor([0.0, 0.1, -0.1])
+    K = torch.tensor([[40.0, 0, 32], [0, 40.0, 24], [0, 0, 1]]).repeat(
+        c, 1, 1)
+    cfg = dataclasses.replace(SplatConfig(), mcmc_refine_start=20,
+                              mcmc_refine_every=20)
+    state = train_mod.init_gaussians(pts, cols, cfg, pool_size=2 * n,
+                                     device=dev)
+    return state, gt, w2c.to(dev), K.to(dev), cfg
+
+
+def _copy_state(state):
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    copy = lambda d: {k: v.clone() for k, v in d.items()}
+    return state._replace(
+        params=copy(state.params), generator=gen,
+        opt_state=state.opt_state._replace(mu=copy(state.opt_state.mu),
+                                           nu=copy(state.opt_state.nu)))
+
+
+def test_run_optim_twice_is_bit_for_bit(dev):
+    """Two trainings of 30 steps with one MCMC refine from one state: the
+    same losses and parameters bit for bit; the row sum launched once per
+    packed backward."""
+    state, gt, w2c, K, cfg = _train_case(dev)
+    runs = []
+    for _ in range(2):
+        before = (comp.composite_packed_slots_cuda.launches,
+                  row_sum.gather_rows_bwd_cuda.launches)
+        st, losses = train_mod.run_optim(_copy_state(state), gt, w2c, K, 30,
+                                         cfg, enable_pruning=True)
+        torch.cuda.synchronize()
+        assert (comp.composite_packed_slots_cuda.launches - before[0]
+                == row_sum.gather_rows_bwd_cuda.launches - before[1] == 30)
+        runs.append((st, losses))
+    (a, la), (b, lb) = runs
+    assert a.n_alive == b.n_alive > state.n_alive      # the refine grew it
+    assert la == lb and all(np.isfinite(la))
+    for k, v in a.params.items():
+        assert torch.equal(v, b.params[k]), k
+    for k, v in a.opt_state.nu.items():
+        assert torch.equal(v, b.opt_state.nu[k]), k
+
+
+def test_polish_is_bit_for_bit_on_cuda(dev):
+    """The polish's systems built twice on the card, and whole lm_refine
+    and schur_refine runs twice: the same bits."""
+    from starst3r_tpu_torch.alignment import lm, schur
+    d = _planted_ba(np.random.default_rng(0), c=6, npts=40, window=5)
+    thetas = _thetas(d["noisy"], d["focals"]).to(dev)
+    corr = [d[k] for k in ("img1", "idx1", "img2", "idx2", "conf",
+                           "core_pix", "pps", "depths")]
+    tracks = schur.build_tracks(d["img1"], d["idx1"], d["img2"], d["idx2"],
+                                d["conf"], 6, d["core_pix"].shape[0],
+                                max_obs=8)
+    track_args = [tracks.cam, tracks.pt, tracks.w, d["core_pix"], d["pps"],
+                  d["depths"]]
+    before = row_sum.gather_rows_bwd_cuda.launches
+    for fn, data in ((lm._normal_eqs, corr),
+                     (schur._reduced_system, track_args)):
+        a, b = (fn(thetas, *_to(dev, *data)) for _ in range(2))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), fn.__name__
+    assert row_sum.gather_rows_bwd_cuda.launches > before
+    base = (d["noisy"], d["focals"], d["pps"], d["depths"], d["core_pix"])
+    for run in (lambda: lm.lm_refine(*base, d["img1"], d["idx1"], d["img2"],
+                                     d["idx2"], d["conf"], iters=6,
+                                     device=dev),
+                lambda: schur.schur_refine(*base, tracks, iters=6,
+                                           device=dev)):
+        (c1, f1, k1), (c2, f2, k2) = run(), run()
+        np.testing.assert_array_equal(c1, c2)
+        np.testing.assert_array_equal(f1, f2)
+        assert k1 == k2
+
+
+def test_sample_targets_is_deterministic_on_cuda(dev):
+    """The refine's categorical draw at a pool's size (past the few
+    thousand entries where the card's default float scan starts to give
+    other bits): three draws from one generator state are equal."""
+    from starst3r_tpu_torch.splat.mcmc import sample_targets
+    n = 300_000
+    w = torch.rand(n, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    draws = [sample_targets(w, live, n, torch.Generator(
+        device=dev).manual_seed(1)) for _ in range(3)]
+    assert all(torch.equal(draws[0], d) for d in draws[1:])
+    assert not torch.are_deterministic_algorithms_enabled()

@@ -1,6 +1,7 @@
 """The rasterizer's packed compositing route (`composite_packed`): the entry
-gather folded into the compositing kernels' staging, and its gradient into
-the backward's epilogue. On the CPU the route is the plain chain
+gather folded into the compositing kernels' staging, and its gradient
+into the backward's per-slot store, summed per row by the row-sum kernel
+(tests/test_torch_determinism.py). On the CPU the route is the plain chain
 ``composite_tiles_plain(gather_entries_plain(packed, gidx, k < counts))``;
 these tests hold it to the unfused chain and to the JAX package.
 
@@ -232,7 +233,7 @@ def test_packed_cuda_wrappers_refuse_cpu_tensors():
     gidx = torch.zeros((1, 4, 8), dtype=torch.int32)
     counts = torch.zeros((1, 4), dtype=torch.int32)
     before = (tc.composite_packed_cuda.launches,
-              tc.composite_packed_bwd_cuda.launches)
+              tc.composite_packed_slots_cuda.launches)
     with pytest.raises(ValueError, match="CUDA"):
         tc.composite_packed_cuda(packed, gidx, counts, 32, 32, 16, 2, 2)
     with pytest.raises(ValueError, match="CUDA"):
@@ -244,4 +245,4 @@ def test_packed_cuda_wrappers_refuse_cpu_tensors():
     rgb, alpha = tc.composite_packed(packed, gidx, counts, 32, 32, 16, 2, 2)
     assert rgb.shape == (1, 32, 32, 3) and float(alpha.abs().max()) == 0.0
     assert (tc.composite_packed_cuda.launches,
-            tc.composite_packed_bwd_cuda.launches) == before
+            tc.composite_packed_slots_cuda.launches) == before
