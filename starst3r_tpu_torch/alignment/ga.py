@@ -54,6 +54,7 @@ from ..ops.row_sum import (_RowsPlan, _gather_csr,  # noqa: F401
                            gather_rows_bwd_cuda)
 from ..utils.checkpoint import tree_prefix_overwrite
 from ..utils.device import resolve_device
+from ..utils.profiling import NULL_SPAN, span
 from ..utils.schedules import cosine_schedule, meta_gamma_loss
 from ..utils.se3 import quat_normalize, quat_to_rotmat, se3_inverse
 from .condense import CondensedData
@@ -524,26 +525,30 @@ def _optimize_phase(params: GAParams, state: GAState, niter: int,
     host read each (the JAX package's `_optimize_phase`). On the CPU the
     steps run eagerly; on the card one step is captured and replayed.
     Returns (params, the last finite loss, inf if there was none)."""
-    ph = _Phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg)
+    on_card = params.pps.device.type == "cuda"
     graph = None
-    if ph.device.type == "cuda":
-        with torch.cuda.device(ph.device):
-            graph = _capture(ph)
+    with span("ga/capture") if on_card else NULL_SPAN:
+        ph = _Phase(params, state, niter, lr_base, lr_end, gamma, phase,
+                    cfg)
+        if on_card:
+            with torch.cuda.device(ph.device):
+                graph = _capture(ph)
     chunk = max(int(cfg.jit_chunk), 1)
     loss = float("inf")
     done = 0
     while done < niter:
         n = min(chunk, niter - done)
-        if graph is None:
-            ph.steps(n)
-        else:
-            for _ in range(n):
-                graph.replay()
-            _optimize_phase.replays += n
-        # the chunk's one host read: the last finite loss and the step
-        # counter, which must have advanced by exactly the chunk
-        loss, count = torch.stack([ph.last_loss,
-                                   ph.count.to(torch.float32)]).tolist()
+        with span("ga/chunk"):
+            if graph is None:
+                ph.steps(n)
+            else:
+                for _ in range(n):
+                    graph.replay()
+                _optimize_phase.replays += n
+            # the chunk's one host read: the last finite loss and the step
+            # counter, which must have advanced by exactly the chunk
+            loss, count = torch.stack([ph.last_loss,
+                                       ph.count.to(torch.float32)]).tolist()
         _optimize_phase.host_reads += 1
         done += n
         if int(count) != done:
@@ -588,29 +593,31 @@ def run_global_alignment(
     lora_depth parameterisation. Runs on ``device`` (the card unless
     "cpu")."""
     device = resolve_device(device)
-    state = make_state(data, mst, cfg, freeze, depth_basis=depth_basis,
-                       device=device)
-    params = init_params(data, device=device)
-    if depth_basis is not None:
-        if depth_coeffs is None:
-            raise ValueError("depth_basis requires depth_coeffs")
-        params = params._replace(core_depth=torch.as_tensor(
-            np.asarray(depth_coeffs, np.float32), device=device))
-    if cfg.exp_depth:
-        # log-space depth at init, AFTER the lora substitution
-        params = params._replace(core_depth=torch.log(
-            torch.clamp(params.core_depth, min=1e-4)))
-    if prev_params is not None:
-        if tuple(prev_params.core_depth.shape[1:]) != tuple(
-                params.core_depth.shape[1:]):
-            raise ValueError(
-                "prev_params.core_depth trailing shape "
-                f"{tuple(prev_params.core_depth.shape[1:])} != current "
-                f"{tuple(params.core_depth.shape[1:])}: the previous run used "
-                "another depth parameterisation (lora_depth / lora_k); keep "
-                "the GA depth config fixed across add_images calls")
-        params = GAParams(*tree_prefix_overwrite(tuple(params),
-                                                 tuple(prev_params)))
+    with span("ga/setup"):
+        state = make_state(data, mst, cfg, freeze, depth_basis=depth_basis,
+                           device=device)
+        params = init_params(data, device=device)
+        if depth_basis is not None:
+            if depth_coeffs is None:
+                raise ValueError("depth_basis requires depth_coeffs")
+            params = params._replace(core_depth=torch.as_tensor(
+                np.asarray(depth_coeffs, np.float32), device=device))
+        if cfg.exp_depth:
+            # log-space depth at init, AFTER the lora substitution
+            params = params._replace(core_depth=torch.log(
+                torch.clamp(params.core_depth, min=1e-4)))
+        if prev_params is not None:
+            if tuple(prev_params.core_depth.shape[1:]) != tuple(
+                    params.core_depth.shape[1:]):
+                raise ValueError(
+                    "prev_params.core_depth trailing shape "
+                    f"{tuple(prev_params.core_depth.shape[1:])} != "
+                    f"current {tuple(params.core_depth.shape[1:])}: the "
+                    "previous run used another depth parameterisation "
+                    "(lora_depth / lora_k); keep the GA depth config fixed "
+                    "across add_images calls")
+            params = GAParams(*tree_prefix_overwrite(tuple(params),
+                                                     tuple(prev_params)))
 
     loss1 = float("nan")
     if cfg.niter1:
@@ -620,7 +627,7 @@ def run_global_alignment(
     if cfg.niter2:
         params, loss2 = _optimize_phase(params, state, cfg.niter2, cfg.lr2,
                                         cfg.lr_end, cfg.gamma2, 2, cfg)
-    with torch.no_grad():
+    with torch.no_grad(), span("ga/result"):
         K, w2c, cam2w, depth = make_K_cam_depth(
             params, state, cfg.depth_mode, cfg.shared_intrinsics,
             cfg.exp_depth)

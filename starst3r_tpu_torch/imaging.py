@@ -18,6 +18,8 @@ import numpy as np
 from PIL import Image
 from PIL.ImageOps import exif_transpose
 
+from .utils.profiling import span
+
 __all__ = (
     "make_pair_indices",
     "make_sliding_window_pairs",
@@ -112,12 +114,15 @@ def load_images(paths: Sequence[Union[str, Path]], size: int = 224,
     C++ host runtime (`native.preprocess_batch`), and raises RuntimeError
     when that library cannot be built; "pil" is the pure-Python route;
     "auto" (or None) picks as `image_route` says."""
-    if image_route(impl) == "native":
-        from . import native
-        raws = [np.asarray(exif_transpose(Image.open(p)).convert("RGB"))
+    with span("imaging/load"):
+        if image_route(impl) == "native":
+            from . import native
+            raws = [np.asarray(exif_transpose(Image.open(p)).convert("RGB"))
+                    for p in paths]
+            return native.preprocess_batch(raws, size,
+                                           crop_mult=crop_multiple)
+        return [load_image(p, size, crop_multiple=crop_multiple)
                 for p in paths]
-        return native.preprocess_batch(raws, size, crop_mult=crop_multiple)
-    return [load_image(p, size, crop_multiple=crop_multiple) for p in paths]
 
 
 def image_to_uint8(img: np.ndarray, mean: float = 0.5,

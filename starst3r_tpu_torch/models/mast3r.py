@@ -26,6 +26,7 @@ import torch.nn as nn
 from ..config import ModelConfig
 from ..utils.checkpoint import flatten, rebuild
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..ops.rope import rope_2d_freqs
 from .heads import DownstreamHead, postprocess_pointmap
 from .vit import (DecoderBlock, EncoderBlock, PatchEmbed, decode_interleaved,
@@ -93,21 +94,26 @@ class TwoViewNet(nn.Module):
                                  cfg.rope_base)
         rope_dec = rope_2d_freqs(pos, cfg.dec_dim // cfg.dec_heads,
                                  cfg.rope_base)
-        feats = self.encode(torch.cat([img1, img2], dim=0), rope_enc)
+        with span("net/encode"):
+            feats = self.encode(torch.cat([img1, img2], dim=0), rope_enc)
         f1, f2 = feats[:b], feats[b:]
-        s1, s2 = self.decode(f1, f2, rope_dec)
+        with span("net/decode"):
+            s1, s2 = self.decode(f1, f2, rope_dec)
         k1, k2 = _dpt_hooks(cfg.dec_depth)
         outs = {}
-        for view, f, states, head in (("1", f1, s1, self.downstream_head1),
-                                      ("2", f2, s2, self.downstream_head2)):
-            raw = head.dpt([f, states[k1], states[k2], states[-1]],
-                           hp, wp, h, w)
-            pts, conf = postprocess_pointmap(raw, cfg.pointmap_mode)
-            desc, desc_conf = head.head_local_features(f, states[-1], hp, wp)
-            outs[f"pts{view}"] = pts
-            outs[f"conf{view}"] = conf
-            outs[f"desc{view}"] = desc
-            outs[f"desc_conf{view}"] = desc_conf
+        with span("net/heads"):
+            for view, f, states, head in (
+                    ("1", f1, s1, self.downstream_head1),
+                    ("2", f2, s2, self.downstream_head2)):
+                raw = head.dpt([f, states[k1], states[k2], states[-1]],
+                               hp, wp, h, w)
+                pts, conf = postprocess_pointmap(raw, cfg.pointmap_mode)
+                desc, desc_conf = head.head_local_features(f, states[-1],
+                                                           hp, wp)
+                outs[f"pts{view}"] = pts
+                outs[f"conf{view}"] = conf
+                outs[f"desc{view}"] = desc
+                outs[f"desc_conf{view}"] = desc_conf
         return outs
 
 

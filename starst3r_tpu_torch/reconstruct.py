@@ -45,7 +45,7 @@ from .ops.matching import (PairMatches, match_pair, refine_matches,
                            subsample_grid_indices)
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger, Timer
-from .utils.profiling import trace_if
+from .utils.profiling import span, trace_if
 from .utils.se3 import se3_inverse
 
 __all__ = ("Reconstruction", "reconstruct_scene")
@@ -187,7 +187,7 @@ def reconstruct_scene(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    with timer("matching"):
+    with timer("matching"), span("recon/matching"):
         matches: Dict[Tuple[int, int], PairMatches] = {}
         refined = {} if cfg.matching.anchor_refine else None
         for p in preds:
@@ -200,19 +200,22 @@ def reconstruct_scene(
                 refined[(p.idx1, p.idx2)] = (pix1.cpu().numpy(),
                                              pix2.cpu().numpy())
 
-    with timer("canonical"):
-        views, preds_21 = build_canonical_views(
-            n, preds, subsample=sub, mode=cfg.matching.canonical_mode)
-        scores = np.zeros((n, n))
-        for (i, j), m in matches.items():
-            scores[i, j] = float(np.sum(m.conf * m.mask))
-        mst = max_spanning_tree(scores)
+    # the canonical views and the condensed data, as one span
+    with span("recon/condense"):
+        with timer("canonical"):
+            views, preds_21 = build_canonical_views(
+                n, preds, subsample=sub, mode=cfg.matching.canonical_mode)
+            scores = np.zeros((n, n))
+            for (i, j), m in matches.items():
+                scores[i, j] = float(np.sum(m.conf * m.mask))
+            mst = max_spanning_tree(scores)
 
-    with timer("condense"):
-        data = condense(views, matches, preds_21, (h, w), sub,
-                        cfg.ga.matching_conf_thr,
-                        max_corres_per_pair=cfg.matching.max_corres_per_pair,
-                        refined=refined)
+        with timer("condense"):
+            data = condense(
+                views, matches, preds_21, (h, w), sub,
+                cfg.ga.matching_conf_thr,
+                max_corres_per_pair=cfg.matching.max_corres_per_pair,
+                refined=refined)
 
     depth_basis = depth_coeffs = None
     if cfg.ga.lora_depth:

@@ -41,6 +41,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .composite import composite_packed
 from .gather import gather_entries
 
@@ -274,10 +275,13 @@ def bin_gaussians(means, quats, scales, opacities, sh, viewmats, Ks,
     """Project and tile-bin all cameras, returning only the index structure
     (for `rasterize(..., bins=...)` reuse across training steps)."""
     tw, th = _tile_grid(width, height, tile_size)
-    proj = project_gaussians(means, quats, scales, opacities, sh, viewmats,
-                             Ks, sh_degree)
-    gidx, ent_valid, counts, overflow, n_clip, max_count = _bin_gaussians(
-        proj, tw, th, tile_size, max_tiles_per_gaussian, max_per_tile)
+    with span("raster/project"):
+        proj = project_gaussians(means, quats, scales, opacities, sh,
+                                 viewmats, Ks, sh_degree)
+    with span("raster/binning"):
+        gidx, ent_valid, counts, overflow, n_clip, max_count = \
+            _bin_gaussians(proj, tw, th, tile_size, max_tiles_per_gaussian,
+                           max_per_tile)
     return Bins(gidx, ent_valid, counts.to(torch.int32), overflow, n_clip,
                 max_count)
 
@@ -301,10 +305,11 @@ def _project_and_bin(means, quats, scales, opacities, sh, viewmats, Ks,
     gidx (C, T, K) int32, ent_valid (C, T, K), counts (C, T) int32, info
     dict), all contiguous."""
     tw, th = _tile_grid(width, height, tile_size)
-    proj = project_gaussians(means, quats, scales, opacities, sh, viewmats,
-                             Ks, sh_degree)
+    with span("raster/project"):
+        proj = project_gaussians(means, quats, scales, opacities, sh,
+                                 viewmats, Ks, sh_degree)
     if bins is None:
-        with torch.no_grad():
+        with torch.no_grad(), span("raster/binning"):
             gidx, ent_valid, counts, overflow, n_clip, _ = _bin_gaussians(
                 proj, tw, th, tile_size, max_tiles_per_gaussian,
                 max_per_tile)
@@ -313,7 +318,9 @@ def _project_and_bin(means, quats, scales, opacities, sh, viewmats, Ks,
     info = {"means2d": proj.means2d, "radii": proj.radii,
             "depths": proj.depths, "n_tiles_clipped": n_clip,
             "tile_overflow": overflow, "width": width, "height": height}
-    return (pack_attributes(proj), gidx.contiguous(), ent_valid.contiguous(),
+    with span("raster/pack"):
+        packed = pack_attributes(proj)
+    return (packed, gidx.contiguous(), ent_valid.contiguous(),
             counts.to(torch.int32).contiguous(), info)
 
 
@@ -361,7 +368,8 @@ def rasterize(means, quats, scales, opacities, sh, viewmats, Ks,
     packed, gidx, _, counts, info = _project_and_bin(
         means, quats, scales, opacities, sh, viewmats, Ks, width, height,
         sh_degree, tile_size, max_tiles_per_gaussian, max_per_tile, bins)
-    rgb, alpha = composite_packed(packed, gidx, counts, height, width,
-                                  tile_size, tw, th,
-                                  chunk=min(chunk, max_per_tile))
+    with span("raster/composite"):
+        rgb, alpha = composite_packed(packed, gidx, counts, height, width,
+                                      tile_size, tw, th,
+                                      chunk=min(chunk, max_per_tile))
     return rgb, alpha[..., None], info

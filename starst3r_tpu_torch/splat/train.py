@@ -44,8 +44,9 @@ like the means.
 
 `run_optim` traces its first three steps under `utils.profiling.trace_if` label
 ``splat_optim`` when a trace directory is set; the stages of a step
-(binning, render, loss, backward, adam, mcmc) are torch.profiler ranges
-named ``3dgs/<stage>``, and CUDA events when `stage_events` is a list.
+(binning, render, loss, backward, adam, mcmc) are spans named
+``3dgs/<stage>`` while a profiler records, and CUDA events when
+`stage_events` is a list.
 
 Two faults of the reference are reproduced, not fixed, and the tests name
 them: `init_gaussians` takes the log of ``point_scales`` under the fixed
@@ -62,13 +63,12 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import SplatConfig
 from ..parallel.comm import AllGatherRows, all_gather_rows, all_reduce
 from ..ops.ssim import ssim_per_image
 from ..utils.device import resolve_device
-from ..utils.profiling import trace_if
+from ..utils.profiling import span, trace_if
 from .mcmc import MCMCConfig, add_position_noise, grow_target, relocate_dead
 from .rasterize import Bins, bin_gaussians, max_bbox_area, rasterize
 
@@ -88,9 +88,10 @@ stage_events: Optional[List[Tuple[str, torch.cuda.Event,
 
 @contextlib.contextmanager
 def _stage(name: str):
-    """One stage of a training step: a torch.profiler range named
-    ``3dgs/<name>``, and CUDA events when `stage_events` is a list."""
-    with record_function("3dgs/" + name):
+    """One stage of a training step: the span ``3dgs/<name>``
+    (`utils.profiling.span`), and CUDA events when `stage_events` is a
+    list."""
+    with span("3dgs/" + name):
         if stage_events is None:
             yield
             return
