@@ -65,10 +65,8 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      beside them in turns on the render's and the trained scene's entries;
      and its row-gather backward (its `gather_rows_bwd` export), right
      after step 18, held to this one and timed beside it in turns (parent,
-     new, new, parent) at both of step 18's operating points, in a
-     replayed coarse step, and in whole GAs (the main path's two calls on
-     their recorded arguments, the turntable's, `[ga-512]`'s) with each
-     kernel in the GA's backward;
+     new, new, parent) at both of step 18's operating points (the GA's
+     step on the card no longer launches it);
   9. `[checkpoint]`: Scene.save of the trained scene and Scene.load on the
      card (every array equal bit for bit), 10 training steps on the loaded
      scene (finite losses); save_pretrained of the large model and
@@ -147,15 +145,20 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      phase), and the graph route's poses in the root camera's frame, K and
      depth, each scaled by its largest magnitude, within twice the two
      eager runs' distance from each other (never below 1e-6), as
-     tests/test_torch_cuda.py holds them; then one replayed step's time
-     (CUDA events over 50 replays) and its device-busy time and five
-     costliest kernels (torch.profiler), reported only. Step 2 itself checks that its two
-     GA calls captured 4 steps, replayed 2 x 700 and read the host
-     2 x (10 + 4) times, and that they launched the GA's row-gather
-     backward kernel (`gather_rows_bwd`) as often as the counter can see:
-     in each phase's three warm-up steps and its capture, 8 launches a
-     coarse step and 6 a fine one, none in the replays. Its seconds are
-     on a `[stages] slice 8:` line;
+     tests/test_torch_cuda.py holds them; then the fused loss
+     (`ga_loss_report`: the kernel in each phase against the losses'
+     autograd chain within GA_LOSS_TOL and against its order in PyTorch,
+     two launches bit for bit, its device ms beside its bound and the
+     chain's kernels' device ms), and one replayed coarse step on the fused
+     loss and on the chain (`replay_report`: ms by CUDA events over 50
+     replays, device-busy ms, the kernels one replay launches by the
+     profiler's kernel events) and the fused route's five costliest
+     kernels, reported only. Step 2 itself checks that its two GA calls
+     captured 4 steps, replayed 2 x 700 and read the host 2 x (10 + 4)
+     times, and that they called the fused loss as often as the counter
+     can see, once in each of each phase's three warm-up steps and its
+     capture (16), and launched the row-gather backward never. Its
+     seconds are on a `[stages] slice 8:` line;
  18. `[ga-gather]` (run after step 2, before `[ga-graph]`): the GA's
      row-gather backward kernel against its plain version
      (``index_add_``, summed in float64) on the card, at each of the six
@@ -176,11 +179,13 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      package's 512 px operating point
      (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory: 10
      cameras, 4,096 core points, 368,640 correspondences, GA 50 + 20 at
-     jit_chunk 10): finite poses, the graph route's counts, the row-gather
-     backward's launches (56: each phase's warm-up steps and capture); the
-     GA's seconds, the ATE, one replayed coarse step's time and its five
-     costliest kernels. Its seconds are on the `[stages] slice 10:`
-     line;
+     jit_chunk 10): finite poses, the graph route's counts, the fused
+     loss's calls (8: each phase's warm-up steps and capture) and no
+     row-gather backward launch; the GA's seconds, the ATE, the fused loss
+     and one replayed coarse step as `[ga-graph]` reports them, and the
+     same two reports at the recon cells' condensed shapes (six views of
+     224 x 160 and 512 x 384, tests/torch_ga_scene.py::condensed_case).
+     Its seconds are on the `[stages] slice 10:` line;
  20. `[res512]` (after step 15, on the same model): the main path on 4:3
      photos at the checkpoint's 512 px: six 640 x 480 PNGs of
      make_views' scene through load_images(size=512) on the native route
@@ -195,8 +200,9 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      (192, 256), finite dense points no more than 6 x 512 x 384, finite
      losses whose last RES_WINDOW fall below their first, n_alive within
      the pool and as gsplat's rule says, no non-finite value out of the
-     packed backward, K1 and K2 launched, and the row-gather backward
-     launched 112 times where the counter sees it (as on the main path).
+     packed backward, K1 and K2 launched, and the fused loss called 16
+     times where the counter sees it and the row-gather backward never
+     during the GA (as on the main path).
      Then the packed forward on the renders' inputs against its plain
      version (within ATOL) and equal to the entries route bit for bit;
      the packed backward on the trained scene against its plain version
@@ -368,12 +374,18 @@ BLENDER_POSE_TOL = PAR_GA_TOL
 GRAPH_GA = (100, 50)
 GRAPH_GA_FLOOR = 1e-6
 GA_COUNTERS = ("captures", "replays", "host_reads")
-# the GA's row-gather backward launches in one step: coarse, both endpoints'
-# depth, K and cam2w and the fallback's cam2w and core points; fine, one
-# endpoint's three, the projection and the fallback's two. Under a CUDA
-# graph the counter sees each phase's warm-up steps and capture, not the
-# replays
-GATHER_LAUNCHES = {1: 8, 2: 6}
+# a GA step on the card calls the fused loss (`ga_loss.ga_loss_cuda`: the
+# losses and their gradient, two kernel launches) once, and the row-gather
+# backward never (the losses' gathers are inside the fused loss). Under a
+# CUDA graph the counter sees each phase's warm-up steps and capture, not
+# the replays
+LOSS_CALLS_PER_STEP = 1
+# the fused loss against the autograd chain on the card
+# (tests/test_torch_cuda.py's bound) and against its order in PyTorch
+GA_LOSS_TOL = 1e-4
+GA_LOSS_IN_ORDER_TOL = 1e-6
+# the recon cells' condensed shapes (h, w): six views, 30 pairs
+GA_LOSS_SHAPES = ((160, 224), (384, 512))
 # `[ga-gather]`: the kernel against index_add_ summed in float64 (float32
 # sums of up to tens of thousands of terms)
 GATHER_TOL = 1e-5
@@ -911,10 +923,12 @@ def bound(n_bytes, n_ops):
 
 
 def launch_counters():
-    """{exported kernel function: the wrapper that counts its launches}."""
-    from starst3r_tpu_torch.alignment import ga
+    """{exported kernel function: the wrapper that counts its launches (the
+    fused loss's calls, two kernels each)}."""
+    from starst3r_tpu_torch.alignment import ga, ga_loss
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
-    return {"composite_fwd_packed": comp.composite_packed_cuda,
+    return {"ga_loss": ga_loss.ga_loss_cuda,
+            "composite_fwd_packed": comp.composite_packed_cuda,
             "composite_bwd_packed": comp.composite_packed_slots_cuda,
             "composite_fwd": comp.composite_tiles_cuda,
             "composite_bwd": comp.composite_tiles_bwd_cuda,
@@ -2257,7 +2271,7 @@ def turntable_phase():
           f"turntable: frames {frames.shape}")
     check(float(frames.std()) > 0, "turntable: the frames are uniform")
     for fn in ("composite_fwd_packed", "composite_bwd_packed",
-               "gather_rows_bwd"):
+               "gather_rows_bwd", "ga_loss"):
         check(launches[fn] > 0, f"turntable did not launch {fn}")
     return {"turntable_ga": out["ga_s"], "turntable_3dgs": out["gs_s"]}
 
@@ -2488,12 +2502,12 @@ def ga_errors(a, b, root):
     return out
 
 
-def ga_gather_launches(cfg):
-    """The row-gather backward launches one GA call makes where the
-    counter sees them: each phase's warm-up steps and its capture."""
+def ga_loss_calls(cfg):
+    """The fused loss's calls one GA call makes where the counter sees
+    them: each phase's warm-up steps and its capture."""
     from starst3r_tpu_torch.alignment import ga
-    return sum((ga._WARMUP_STEPS + 1) * GATHER_LAUNCHES[phase]
-               for phase, n in ((1, cfg.niter1), (2, cfg.niter2)) if n)
+    return sum((ga._WARMUP_STEPS + 1) * LOSS_CALLS_PER_STEP
+               for n in (cfg.niter1, cfg.niter2) if n)
 
 
 def gather_sites(state):
@@ -2621,21 +2635,171 @@ def ga_gather_phase(points, dev):
     return totals, {"ga_gather": time.perf_counter() - t0}
 
 
-def replayed_step(data, mst, cfg, dev):
+def replayed_step(data, mst, cfg, dev, fused=True):
     """One replayed coarse step of the GA on ``data``: (ms by CUDA events
     over 50 replays, device-busy ms by torch.profiler or None, {kernel:
-    ms a step}). CUDA events around a loop of replays, not `device_ms`: a
-    replay queues hundreds of kernels, so the spin would fill the launch
-    queue."""
+    ms a step}, the kernels one replay launches by the profiler's kernel
+    events, or None). CUDA events around a loop of replays, not
+    `device_ms`: a replay queues hundreds of kernels, so the spin would
+    fill the launch queue. ``fused=False`` captures the step with the
+    losses' autograd chain in place of the fused loss (the route before
+    it), for comparison."""
     from starst3r_tpu_torch.alignment import ga
     ph = ga._Phase(ga.init_params(data, device=dev),
                    ga.make_state(data, mst, cfg, device=dev), cfg.niter1,
                    cfg.lr1, cfg.lr_end, cfg.gamma1, 1, cfg)
+    if not fused:
+        ph.fused = None
     graph = ga._capture(ph)
     step_ms = cuda_ms(graph.replay, 50)
     busy_ms, by_kernel = profiled_ms(graph.replay, 10)
+    n_kernels = replay_kernels(graph)
     graph.reset()
-    return step_ms, busy_ms, by_kernel
+    return step_ms, busy_ms, by_kernel, n_kernels
+
+
+def replay_kernels(graph, tries=2):
+    """The kernels one replay of ``graph`` launches, counted from
+    torch.profiler's kernel events (copies and sets left out), or None
+    when the trace holds no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if str(ev.device_type).endswith("CUDA")]
+        if events:
+            return sum(ev.count for ev in events
+                       if not ev.key.startswith(("Memcpy", "Memset")))
+    return None
+
+
+def ga_loss_plain(K, cam2w, depth, proj, state, phase, gamma, alpha, cfg):
+    """The losses' autograd chain (`ga._Phase.loss` off the card): the
+    fused loss's plain version."""
+    from starst3r_tpu_torch.alignment import ga
+    ix = state.gathers
+    if phase == 1:
+        main = ga._loss_3d(K, cam2w, depth, state, gamma, alpha, ix)
+    else:
+        main = ga._loss_2d(K, cam2w, depth, proj, state, gamma, alpha, ix)
+    reg = ga._loss_dust3r(ga._core_pts3d(K, cam2w, depth, state), cam2w,
+                          state, cfg.gamma_d, ix)
+    return main + cfg.loss_dust3r_w * reg
+
+
+def ga_loss_report(tag, data, mst, cfg, dev):
+    """The fused loss (`ga_loss.ga_loss_cuda`) on ``data`` at the GA's
+    start, alpha 1, in each phase: the kernel's loss and its gradients
+    (K, cam2w, proj in phase 2, depth) against the autograd chain's with
+    respect to the same tensors (within GA_LOSS_TOL of each gradient's
+    largest magnitude) and against its order in PyTorch on the card
+    (GA_LOSS_IN_ORDER_TOL; bit for bit reported), two launches bit for
+    bit, its device ms (its two launches) beside its bound and the chain's
+    forward and backward kernels. Returns {phase: case}."""
+    import torch
+    from starst3r_tpu_torch.alignment import ga, ga_loss as gl
+    state = ga.make_state(data, mst, cfg, device=dev)
+    K, w2c, cam2w, depth = [t.detach() for t in ga.make_K_cam_depth(
+        ga.init_params(data, device=dev), state, cfg.depth_mode,
+        cfg.shared_intrinsics, cfg.exp_depth)]
+    alpha = torch.ones((), device=dev)
+    out = {}
+    for phase, gamma in ((1, cfg.gamma1), (2, cfg.gamma2)):
+        fused = gl.make_loss_data(state, phase, gamma, cfg.gamma_d,
+                                  cfg.loss_dust3r_w)
+        proj = K @ w2c[:, :3] if phase == 2 else None
+        loss, grads = gl.ga_loss_cuda(K, cam2w, depth, proj, alpha, fused)
+        want_loss, want = gl.ga_loss_in_order(K, cam2w, depth, proj, alpha,
+                                              fused)
+        in_order = max(scaled_err(grads, want),
+                       abs(float(loss) - float(want_loss))
+                       / abs(float(want_loss)))
+        inputs = [K, cam2w, depth] + ([proj] if phase == 2 else [])
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+
+        def plain_fn():
+            return ga_loss_plain(*leaves[:3], leaves[3] if phase == 2
+                                 else None, state, phase, gamma, alpha, cfg)
+
+        def plain_grads():
+            return torch.autograd.grad(plain_fn(), leaves)
+
+        views = gl._views(grads, gl._grad_layout(*fused.dims[:2], phase))
+        errs = [scaled_err(views[name], g) for name, g in zip(
+            ("K", "cam2w", "depth", "proj"), plain_grads())]
+        plain_loss = float(plain_fn())
+        errs.append(abs(float(loss) - plain_loss) / abs(plain_loss))
+        kernel_ms = device_ms(lambda: gl.ga_loss_cuda(
+            K, cam2w, depth, proj, alpha, fused), reps=50)
+        # the chain's hundreds of small launches: its kernels' device time
+        # summed by the profiler (`device_ms`'s spin does not hold a queue
+        # of them at the 512 px point)
+        plain_ms, _ = profiled_ms(plain_grads, 5)
+        c, s, m, p = fused.dims
+        fallback = bool(fused.floats()["scal"][2] > 0)
+        cams = c * (25 + (12 if phase == 2 else 0))
+        # each input byte read once: a correspondence's two cameras, two
+        # depth rows (int32), two pixels, two depth offsets and its weight;
+        # the depth and camera tables; the fallback's targets, weights and
+        # core pixels where it has weight; the gradient and the loss
+        n_bytes = (44 * m + 4 * c * s + 4 * cams
+                   + (16 * p * s + 8 * s if fallback else 0)
+                   + 4 * (cams + c * s) + 4)
+        # float32 operations, counted from the kernel's arithmetic: about
+        # 90 a correspondence and side (both endpoints or the projection,
+        # the distance, the gradient), 60 a (pair, point) of the fallback
+        n_ops = 2 * 90 * m + (60 * p * s if fallback else 0)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        out[phase] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": None, "bytes": n_bytes, "ops": n_ops,
+                      "bound_ms": bound_ms, "max_abs_err": max(errs),
+                      "in_order_err": in_order,
+                      "in_order_equal": bool(torch.equal(grads, want)
+                                             and torch.equal(loss,
+                                                             want_loss)),
+                      "plan": fused.plan._asdict(), "dims": fused.dims,
+                      "fallback": fallback}
+        print(f"{tag} fused loss, phase {phase} (C, S, M, P) = "
+              f"{fused.dims}, fallback {'on' if fallback else 'off'}, plan "
+              f"{tuple(fused.plan)}: kernel {kernel_ms:.4f} ms a step, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes} B, {n_ops} "
+              f"ops; {kernel_ms / bound_ms:.1f}x), the autograd chain's "
+              f"forward and backward "
+              + (f"{plain_ms:.4f} ms of kernels" if plain_ms else
+                 "not measured") + "; against the chain: "
+              f"K, cam2w, depth, (proj,) loss {[f'{e:.3g}' for e in errs]} "
+              f"(limit {GA_LOSS_TOL}); against its order in PyTorch "
+              f"{in_order:.3g} (limit {GA_LOSS_IN_ORDER_TOL}), bit for bit "
+              f"{out[phase]['in_order_equal']}", flush=True)
+        check(max(errs) <= GA_LOSS_TOL, f"{tag} the fused loss, phase "
+              f"{phase}, off the autograd chain's by {max(errs)}")
+        check(in_order <= GA_LOSS_IN_ORDER_TOL, f"{tag} the fused loss, "
+              f"phase {phase}, off its order in PyTorch by {in_order}")
+        again = gl.ga_loss_cuda(K, cam2w, depth, proj, alpha, fused)
+        check(torch.equal(again[0], loss) and torch.equal(again[1], grads),
+              f"{tag} two launches of the fused loss differ")
+    return out
+
+
+def replay_report(tag, data, mst, cfg, dev):
+    """One replayed coarse step on the fused loss and on the autograd chain
+    (the route before it): ms a step, device-busy ms and the kernels one
+    replay launches. Returns the fused route's (ms, busy, {kernel: ms})."""
+    fused = replayed_step(data, mst, cfg, dev)
+    plain = replayed_step(data, mst, cfg, dev, fused=False)
+    for name, (step_ms, busy_ms, by_kernel, n) in (("fused loss", fused),
+                                                   ("autograd chain",
+                                                    plain)):
+        print(f"{tag} a replayed coarse step, {name}: {step_ms:.4f} ms "
+              f"(CUDA events over 50 replays); torch.profiler: "
+              + (f"{busy_ms:.4f} ms device busy, {len(by_kernel)} kernel "
+                 f"names, {n} kernels launched in one replay" if busy_ms
+                 else "no device events (not measured)"), flush=True)
+    return fused[:3]
 
 
 def ga512_phase(dev):
@@ -2651,13 +2815,15 @@ def ga512_phase(dev):
     from starst3r_tpu_torch.utils.eval import ate_rmse
     data, mst, gt, cfg = ga512_inputs()
     set_ga_counts(0)
-    before = ga.gather_rows_bwd_cuda.launches
+    before = read_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
     res, _ = ga.run_global_alignment(data, mst, cfg, device=dev)
     pred = res.cam2w.cpu().numpy()
     secs = time.perf_counter() - t
-    launches = ga.gather_rows_bwd_cuda.launches - before
+    after = read_launches()
+    launches, g1 = (after[k] - before[k] for k in ("ga_loss",
+                                                   "gather_rows_bwd"))
     counts = read_ga_counts()
     ate, scale = ate_rmse(pred, gt), traj_scale(gt)
     want = {"captures": 2, "replays": cfg.niter1 + cfg.niter2,
@@ -2667,24 +2833,29 @@ def ga512_phase(dev):
           f"{data.core_pix.shape[0]} core points, GA {cfg.niter1} + "
           f"{cfg.niter2}, jit_chunk {cfg.jit_chunk}: {secs:.3f} s; losses "
           f"({res.loss_coarse}, {res.loss_fine}); ATE {ate:.6g} = "
-          f"{ate / scale:.6g} x the trajectory scale; gather_rows_bwd "
-          f"launches {launches} (want {ga_gather_launches(cfg)}); counts "
-          f"{counts} (want {want})", flush=True)
+          f"{ate / scale:.6g} x the trajectory scale; fused loss calls "
+          f"{launches} (want {ga_loss_calls(cfg)}), gather_rows_bwd "
+          f"launches {g1} (want 0); counts {counts} (want {want})",
+          flush=True)
     check(np.isfinite(pred).all(), "[ga-512] poses not finite")
     check(counts == want, f"[ga-512] counts {counts}, want {want}")
-    check(launches == ga_gather_launches(cfg),
-          f"[ga-512] {launches} row-gather backward launches, want "
-          f"{ga_gather_launches(cfg)}")
-    step_ms, busy_ms, by_kernel = replayed_step(data, mst, cfg, dev)
-    g1 = sum(v for k, v in by_kernel.items() if "gather_rows_bwd" in k)
-    print(f"[ga-512] a replayed coarse step: {step_ms:.4f} ms (CUDA events "
-          f"over 50 replays); torch.profiler: "
-          + (f"{busy_ms:.4f} ms device busy, {len(by_kernel)} kernel "
-             f"names, gather_rows_bwd {g1:.4f} ms a step" if busy_ms else
-             "no device events (not measured)"), flush=True)
+    check(launches == ga_loss_calls(cfg) and g1 == 0,
+          f"[ga-512] {launches} fused loss calls and {g1} row-gather "
+          f"backward launches, want {ga_loss_calls(cfg)} and 0")
+    ga_loss_report("[ga-512]", data, mst, cfg, dev)
+    _, _, by_kernel = replay_report("[ga-512]", data, mst, cfg, dev)
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
         print(f"[ga-512]   {ms:8.4f} ms/step  {name[:100]}", flush=True)
-    return {"ga_512": secs}
+    # the recon cells' condensed shapes: six views, 30 pairs, S
+    # correspondences a pair (tests/torch_ga_scene.py::condensed_case)
+    from torch_ga_scene import condensed_case
+    shapes = {}
+    for h, w in GA_LOSS_SHAPES:
+        c_data, c_mst = condensed_case(h, w)
+        shapes[f"{w}x{h}"] = ga_loss_report(f"[ga-512] {w}x{h} views:",
+                                            c_data, c_mst, cfg, dev)
+        replay_report(f"[ga-512] {w}x{h} views:", c_data, c_mst, cfg, dev)
+    return {"ga_512": secs}, shapes
 
 
 def parent_rows_bwd(parent_csrc):
@@ -2714,17 +2885,15 @@ def parent_rows_bwd(parent_csrc):
     return run
 
 
-def ga_side_by_side(parent_csrc, points, ga_calls, dev):
+def ga_side_by_side(parent_csrc, points, dev):
     """The parent's row-gather backward (built from ``parent_csrc``) and
     this one in one process, in turns (parent, new, new, parent): each
     gather site at both operating points (the outputs within GATHER_TOL
-    of each other: two summation orders), one replayed coarse step, and
-    whole GAs (the main path's two calls on their recorded arguments, the
-    turntable's GA, `[ga-512]`'s) with each kernel in the GA's backward."""
+    of each other: two summation orders). The GA's step on the card no
+    longer launches it (the fused loss holds the gathers), so only the
+    sites are compared."""
     import torch
     from starst3r_tpu_torch.alignment import ga
-    from starst3r_tpu_torch.config import GAConfig
-    from starst3r_tpu_torch.utils.synthetic import synthetic_image_scene
     parent = parent_rows_bwd(parent_csrc)
     if parent is None:
         print("[side-by-side] the parent's source has no gather_rows_bwd: "
@@ -2756,35 +2925,6 @@ def ga_side_by_side(parent_csrc, points, ga_calls, dev):
               f"summed: parent {sums['parent']:.4f} ms, new "
               f"{sums['new']:.4f} ms", flush=True)
 
-    tt = synthetic_image_scene(n_cams=8, hw=128, subsample=2, spread=0.25,
-                               focal=180.0)
-    data512, mst512, _, cfg512 = ga512_inputs()
-    gas = [(f"main call {i + 1}", args, kw)
-           for i, (args, kw, _) in enumerate(ga_calls)]
-    gas += [("turntable", (tt[0], tt[1], GAConfig(niter1=500, niter2=200,
-                                                  lr2=0.004)), {}),
-            ("512px", (data512, mst512, cfg512), {})]
-    steps = {"main": ga_calls[0][0], "512px": (data512, mst512, cfg512)}
-    for side in turns:
-        ga.gather_rows_bwd_cuda = routes[side]
-        try:
-            for name, (data, mst, cfg) in steps.items():
-                step_ms, busy_ms, _ = replayed_step(data, mst, cfg, dev)
-                print(f"[side-by-side] {side}: a replayed coarse step, "
-                      f"{name}: {step_ms:.4f} ms (CUDA events), device busy"
-                      f" {busy_ms if busy_ms is None else round(busy_ms, 4)}"
-                      " ms", flush=True)
-            for name, args, kw in gas:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                res, _ = ga.run_global_alignment(
-                    *args, **dict(kw, device=dev))
-                torch.cuda.synchronize()
-                print(f"[side-by-side] {side}: GA {name} "
-                      f"{time.perf_counter() - t:.3f} s, losses "
-                      f"({res.loss_coarse}, {res.loss_fine})", flush=True)
-        finally:
-            ga.gather_rows_bwd_cuda = routes["new"]
     check(parent.launches > 0, "[side-by-side] the parent's row-gather "
           "backward was never launched")
 
@@ -2854,18 +2994,16 @@ def ga_graph_phase(call, dev):
         check(err <= tol, f"[ga-graph] {name} off the eager step's by "
               f"{err} (limit {tol})")
 
-    # one replayed coarse step's time and its kernels, on a phase captured
-    # from the same data at the GA's start (reported, not checked); where
-    # the profiler's device-busy time matches it, the step is device-bound
-    step_ms, busy_ms, by_kernel = replayed_step(data, mst, cfg, dev)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
-    print(f"[ga-graph] a replayed coarse step: {step_ms:.4f} ms (CUDA "
-          f"events over 50 replays); torch.profiler: "
-          + (f"{busy_ms:.4f} ms device busy, {len(by_kernel)} kernel names"
-             if busy_ms else "no device events (not measured)"), flush=True)
-    for name, ms in top:
+    # the fused loss at this data (checked against the autograd chain);
+    # one replayed coarse step's time, its kernels and its launches, on the
+    # fused loss and on the chain, on a phase captured from the same data
+    # at the GA's start (reported, not checked); where the profiler's
+    # device-busy time matches it, the step is device-bound
+    loss_cases = ga_loss_report("[ga-graph]", data, mst, cfg, dev)
+    _, _, by_kernel = replay_report("[ga-graph]", data, mst, cfg, dev)
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
         print(f"[ga-graph]   {ms:8.4f} ms/step  {name[:100]}", flush=True)
-    return {"ga_graph": sum(graph_s), "ga_eager": sum(eager_s)}
+    return {"ga_graph": sum(graph_s), "ga_eager": sum(eager_s)}, loss_cases
 
 
 def parallel_phase(stt, model, views, scene, dev, work_dir):
@@ -3319,7 +3457,7 @@ def res512_phase(stt, model, dev, work_dir, record=None):
     swapped = np.linalg.norm(pp - [h / 2, w / 2], axis=-1)
     n_pts = int(scene.dense_pts_flat.shape[0])
     ga_cfg = ga_calls[0].args[2]
-    want_g1 = len(ga_calls) * ga_gather_launches(ga_cfg)
+    want_loss = len(ga_calls) * ga_loss_calls(ga_cfg)
     g1_launches = path_launches["gather_rows_bwd"]
     print(f"[res512] {N_VIEWS} photos of {RES_PHOTO_HW[1]} x "
           f"{RES_PHOTO_HW[0]} -> load_images(size={RES_SIZE}) "
@@ -3328,8 +3466,9 @@ def res512_phase(stt, model, dev, work_dir, record=None):
           f"({w / 2}, {h / 2}) {np.round(near, 2).tolist()}, to the swap "
           f"({h / 2}, {w / 2}) {np.round(swapped, 2).tolist()}); focals "
           f"{np.round(K[:, 0, 0], 2).tolist()}; dense points {n_pts} (at "
-          f"most {N_VIEWS * h * w}); row-gather backward launches "
-          f"{g1_launches} (want {want_g1})", flush=True)
+          f"most {N_VIEWS * h * w}); fused loss calls "
+          f"{path_launches['ga_loss']} (want {want_loss}), row-gather "
+          f"backward launches {g1_launches} (want 0)", flush=True)
     check(len(ga_calls) == 2, f"[res512] {len(ga_calls)} GA calls")
     check(bool((near < swapped).all()), "[res512] a principal point is "
           "nearer the swapped image centre")
@@ -3337,8 +3476,10 @@ def res512_phase(stt, model, dev, work_dir, record=None):
           and bool(np.isfinite(scene.dense_pts_flat).all()),
           f"[res512] dense points: {n_pts}, finite "
           f"{np.isfinite(scene.dense_pts_flat).all()}")
-    check(g1_launches == want_g1 == 112, f"[res512] the GA launched "
-          f"gather_rows_bwd {g1_launches} times, want {want_g1} (112)")
+    check(g1_launches == 0 and path_launches["ga_loss"] == want_loss == 16,
+          f"[res512] the GA launched gather_rows_bwd {g1_launches} times "
+          f"and called the fused loss {path_launches['ga_loss']} times, "
+          f"want 0 and {want_loss} (16)")
 
     cfg = scene.config.splat
     pool = int(scene.gs_state.params["means"].shape[0])
@@ -3614,13 +3755,16 @@ def main():
           flush=True)
     check(len(ga_calls) == 2, f"{len(ga_calls)} GA calls on the main path")
     check(ga_counts == want, f"main-path GA counts {ga_counts}, want {want}")
-    want = len(ga_calls) * ga_gather_launches(ga_cfg)
-    print(f"[ga] row-gather backward launches over both: "
-          f"{render_launches['gather_rows_bwd']} (want {want}: the warm-up "
-          "steps and captures; the replays launch it unseen)", flush=True)
-    check(render_launches["gather_rows_bwd"] == want,
-          f"the GA launched gather_rows_bwd "
-          f"{render_launches['gather_rows_bwd']} times, want {want}")
+    want = len(ga_calls) * ga_loss_calls(ga_cfg)
+    print(f"[ga] fused loss calls over both: {render_launches['ga_loss']} "
+          f"(want {want}: the warm-up steps and captures; the replays "
+          f"launch it unseen); row-gather backward launches "
+          f"{render_launches['gather_rows_bwd']} (want 0)", flush=True)
+    check(render_launches["ga_loss"] == want
+          and render_launches["gather_rows_bwd"] == 0,
+          f"the GA called the fused loss {render_launches['ga_loss']} times "
+          f"and launched gather_rows_bwd "
+          f"{render_launches['gather_rows_bwd']} times, want {want} and 0")
     fwd_cases, render_in = check_composite_kernel(stt, scene, dev)
     from starst3r_tpu_torch.alignment import ga
     data, mst, ga_cfg = ga_calls[0].args[:3]
@@ -3633,16 +3777,17 @@ def main():
                                           "bytes", "ops", "gathers")})
     if args.parent_csrc:
         t = time.perf_counter()
-        ga_side_by_side(args.parent_csrc, points, ga_calls, dev)
+        ga_side_by_side(args.parent_csrc, points, dev)
         ten["side_by_side"] = time.perf_counter() - t
     del points
     t = time.perf_counter()
-    eight = ga_graph_phase(ga_calls[0], dev)
+    eight, ga_loss_cases = ga_graph_phase(ga_calls[0], dev)
     eight["slice8"] = time.perf_counter() - t
     print("[stages] slice 8: " + " ".join(f"{k}={v:.3f}s"
                                           for k, v in eight.items()),
           flush=True)
-    ten.update(ga512_phase(dev))
+    secs512, ga_loss_shapes = ga512_phase(dev)
+    ten.update(secs512)
     print("[stages] slice 10: " + " ".join(f"{k}={v:.3f}s"
                                            for k, v in ten.items()),
           flush=True)
@@ -3818,6 +3963,12 @@ def main():
              "starst3r_tpu/alignment/ga.py:315", gather_rows,
              gather_rows["max_abs_err"], gather_rows["library_ms"],
              render_launches["gather_rows_bwd"], 0),
+            ("ga_loss", "ga_loss",
+             "none (the jnp losses of starst3r_tpu/alignment/ga.py:360-417)",
+             dict(ga_loss_cases[1], phase2=ga_loss_cases[2],
+                  at_shapes=ga_loss_shapes),
+             max(c["max_abs_err"] for c in ga_loss_cases.values()), None,
+             render_launches["ga_loss"], par_launches["ga_loss"]),
             ("gather_rows_bwd_packed", "gather_rows_bwd",
              "starst3r_tpu/splat/rasterize.py:368", parts["row_sum"],
              parts["row_sum"]["max_abs_err"],
@@ -3849,7 +4000,8 @@ def main():
             **({key: case[key] for key in ("autograd_ms", "gathers",
                                              "at_512px")}
                if "gathers" in case else {}),
-            **({key: case[key] for key in ("parts", "plan") if key in case})})
+            **({key: case[key] for key in ("parts", "plan", "phase2",
+                                             "at_shapes") if key in case})})
         print(f"[kernel] {name} ({function}): {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}"

@@ -27,15 +27,17 @@ device, and the NaN freeze is a ``where`` that keeps the previous params,
 moments and loss once a loss is non-finite, so no step reads the host. On
 the CPU the steps run eagerly. On the card the step is captured once per
 phase as a CUDA graph and replayed, the counterpart of the JAX package's
-jitted ``fori_loop`` chunk; a capture that fails raises. The losses' six
-gathers of camera and depth rows (the JAX package's `_gather_rows` sites)
-go through `_gather_rows`, whose backward sums each table row's cotangent
-rows (`ops/row_sum.py`): on the card a kernel written for it
-(`csrc/gather_rows_bwd.cu`: a long row's entries split over a
-thread-block cluster, a fixed summation order and no atomics, so a step
-gives the same bits every time), on the CPU ``index_add_``. Its indices'
-row order (CSR) is built
-once a GA call, by `make_state`, outside the captured step. The
+jitted ``fori_loop`` chunk; a capture that fails raises. On the card the
+losses and their gradient with respect to the reparameterisation's
+outputs are one kernel (`ga_loss.GALoss`, `csrc/ga_loss.cu`: a fixed
+summation order and no atomics, so a step gives the same bits every
+time), whose static inputs each phase builds outside the captured step.
+On the CPU the losses are the autograd chain below (the plain version),
+whose six gathers of camera and depth rows (the JAX package's
+`_gather_rows` sites) go through `_gather_rows`, whose backward sums each
+table row's cotangent rows with ``index_add_`` (on the card with
+`csrc/gather_rows_bwd.cu`, `ops/row_sum.py`). The indices' row order
+(CSR) is built once a GA call, by `make_state`, for both. The
 correspondences are float32 and the matmuls run at full float32 (no TF32:
 the GA has no convolutions and CUDA matmuls default to full precision).
 """
@@ -58,6 +60,7 @@ from ..utils.profiling import NULL_SPAN, span
 from ..utils.schedules import cosine_schedule, meta_gamma_loss
 from ..utils.se3 import quat_normalize, quat_to_rotmat, se3_inverse
 from .condense import CondensedData
+from .ga_loss import GALoss, make_loss_data
 
 __all__ = ("GAParams", "GAState", "GAResult", "init_params", "make_state",
            "make_K_cam_depth", "run_global_alignment")
@@ -346,13 +349,13 @@ def _loss_3d(K, cam2w, depth, state: GAState, gamma: float, alpha,
     return loss / torch.clamp(torch.sum(wgt), min=1e-8)
 
 
-def _loss_2d(K, cam2w, depth, w2c, state: GAState, gamma: float, alpha,
+def _loss_2d(K, cam2w, depth, proj, state: GAState, gamma: float, alpha,
              ix: _GatherIndices):
     """2D reprojection loss (reference reconstruct.py:355-369): project the
-    matched point of image 2 into image 1."""
+    matched point of image 2 into image 1 through ``proj`` = K @ w2c[:, :3]
+    (C, 3, 4)."""
     ok = state.pair_matching_ok[state.corr_pair]
     wgt = state.corr_conf * ok * (~state.freeze[state.corr_img1])
-    proj = K @ w2c[:, :3]                              # (C, 3, 4)
     p2 = _endpoint_pts(K, cam2w, depth, ix.img2, ix.depth2, state.corr_pix2,
                        state.corr_doff2)
     pm = _gather_rows(proj.reshape(-1, 12),
@@ -433,6 +436,12 @@ class _Phase:
         self.nu = [torch.zeros_like(p) for p in params]
         dev = params.pps.device
         self.device = dev
+        # on the card the losses and their gradient are one kernel
+        # (`ga_loss.GALoss`), its static inputs built here, outside the
+        # captured step; on the CPU the autograd chain below
+        self.fused = (make_loss_data(state, phase, gamma, cfg.gamma_d,
+                                     cfg.loss_dust3r_w)
+                      if dev.type == "cuda" else None)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
         self.last_loss = torch.full((), float("inf"), dtype=torch.float32,
@@ -447,11 +456,14 @@ class _Phase:
         K, w2c, cam2w, depth = make_K_cam_depth(
             self.params, state, cfg.depth_mode, cfg.shared_intrinsics,
             cfg.exp_depth)
+        proj = K @ w2c[:, :3] if self.phase == 2 else None   # (C, 3, 4)
+        if self.fused is not None:
+            return GALoss.apply(K, cam2w, depth, proj, alpha, self.fused)
         ix = state.gathers
         if self.phase == 1:
             main = _loss_3d(K, cam2w, depth, state, self.gamma, alpha, ix)
         else:
-            main = _loss_2d(K, cam2w, depth, w2c, state, self.gamma, alpha,
+            main = _loss_2d(K, cam2w, depth, proj, state, self.gamma, alpha,
                             ix)
         reg = _loss_dust3r(_core_pts3d(K, cam2w, depth, state), cam2w, state,
                            cfg.gamma_d, ix)

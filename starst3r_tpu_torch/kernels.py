@@ -4,7 +4,8 @@ Each source is compiled on first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -shared`` into `starst3r_tpu_torch/_build/`,
 or the directory `utils.enable_compilation_cache` chose (the file name
 carries a hash of the source and of the shared headers, so an edited
-source builds anew) and loaded with ctypes. Each exports C functions
+source builds anew; `ga_loss.cu` adds ``-fmad=false``) and loaded with
+ctypes. Each exports C functions
 (one named after its file, or ``gather_rows_bwd_split``; the compositing
 sources also a ``_packed`` route) that launch a kernel on the stream
 they are given and return the CUDA error code; `launch` raises on a
@@ -49,7 +50,13 @@ _EXPORTS = {
     # its shape chosen in C), which this revision's source no longer has
     "gather_rows_bwd": {"gather_rows_bwd": [_P] * 4 + [_I] * 3 + [_P],
                         "gather_rows_bwd_split": [_P] * 4 + [_I] * 7 + [_P]},
+    "ga_loss": {"ga_loss": [_P] * 10 + [_I] * 8 + [ctypes.c_float] * 5
+                + [_P]},
 }
+# nvcc flags of one source beyond the common line: the GA's fused loss
+# rounds every product and sum on its own (no contraction into FMAs), as
+# the PyTorch ops of its plain version round them
+_FLAGS = {"ga_loss": ("-fmad=false",)}
 KERNELS = tuple(_EXPORTS)
 _SOURCE_OF = {fn: name for name, fns in _EXPORTS.items() for fn in fns}
 
@@ -69,6 +76,8 @@ def _find_nvcc() -> str:
 
 def _so_path(name: str, csrc: Path = _CSRC) -> Path:
     digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    if name in _FLAGS:
+        digest.update(" ".join(_FLAGS[name]).encode())
     for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     return build_dir() / f"{name}_{digest.hexdigest()[:16]}.so"
@@ -80,7 +89,8 @@ def _compile(name: str, csrc: Path = _CSRC) -> Tuple[float, str]:
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-I", str(csrc), "-o", str(tmp),
+           "-Xptxas", "-v", *_FLAGS.get(name, ()), "-I", str(csrc),
+           "-o", str(tmp),
            str(csrc / f"{name}.cu")]
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)

@@ -74,6 +74,18 @@ Tolerances:
     `_gather_rows_bwd_in_order`, its own summation order in PyTorch; empty
     rows exactly 0; two launches, and a launch replayed in a CUDA graph,
     equal to the eager launch bit for bit;
+  - the GA's fused losses (`csrc/ga_loss.cu`) at four shapes (the 4-camera
+    scene, the 512 px operating point, six views of 224 x 160 and of
+    512 x 384): the loss and the gradients (K, cam2w, proj, depth) against
+    `ga_loss_in_order`, the kernel's order in PyTorch on the card, within
+    1e-6 (relative, and of each gradient's largest magnitude: the same
+    arithmetic, libdevice's powf against PyTorch's pow), and against
+    autograd of the losses' plain chain on the card with respect to the
+    same tensors, the loss to 1e-6 relative and each gradient within 1e-4
+    of its largest magnitude and no farther from the chain in float64 (on
+    the CPU) than twice the float32 chain's distance; two launches, and a
+    launch replayed in a CUDA graph, equal bit for bit; one call a GA step
+    and no row-gather backward launch;
   - the GA's captured step replayed on the card against the same step run
     eagerly on the card, on a small scene and at the JAX package's 512 px
     operating point: poses in the root frame, K, depth and the phase
@@ -1297,13 +1309,14 @@ def _check_graph_against_eager(graph, eager, root):
 
 
 def test_ga_512px_scale_on_cuda(dev, monkeypatch):
+    from starst3r_tpu_torch.alignment.ga_loss import ga_loss_cuda
     """The JAX package's 512 px GA operating point
     (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory: 10 cameras,
     S = 4,096 core points, 368,640 anchored correspondences, GA 50 + 20 at
-    jit_chunk 10) on the card: finite poses, the row-gather backward
-    launched in each phase's warm-up steps and capture (8 a coarse step, 6
-    a fine one) with its long camera rows split over clusters of blocks,
-    and the graph route against the eager steps as above."""
+    jit_chunk 10) on the card: finite poses, the fused loss launched once
+    in each of each phase's warm-up steps and its capture and the
+    row-gather backward never (the losses' gathers are inside the fused
+    loss), and the graph route against the eager steps as above."""
     from starst3r_tpu_torch.alignment import ga
     from starst3r_tpu_torch.utils.synthetic import synthetic_ga_scene
     data, mst, _, _ = synthetic_ga_scene(
@@ -1313,15 +1326,185 @@ def test_ga_512px_scale_on_cuda(dev, monkeypatch):
     m = len(data.corr_idx1)
     assert m == 368_640
     assert ga._gather_plan(m, 10, 16).cluster == 8
-    before = ga.gather_rows_bwd_cuda.launches
+    before = (ga.gather_rows_bwd_cuda.launches, ga_loss_cuda.launches)
     graph, _ = ga.run_global_alignment(data, mst, cfg, device=dev)
-    assert ga.gather_rows_bwd_cuda.launches - before == (
-        ga._WARMUP_STEPS + 1) * (8 + 6)
+    assert (ga.gather_rows_bwd_cuda.launches - before[0],
+            ga_loss_cuda.launches - before[1]) == (
+                0, (ga._WARMUP_STEPS + 1) * 2)
     assert np.isfinite(graph.cam2w.cpu().numpy()).all()
     monkeypatch.setattr(ga, "_optimize_phase", _eager_phase)
     eager = [ga.run_global_alignment(data, mst, cfg, device=dev)[0]
              for _ in range(2)]
     _check_graph_against_eager(graph, eager, mst[0])
+
+
+LOSS_CASES = ("ga_scene", "512px", "224x160", "512x384")
+# the fused loss against its order in PyTorch on the card (the same
+# arithmetic in the same order; the kernel's powf and PyTorch's pow may
+# differ in the last bit), and against the autograd chain on the card: the
+# loss to 1e-6 relative, each gradient within 1e-4 of its largest magnitude
+# (an element of the depth gradient sums a few correspondences, each
+# carrying its forward's float32 rounding through the cancellation in
+# dz = gq_z + a gq_x + b gq_y: the two float32 routes part by 1.2e-5 on six
+# 224 x 160 views in phase 2), and no farther from a float64 evaluation of
+# the chain than twice the float32 chain on the card (never held below
+# 1e-6)
+LOSS_RTOL = 1e-6
+LOSS_IN_ORDER_TOL = 1e-6
+LOSS_GRAD_TOL = 1e-4
+LOSS_F64_FLOOR = 1e-6
+
+
+def _loss_case(name, dev):
+    """(state, cfg, [K, w2c, cam2w, depth], (data, mst)) at a perturbed
+    start of one of
+    the fused loss's shapes: tests/test_torch_ga.py's scene (4 cameras), the
+    JAX package's 512 px operating point (10 cameras, 368,640
+    correspondences; two pairs below the matching threshold), and six views
+    at the benchmark's recon shapes (`torch_ga_scene.condensed_case`)."""
+    from torch_ga_scene import condensed_case, ga_scene
+    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.utils.synthetic import synthetic_ga_scene
+    if name == "ga_scene":
+        data, mst = ga_scene(4)
+    elif name == "512px":
+        data, mst, _, _ = synthetic_ga_scene(
+            n_cams=10, hw=512, focal=720.0, subsample=8, anchored=True,
+            orbit=True, sph_r=1.2, spread=0.2)
+        ok = np.ones_like(data.pair_matching_ok)
+        ok[[3, 40]] = False
+        data = data._replace(pair_matching_ok=ok)
+    else:
+        w, h = map(int, name.split("x"))
+        data, mst = condensed_case(h, w)
+    cfg = stt.GAConfig()
+    state = ga.make_state(data, mst, cfg, device=dev)
+    g = torch.Generator().manual_seed(0)
+    params = ga.GAParams(*[
+        p + 0.05 * torch.randn(p.shape, generator=g).to(dev)
+        for p in ga.init_params(data, device=dev)])
+    return state, cfg, [t.detach() for t in ga.make_K_cam_depth(
+        params, state)], (data, mst)
+
+
+def _loss_data(state, cfg, phase):
+    from starst3r_tpu_torch.alignment import ga_loss as gl
+    return gl.make_loss_data(state, phase,
+                             cfg.gamma1 if phase == 1 else cfg.gamma2,
+                             cfg.gamma_d, cfg.loss_dust3r_w)
+
+
+def _loss_inputs(tensors, phase, dev, alpha=0.7):
+    K, w2c, cam2w, depth = tensors
+    return (K, cam2w, depth, K @ w2c[:, :3] if phase == 2 else None,
+            torch.tensor(alpha, device=dev))
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("case", LOSS_CASES)
+def test_ga_loss_matches_the_plain_chain_on_cuda(dev, case, phase):
+    """The fused loss's kernel: its loss and its four gradients (K, cam2w,
+    depth, proj in phase 2) against `ga_loss_in_order` on the card, and
+    against autograd of the losses' plain chain on the card with respect to
+    the same tensors."""
+    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.alignment import ga_loss as gl
+    state, cfg, tensors, (scene, mst) = _loss_case(case, dev)
+    data = _loss_data(state, cfg, phase)
+    inputs = _loss_inputs(tensors, phase, dev)
+    before = gl.ga_loss_cuda.launches
+    loss, grads = gl.ga_loss_cuda(*inputs, data)
+    torch.cuda.synchronize()
+    assert gl.ga_loss_cuda.launches == before + 1
+    got = gl._views(grads, gl._grad_layout(*data.dims[:2], phase))
+    want_loss, want = gl.ga_loss_in_order(*inputs, data)
+    assert abs(float(loss) - float(want_loss)) <= LOSS_RTOL * abs(
+        float(want_loss))
+    for name, w in gl._views(want, gl._grad_layout(*data.dims[:2],
+                                                     phase)).items():
+        if w.numel():
+            assert bool(torch.isfinite(got[name]).all()), name
+            assert _scaled(got[name].cpu(), w.cpu()) <= \
+                LOSS_IN_ORDER_TOL, name
+
+    def chain(tensors, state, alpha):
+        """The chain's loss and its gradients with respect to tensors."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+        ix = state.gathers
+        if phase == 1:
+            main = ga._loss_3d(*leaves, state, data.gamma, alpha, ix)
+        else:
+            main = ga._loss_2d(*leaves, state, data.gamma, alpha, ix)
+        out = main + cfg.loss_dust3r_w * ga._loss_dust3r(
+            ga._core_pts3d(*leaves[:3], state), leaves[1], state,
+            cfg.gamma_d, ix)
+        return float(out.detach()), torch.autograd.grad(out, leaves)
+
+    names = ("K", "cam2w", "depth", "proj")[:3 + (phase == 2)]
+    tensors = [t for t in inputs[:4] if t is not None]
+    plain_loss, plain = chain(tensors, state, inputs[-1])
+    assert abs(float(loss) - plain_loss) <= LOSS_RTOL * abs(plain_loss)
+    state64 = ga.make_state(scene, mst, cfg, device="cpu")
+    state64 = state64._replace(**{
+        k: v.double() for k, v in state64._asdict().items()
+        if isinstance(v, torch.Tensor) and v.is_floating_point()})
+    _, ref = chain([t.cpu().double() for t in tensors], state64,
+                   inputs[-1].cpu().double())
+    for name, w, r in zip(names, plain, ref):
+        g = got[name].cpu()
+        assert _scaled(g, w.cpu()) <= LOSS_GRAD_TOL, name
+        assert _scaled(g, r) <= max(2 * _scaled(w.cpu(), r),
+                                    LOSS_F64_FLOOR), name
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("case", ["ga_scene", "512px"])
+def test_ga_loss_is_deterministic_and_graph_safe_on_cuda(dev, case, phase):
+    """Two launches on the same inputs, and a launch captured in a CUDA
+    graph and replayed, give the eager launch's loss and gradient bit for
+    bit (no atomics; a fixed summation order)."""
+    from starst3r_tpu_torch.alignment import ga_loss as gl
+    state, cfg, tensors, _ = _loss_case(case, dev)
+    data = _loss_data(state, cfg, phase)
+    inputs = _loss_inputs(tensors, phase, dev)
+    a = gl.ga_loss_cuda(*inputs, data)
+    b = gl.ga_loss_cuda(*inputs, data)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gl.ga_loss_cuda(*inputs, data)
+    out[0].zero_()
+    out[1].zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], a[0]) and torch.equal(out[1], a[1])
+
+
+def test_ga_loss_launches_per_step_on_cuda(dev):
+    """A GA step on the card launches the fused loss once and the
+    row-gather backward never; a capture counts its three warm-up steps
+    and the captured step, its replays nothing."""
+    from torch_ga_scene import ga_scene
+    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.alignment import ga_loss as gl
+    data, mst = ga_scene(4)
+    cfg = stt.GAConfig()
+    state = ga.make_state(data, mst, cfg, device=dev)
+    counts = lambda: (gl.ga_loss_cuda.launches,
+                      ga.gather_rows_bwd_cuda.launches)
+    for phase in (1, 2):
+        ph = ga._Phase(ga.init_params(data, device=dev), state, 20, 0.07,
+                       0.0, 1.1, phase, cfg)
+        before = counts()
+        ph.step()
+        assert counts() == (before[0] + 1, before[1])
+        graph = ga._capture(ph)
+        after = (before[0] + 1 + ga._WARMUP_STEPS + 1, before[1])
+        assert counts() == after
+        graph.replay()
+        torch.cuda.synchronize()
+        assert counts() == after and int(ph.count) == 2
 
 
 def test_scene_checkpoint_round_trip_on_cuda(dev, tmp_path):

@@ -71,3 +71,52 @@ def gather_case(name, c=6, seed=0, m=GATHER_M, s=GATHER_S):
     }[name]
     ct = (3.0 * rng.normal(size=(len(idx), d))).astype(np.float32)
     return r, idx.astype(np.int64), ct
+
+
+def condensed_case(h, w, n_views=6, seed=0, subsample=8):
+    """(CondensedData, mst) at the condensed shape of ``n_views`` h x w
+    views (S = (h / subsample) (w / subsample) core points, every ordered
+    pair, S correspondences a pair with anchored endpoints), from random
+    numbers: median depths 2-5 and core depths within 10% of them (so the
+    reparameterised cameras see every point well in front of them), two
+    pairs below the matching threshold so the fallback is live, an MST
+    chain from camera 0. The shapes of the benchmark's recon cells (224 x
+    160: S = 560; 512 x 384: S = 3,072) for the fused loss's tests."""
+    from starst3r_tpu_torch.alignment.condense import CondensedData
+    rng = np.random.default_rng(seed)
+    c = n_views
+    hs, ws = h // subsample, w // subsample
+    s = hs * ws
+    yy, xx = np.mgrid[0:hs, 0:ws]
+    core_pix = np.stack([xx.reshape(-1), yy.reshape(-1)], -1).astype(
+        np.float32) * subsample + subsample // 2
+    pairs = [(i, j) for i in range(c) for j in range(c) if i != j]
+    p = len(pairs)
+    pair_img1 = np.array([a for a, _ in pairs], np.int32)
+    pair_img2 = np.array([b for _, b in pairs], np.int32)
+    m = p * s
+    corr_pair = np.repeat(np.arange(p), s).astype(np.int32)
+    corr_idx1 = rng.integers(0, s, m).astype(np.int32)
+    corr_idx2 = rng.integers(0, s, m).astype(np.int32)
+    ok = np.ones(p, bool)
+    ok[rng.choice(p, size=2, replace=False)] = False
+    jitter = lambda idx: (core_pix[idx] + rng.uniform(
+        -subsample / 2, subsample / 2, (m, 2))).astype(np.float32)
+    f32 = lambda x: np.asarray(x, np.float32)
+    data = CondensedData(
+        imsizes=f32(np.tile([w, h], (c, 1))),
+        pps=f32(0.5 + rng.uniform(-0.02, 0.02, (c, 2))),
+        base_focals=f32(rng.uniform(0.9, 1.1, c) * max(h, w)),
+        core_depth=f32(rng.uniform(0.9, 1.1, (c, s))),
+        median_depths=f32(rng.uniform(2.0, 5.0, c)),
+        core_pix=core_pix,
+        corr_img1=pair_img1[corr_pair], corr_idx1=corr_idx1,
+        corr_img2=pair_img2[corr_pair], corr_idx2=corr_idx2,
+        corr_conf=f32(rng.uniform(1.0, 3.0, m)), corr_pair=corr_pair,
+        pair_img1=pair_img1, pair_img2=pair_img2, pair_matching_ok=ok,
+        preds21_pts=f32(rng.normal(size=(p, s, 3)) * 0.3 + [0, 0, 3]),
+        preds21_conf=f32(rng.uniform(1.0, 2.0, (p, s))),
+        corr_pix1=jitter(corr_idx1), corr_pix2=jitter(corr_idx2),
+        corr_doff1=f32(rng.uniform(0.9, 1.1, m)),
+        corr_doff2=f32(rng.uniform(0.9, 1.1, m)))
+    return data, (0, [(i, i + 1) for i in range(c - 1)])
