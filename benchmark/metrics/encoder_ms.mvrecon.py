@@ -1,0 +1,10 @@
+"""Device milliseconds a scene in the program's `vggt/encode` span (the
+DINOv2 encoder): the kernels launched inside it, found by their
+correlation ids wherever they ran, over the traced window's requests."""
+
+from benchlib.spans import per_request_device_s
+
+
+def read(run):
+    s = per_request_device_s(run, "vggt/encode")
+    return None if s is None else 1e3 * s

@@ -231,6 +231,23 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      generator state, by torch.multinomial's default route (printed) and
      by `splat.mcmc.sample_targets` (the same bits, checked).
 
+ 22. `[vggt]` (after `[ga-512]`; on its own: `python -c "import
+     chip_smoke; chip_smoke.vggt_phase()"`): VGGT-1B on random weights
+     (`VGGTModel.init_random`, 1,190,596,120 parameters) on the normal
+     path: 32 640 x 480 PNGs of make_views' scene through
+     load_images(mode="crop") (518 x 392 each), Scene.add_images (one
+     forward, the fused attention route launched 24 + 2 x 24 times, the
+     dense clean-up over the 32 views), init_3dgs and 2 training steps,
+     then the CLI in process (`reconstruct --preset vggt_1b --gs-iters
+     2`). Checks: finite orthonormal poses, finite positive focals, the
+     principal points at (259, 196), finite dense points, finite losses.
+     Prints each stage's seconds and the peak device memory of
+     add_images, the forward's ms at 32 views (CUDA events, `cuda_ms`: a
+     forward queues more launches than the queue behind `device_ms`'s
+     spin holds), the fused attention's alone at 33,312 tokens (16 heads
+     of 64, bfloat16; `device_ms`) with its TFLOP/s and its share of the
+     forward (x 24), and the stages' seconds on a `[stages] vggt:` line.
+
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
 boxes, each entry's box, and the pairs that pass the culls
@@ -3646,6 +3663,111 @@ def res512_phase(stt, model, dev, work_dir, record=None):
     return secs, kernels
 
 
+VGGT_VIEWS = 32
+VGGT_PHOTO_HW = (480, 640)
+
+
+def vggt_phase(dev=None):
+    """`[vggt]` (module docstring, item 22); returns its seconds."""
+    import torch
+    from PIL import Image
+    import starst3r_tpu_torch as stt
+    from starst3r_tpu_torch import cli
+    from starst3r_tpu_torch.ops import attention
+    dev = dev or torch.device("cuda", 0)
+    # float32 as the configuration states it (the heads' convolutions
+    # too), also when the phase runs on its own
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    secs = {}
+    t = time.perf_counter()
+    model = stt.VGGTModel.init_random(stt.VGGTConfig.vggt_1b(), seed=0,
+                                      device=dev)
+    torch.cuda.synchronize()
+    secs["init"] = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.net.parameters())
+    print(f"[vggt] VGGTConfig.vggt_1b(): {n_params} parameters, init "
+          f"{secs['init']:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vggt_") as d:
+        paths = []
+        for k, v in enumerate(make_views(VGGT_VIEWS, VGGT_PHOTO_HW)):
+            arr = np.clip((v.transpose(1, 2, 0) * 0.5 + 0.5) * 255 + 0.5,
+                          0, 255).astype(np.uint8)
+            paths.append(os.path.join(d, f"v{k:02d}.png"))
+            Image.fromarray(arr).save(paths[-1])
+        t = time.perf_counter()
+        imgs = stt.load_images(paths, size=518, mode="crop")
+        secs["load"] = time.perf_counter() - t
+        check(all(im.shape == (3, 392, 518) for im in imgs),
+              f"[vggt] crop mode gave {imgs[0].shape}")
+        scene = stt.Scene(device=dev)
+        attention.fused_sdpa.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        scene.add_images(model, imgs)
+        torch.cuda.synchronize()
+        secs["add_images"] = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = attention.fused_sdpa.launches
+        check(launches == 24 + 2 * 24,
+              f"[vggt] the fused route launched {launches} times")
+        c2w, K = scene.c2w, scene.intrinsics
+        rot = c2w[:, :3, :3]
+        check(np.isfinite(c2w).all() and np.allclose(
+            rot @ rot.transpose(0, 2, 1), np.eye(3), atol=1e-4),
+            "[vggt] poses not finite and orthonormal")
+        check(np.isfinite(K).all() and (K[:, 0, 0] > 0).all()
+              and (K[:, 1, 1] > 0).all(), "[vggt] focals")
+        check(np.allclose(K[:, :2, 2], [259.0, 196.0]),
+              "[vggt] principal points off the centre")
+        pts = scene.dense_pts_flat
+        check(pts.shape[0] > 0 and np.isfinite(pts).all(),
+              "[vggt] dense points")
+        t = time.perf_counter()
+        scene.init_3dgs()
+        losses = scene.run_3dgs_optim(2)
+        torch.cuda.synchronize()
+        secs["init_3dgs_train2"] = time.perf_counter() - t
+        check(np.isfinite(losses).all(), "[vggt] 3DGS losses")
+        print(f"[vggt] add_images of {VGGT_VIEWS} views: "
+              f"{secs['add_images']:.3f} s, peak device memory {peak} B, "
+              f"{pts.shape[0]} dense points above the threshold of "
+              f"{VGGT_VIEWS * 392 * 518}; focals "
+              f"{K[:, 0, 0].min():.1f}-{K[:, 0, 0].max():.1f}; 3DGS losses "
+              f"{[round(float(x), 4) for x in losses]}", flush=True)
+        t = time.perf_counter()
+        rc = cli.main(["--device", "cuda", "reconstruct", "--imgdir", d,
+                       "--out", os.path.join(d, "out"), "--preset",
+                       "vggt_1b", "--gs-iters", "2"])
+        secs["cli"] = time.perf_counter() - t
+        check(rc == 0, f"[vggt] the CLI returned {rc}")
+    x = torch.stack([torch.as_tensor(im) for im in imgs]).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model.net(x)
+
+    # CUDA events (`cuda_ms`): a forward queues thousands of launches,
+    # more than the launch queue holds behind `device_ms`'s spin
+    fwd_ms = cuda_ms(forward, 3, warmup=1)
+    t_tok = VGGT_VIEWS * (5 + 28 * 37)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(1, t_tok, 16, 64, device=dev, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    attn_ms = device_ms(lambda: attention.fused_sdpa(q, k, v), 10)
+    tflops = 4.0 * t_tok * t_tok * 1024 / (attn_ms * 1e-3) / 1e12
+    print(f"[vggt] the forward at {VGGT_VIEWS} views: {fwd_ms:.3f} ms "
+          f"(CUDA events); the fused attention alone at {t_tok} tokens: "
+          f"{attn_ms:.3f} ms ({tflops:.1f} TFLOP/s of 989), x 24 "
+          f"{24 * attn_ms / fwd_ms:.1%} of the forward", flush=True)
+    print("[stages] vggt: " + " ".join(f"{k}={v:.3f}s"
+                                       for k, v in secs.items()), flush=True)
+    del model, scene, x, q, k, v
+    torch.cuda.empty_cache()
+    return secs
+
+
 def main():
     import argparse
     import torch
@@ -3791,6 +3913,7 @@ def main():
     print("[stages] slice 10: " + " ".join(f"{k}={v:.3f}s"
                                            for k, v in ten.items()),
           flush=True)
+    vggt_phase(dev)
     del ga_calls
 
     # slice 2: training on the same scene

@@ -48,10 +48,18 @@ def _build_parser() -> argparse.ArgumentParser:
     rec = sub.add_parser("reconstruct", help="images -> poses + point cloud")
     rec.add_argument("--imgdir", required=True)
     rec.add_argument("--out", required=True)
-    rec.add_argument("--res", type=int, default=224,
-                     help="longest-edge resolution (reference default 224)")
+    rec.add_argument("--res", type=int, default=None,
+                     help="longest-edge resolution (reference default 224); "
+                     "with a VGGT preset the width (default 518)")
     rec.add_argument("--preset", default="tiny",
-                     choices=["tiny", "small", "base", "large"])
+                     choices=["tiny", "small", "base", "large", "vggt_1b",
+                              "vggt_tiny"],
+                     help="the network: MASt3R's presets, or VGGT-1B "
+                     "(vggt_1b; vggt_tiny for the CPU), which "
+                     "reconstructs all images in one forward with no "
+                     "pairs and no global alignment (the --ga-*, "
+                     "--pair-graph, --refine-* and depth flags do not "
+                     "apply)")
     rec.add_argument("--model", default=None,
                      help="model checkpoint path (overrides --preset weights)")
     rec.add_argument("--pair-graph", default="complete",
@@ -157,8 +165,13 @@ def _cmd_reconstruct(args, device) -> int:
     if len(paths) < 2:
         print(f"error: need >= 2 images in {args.imgdir}", file=sys.stderr)
         return 2
-    route = image_route()
-    imgs = stt.load_images(paths, size=args.res, impl=route)
+    vggt = args.preset.startswith("vggt")
+    if vggt:
+        route = "pil"
+        imgs = stt.load_images(paths, size=args.res or 518, mode="crop")
+    else:
+        route = image_route()
+        imgs = stt.load_images(paths, size=args.res or 224, impl=route)
     logger.log("load_images", impl=route, n_images=len(imgs),
                shape=list(imgs[0].shape))
 
@@ -182,7 +195,13 @@ def _cmd_reconstruct(args, device) -> int:
         opt_depth=bool(args.opt_depth or args.lora_depth))
     cfg = dataclasses.replace(cfg, ga=ga)
 
-    if args.model:
+    if vggt:
+        if args.model:
+            print("error: --model loads MASt3R checkpoints; a VGGT preset "
+                  "runs on random weights", file=sys.stderr)
+            return 2
+        model = stt.VGGTModel.init_random(cfg.model, device=device)
+    elif args.model:
         model = stt.Mast3rModel.from_pretrained(args.model, device=device)
     else:
         model = stt.Mast3rModel.init_random(cfg.model, device=device)

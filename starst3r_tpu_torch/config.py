@@ -112,11 +112,66 @@ class ModelConfig:
         )
 
 
+@dataclass(frozen=True)
+class VGGTConfig:
+    """VGGT, the Visual Geometry Grounded Transformer (Wang et al., CVPR
+    2025, arXiv:2503.11651; facebookresearch/vggt, `facebook/VGGT-1B`):
+    all S views of a scene in one forward, returning each view's camera,
+    depth map and world-point map with their confidences
+    (`models/vggt.py`).
+
+    A DINOv2 ViT-L/14 with register tokens embeds each view; the
+    aggregator then alternates a frame block (attention within each view)
+    and a global block (attention over all S x P tokens of the scene)
+    ``depth`` times; a camera head refines a pose encoding ``camera_iters``
+    times over the views' camera tokens; two DPT heads read iterations
+    ``head_layers``. The track head is not built (no path of the system
+    asks for tracks)."""
+
+    name: str = "vggt_1b"
+    patch_size: int = 14
+    img_size: int = 518             # DINOv2's position table: 37 x 37 patches
+    enc_depth: int = 24             # DINOv2 blocks
+    dim: int = 1024
+    heads: int = 16
+    mlp_ratio: float = 4.0
+    num_register_tokens: int = 4
+    depth: int = 24                 # aggregator iterations (frame + global)
+    rope_base: float = 100.0
+    head_layers: Tuple[int, int, int, int] = (4, 11, 17, 23)
+    dpt_feature_dim: int = 256
+    dpt_layer_dims: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
+    dpt_last_dim: int = 32
+    frames_chunk: int = 8           # the DPT heads' views per pass
+    camera_depth: int = 4           # camera head trunk blocks (2 x dim wide)
+    camera_heads: int = 16
+    camera_iters: int = 4
+    # the aggregator's autocast dtype; the camera and DPT heads run in
+    # float32 with autocast off, as VGGT's `forward` runs them
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def vggt_1b() -> "VGGTConfig":
+        """The published VGGT-1B widths (without the track head)."""
+        return VGGTConfig()
+
+    @staticmethod
+    def tiny() -> "VGGTConfig":
+        """Random-init CPU-testable VGGT: 56 x 42 input, float32."""
+        return VGGTConfig(
+            name="vggt_tiny", img_size=56, enc_depth=2, dim=64, heads=2,
+            depth=4, head_layers=(0, 1, 2, 3), dpt_feature_dim=16,
+            dpt_layer_dims=(8, 12, 16, 16), dpt_last_dim=8, frames_chunk=2,
+            camera_depth=2, camera_heads=2, dtype="float32")
+
+
 _MODEL_PRESETS = {"tiny": ModelConfig.tiny, "small": ModelConfig.small,
-                  "base": ModelConfig.base, "large": ModelConfig.large}
+                  "base": ModelConfig.base, "large": ModelConfig.large,
+                  "vggt_1b": VGGTConfig.vggt_1b, "vggt_tiny": VGGTConfig.tiny}
 
 
-def model_preset(name: str) -> ModelConfig:
+def model_preset(name: str):
+    """The `ModelConfig` (MASt3R) or `VGGTConfig` of a preset name."""
     return _MODEL_PRESETS[name]()
 
 

@@ -7,10 +7,19 @@ to [-1, 1]. Images stay host-side numpy (3, H, W) float32; the pipeline moves
 them to the device once per batch. `load_images` resizes, crops and
 normalises either in the C++ host runtime (`native`, on a thread pool) or
 with PIL and numpy.
+
+``mode="crop"`` is VGGT's own preprocessing instead
+(vggt/utils/load_fn.py `load_and_preprocess_images`, mode "crop"): no EXIF
+transpose, RGBA composited on white, the width resized to ``size`` (518)
+and the height to round(h size / w / 14) 14 by one bicubic resize, a
+height past ``size`` centre-cropped to it, values kept in [0, 1] (VGGT
+applies the ImageNet mean and std inside the network).
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -26,6 +35,7 @@ __all__ = (
     "process_image",
     "load_image",
     "load_images",
+    "load_image_crop",
     "image_route",
     "image_to_uint8",
 )
@@ -105,15 +115,55 @@ def image_route(impl: Optional[str] = "auto") -> str:
     return impl
 
 
+# VGGT's patch: the multiple its crop mode rounds the height to
+VGGT_PATCH = 14
+
+
+def load_image_crop(path: Union[str, Path], size: int = 518) -> np.ndarray:
+    """VGGT's "crop" preprocessing of one file -> (3, H', W') float32 in
+    [0, 1], W' = ``size`` (module docstring)."""
+    img = Image.open(path)
+    if img.mode == "RGBA":
+        white = Image.new("RGBA", img.size, (255, 255, 255, 255))
+        img = Image.alpha_composite(white, img)
+    img = img.convert("RGB")
+    w, h = img.size
+    new_h = round(h * (size / w) / VGGT_PATCH) * VGGT_PATCH
+    arr = np.asarray(img.resize((size, new_h), Image.BICUBIC))
+    if new_h > size:
+        top = (new_h - size) // 2
+        arr = arr[top:top + size]
+    return np.ascontiguousarray(
+        (arr.astype(np.float32) / 255.0).transpose(2, 0, 1))
+
+
 def load_images(paths: Sequence[Union[str, Path]], size: int = 224,
                 crop_multiple: int = 16,
-                impl: Optional[str] = "auto") -> List[np.ndarray]:
+                impl: Optional[str] = "auto",
+                mode: str = "dust3r") -> List[np.ndarray]:
     """Load a list of files (reference: starster/image.py:105-110).
 
     impl: "native" decodes with PIL and resizes, crops and normalises in the
     C++ host runtime (`native.preprocess_batch`), and raises RuntimeError
     when that library cannot be built; "pil" is the pure-Python route;
-    "auto" (or None) picks as `image_route` says."""
+    "auto" (or None) picks as `image_route` says.
+
+    mode: "dust3r" (the above, [-1, 1]) or "crop", VGGT's preprocessing
+    (`load_image_crop`, [0, 1]; ``crop_multiple`` unused), which has the
+    PIL route alone, on a thread pool of up to 8 (PIL's decoding and
+    resizing release the interpreter lock): ``impl="native"`` raises
+    ValueError there."""
+    if mode == "crop":
+        if impl not in ("auto", None, "pil"):
+            raise ValueError(f"load_images mode 'crop' has the PIL route "
+                             f"alone, not impl {impl!r}")
+        with span("imaging/load"):
+            workers = max(1, min(len(paths), os.cpu_count() or 1, 8))
+            with ThreadPoolExecutor(workers) as pool:
+                return list(pool.map(lambda p: load_image_crop(p, size),
+                                     paths))
+    if mode != "dust3r":
+        raise ValueError(f"mode must be 'dust3r' or 'crop', not {mode!r}")
     with span("imaging/load"):
         if image_route(impl) == "native":
             from . import native

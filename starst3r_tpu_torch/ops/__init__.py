@@ -1,4 +1,4 @@
-from .attention import sdpa
+from .attention import fused_sdpa, sdpa
 from .rope import apply_rope_2d, rope_2d_freqs
 from .matching import (PairMatches, match_pair, reciprocal_nn, refine_matches,
                        subsample_grid_indices)

@@ -14,6 +14,12 @@ ranks in the last bits (the GA itself is repeatable bit for bit on the
 card: it adds no atomics); the polish then reduces its correspondence or
 track shards over the mesh.
 
+A `models.vggt.VGGTModel` takes the feed-forward path instead: one forward
+over all views gives each view's camera (from its pose encoding) and
+depth with its confidence; no pairs, no pair cache, no alignment. The
+`Reconstruction` then holds that depth and an empty GA state, and
+`get_dense_pts3d` unprojects it through the same `_dense_unproject`.
+
 Complete symmetric pair graph, disk-cached pairwise inference, canonical
 per-image depth, maximum-spanning-tree pose chain, condensed tensors, the
 reference's GA hyperparameters, warm start via ``optim_params``. The network,
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +47,7 @@ from .config import Config, GAConfig, default_config
 from .imaging import make_pair_indices, make_sliding_window_pairs
 from .io.cache import PairCache, content_key
 from .models.mast3r import _OUT_KEYS, Mast3rModel, PairPrediction
+from .models.vggt import VGGTModel, pose_encoding_to_cameras
 from .ops.matching import (PairMatches, match_pair, refine_matches,
                            subsample_grid_indices)
 from .utils.device import resolve_device
@@ -53,7 +60,12 @@ __all__ = ("Reconstruction", "reconstruct_scene")
 
 @dataclass
 class Reconstruction:
-    """Result container (SparseGA analog, reference reconstruct.py:113)."""
+    """Result container (SparseGA analog, reference reconstruct.py:113).
+
+    A feed-forward answer (VGGT) has no alignment: ``core_depth`` is (C, 0),
+    ``views`` empty, ``subsample`` 0, ``ga_params`` None and ``losses``
+    (nan, nan); its dense depth and confidence are ``depth`` and
+    ``depth_conf``, which are None after an alignment."""
 
     imgs: List[np.ndarray]          # (H, W, 3) float in [0, 1]
     cam2w: np.ndarray               # (C, 4, 4)
@@ -61,9 +73,11 @@ class Reconstruction:
     core_depth: np.ndarray          # (C, S) final metric core depth
     views: List[CanonicalView]      # anchors + canonical confidence
     subsample: int
-    ga_params: GAParams
+    ga_params: Optional[GAParams]
     losses: Tuple[float, float]
     device: torch.device = torch.device("cpu")
+    depth: Optional[np.ndarray] = None        # (C, H, W) feed-forward
+    depth_conf: Optional[np.ndarray] = None   # (C, H, W) feed-forward
 
     @property
     def w2c(self) -> np.ndarray:
@@ -76,12 +90,23 @@ class Reconstruction:
         h, w = self.imgs[0].shape[:2]
         c = len(self.imgs)
         dev = self.device
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        if self.depth is not None:
+            with span("recon/dense"):
+                pts, depths, confs = _dense_unproject(
+                    t(self.depth.reshape(c, -1)), t(self.intrinsics),
+                    t(self.cam2w), t(self.depth_conf.reshape(c, -1)), h, w,
+                    bool(clean_depth))
+                pts, depths, confs = (x.cpu().numpy()
+                                      for x in (pts, depths, confs))
+            return ([pts[i] for i in range(c)],
+                    [depths[i] for i in range(c)],
+                    [confs[i] for i in range(c)])
         anchor_idx = np.stack([v.anchor_idx for v in self.views])
         offset = np.stack([v.anchor_offset for v in self.views])
         conf = np.stack([v.conf.reshape(-1) for v in self.views])
         dense_depth = np.take_along_axis(
             np.asarray(self.core_depth), anchor_idx, axis=1) * offset
-        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
         pts, depths, confs = _dense_unproject(
             t(dense_depth), t(self.intrinsics), t(self.cam2w), t(conf), h, w,
             bool(clean_depth))
@@ -132,7 +157,7 @@ def _dense_unproject(dense_depth, K, cam2w, conf, h: int, w: int,
 
 
 def reconstruct_scene(
-    model: Mast3rModel,
+    model: Union[Mast3rModel, VGGTModel],
     imgs: Sequence[np.ndarray],
     filelist: Optional[Sequence[str]] = None,
     device="cuda",
@@ -150,7 +175,13 @@ def reconstruct_scene(
     pair-parallel inference and a sharded polish, with the same result on
     every rank (module docstring). ``filelist`` is taken and ignored, as in
     the JAX package (the reference's signature has it; the pair cache is
-    keyed by content)."""
+    keyed by content).
+
+    With a `VGGTModel`, imgs are (3, H, W) in [0, 1] (`load_images` with
+    ``mode="crop"``) and one forward answers (module docstring); it
+    returns (rec, None), and ``optim_params``, ``freeze`` and ``mesh`` raise
+    ValueError there, as it has no alignment to warm-start, freeze or
+    split."""
     del filelist
     cfg = config or default_config()
     dev = resolve_device(device)
@@ -162,6 +193,12 @@ def reconstruct_scene(
         raise ValueError("need at least two images")
     imgs = [np.asarray(im, np.float32) for im in imgs]
     h, w = imgs[0].shape[-2:]
+    if isinstance(model, VGGTModel):
+        if optim_params is not None or freeze is not None or \
+                mesh is not None:
+            raise ValueError("a feed-forward reconstruction takes no "
+                             "optim_params, freeze or mesh")
+        return _feed_forward(model, imgs, timer, logger), None
 
     if pair_graph == "complete":
         pairs = make_pair_indices(n, symmetric=True)
@@ -273,6 +310,25 @@ def reconstruct_scene(
         ga_params=params, losses=(result.loss_coarse, result.loss_fine),
         device=dev)
     return rec, params
+
+
+def _feed_forward(model: VGGTModel, imgs: List[np.ndarray], timer: Timer,
+                  logger: Optional[MetricsLogger]) -> Reconstruction:
+    """One VGGT forward over all views -> cameras and dense depth."""
+    n, (h, w) = len(imgs), imgs[0].shape[-2:]
+    with timer("inference"), trace_if("inference"):
+        out = model.infer(imgs)
+        cam2w, K = pose_encoding_to_cameras(out["pose_enc"], h, w)
+        cam2w, K, depth, conf = (x.cpu().numpy() for x in (
+            cam2w, K, out["depth"][..., 0], out["depth_conf"]))
+    if logger is not None:
+        logger.log("reconstruct", n_images=n, **timer.summary())
+    return Reconstruction(
+        imgs=[np.clip(im.transpose(1, 2, 0), 0, 1) for im in imgs],
+        cam2w=cam2w, intrinsics=K, core_depth=np.zeros((n, 0), np.float32),
+        views=[], subsample=0, ga_params=None,
+        losses=(float("nan"), float("nan")), device=model.device,
+        depth=depth, depth_conf=conf)
 
 
 def _refine_lm(ga: GAConfig, data, freeze, cam2w, K, depth, n: int, dev,

@@ -8,13 +8,15 @@ the JAX package's file format.
 
 `add_images` re-runs reconstruction over ALL images, warm-starting the GA
 from the previous `optim_params`, then replaces poses and points wholesale;
-the content-addressed pair cache skips pairs already inferred.
+the content-addressed pair cache skips pairs already inferred. With a
+`VGGTModel` it runs one feed-forward reconstruction over all images (no GA
+to warm-start; the images in [0, 1], `load_images(..., mode="crop")`).
 """
 
 from __future__ import annotations
 
 import tempfile
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Union
 
 import numpy as np
 import torch
@@ -22,6 +24,7 @@ import torch
 from .alignment.ga import GAParams
 from .config import Config, default_config
 from .models.mast3r import Mast3rModel
+from .models.vggt import VGGTModel
 from .reconstruct import Reconstruction, reconstruct_scene
 from .utils.checkpoint import group_flat, load_flat, save_pytree
 from .utils.device import resolve_device
@@ -73,10 +76,12 @@ class Scene:
             raise RuntimeError("No c2w matrix available.")
         return se3_inverse(torch.as_tensor(self.c2w)).numpy()
 
-    def add_images(self, model: Mast3rModel, imgs: List[np.ndarray],
-                   conf_thres: float = 1.5, pair_graph: str = "complete"):
-        """Add processed (3, H, W) [-1, 1] images and solve poses and dense
-        points (reference scene.py:97-155)."""
+    def add_images(self, model: Union[Mast3rModel, VGGTModel],
+                   imgs: List[np.ndarray], conf_thres: float = 1.5,
+                   pair_graph: str = "complete"):
+        """Add processed (3, H, W) images, in [-1, 1] for MASt3R and in
+        [0, 1] for VGGT, and solve poses and dense points (reference
+        scene.py:97-155)."""
         self.raw_imgs.extend([np.asarray(im, np.float32) for im in imgs])
         self._reconstruct(model, conf_thres, pair_graph, freeze=None)
 
@@ -99,7 +104,8 @@ class Scene:
         self._reconstruct(model, conf_thres, pair_graph, freeze=freeze)
         return np.asarray(self.c2w[-1])
 
-    def _reconstruct(self, model: Mast3rModel, conf_thres: float,
+    def _reconstruct(self, model: Union[Mast3rModel, VGGTModel],
+                     conf_thres: float,
                      pair_graph: str, freeze: Optional[np.ndarray]):
         """Reconstruct over all images, warm-started, and replace poses,
         intrinsics and the dense lists wholesale."""

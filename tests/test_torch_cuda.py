@@ -1996,3 +1996,102 @@ def test_sample_targets_is_deterministic_on_cuda(dev):
         device=dev).manual_seed(1)) for _ in range(3)]
     assert all(torch.equal(draws[0], d) for d in draws[1:])
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+# -- VGGT: the fused attention route, and the network at published widths
+
+# the fused route's output within FUSED_ATTN_TOL of the largest magnitude
+# of float32 attention on the same bfloat16 inputs: its bfloat16 output
+# rounds by 2^-9 of a value, and flash accumulates in float32
+FUSED_ATTN_TOL = 8e-3
+# VGGT-1B on the card (bfloat16 aggregator, float32 heads) against the
+# float32 reference: each output's RMS gap in the heads' own values over
+# the larger of its RMS and the median output's, the benchmark's
+# `net_gap` measure (benchmark/benchlib/kinds/mvrecon.py), within the
+# cell's limit (benchmark/checks/vggt1b-recon32.json): sound 32-view
+# scenes read 0.0020-0.0089, the float8 control 0.031-0.061; these 4
+# views 0.0042
+VGGT_NET_TOL = 0.02
+
+
+def _attention_f32(q, k, v):
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    p = torch.softmax(s * q.shape[-1] ** -0.5, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+
+
+@pytest.mark.parametrize("t", [256, 1041, 4096, 8192])
+def test_fused_sdpa_matches_the_einsum_route(dev, t):
+    from starst3r_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(t)
+    b = 2 if t <= 4096 else 1
+    q, k, v = (torch.randn(b, t, 16, 64, device=dev, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    before = attention.fused_sdpa.launches
+    got = attention.fused_sdpa(q, k, v)
+    assert attention.fused_sdpa.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = _attention_f32(q, k, v)
+    einsum = attention.sdpa(q, k, v).float()
+    scale = float(want.abs().max())
+    err = float((got.float() - want).abs().max())
+    err_einsum = float((einsum - want).abs().max())
+    assert err <= FUSED_ATTN_TOL * scale, (err, err_einsum, scale)
+    assert err <= 2.0 * err_einsum + 1e-3 * scale, (err, err_einsum)
+
+
+def test_fused_sdpa_raises_where_flash_cannot_run(dev):
+    """float32 inputs on the card: the flash kernel refuses them and the
+    route raises; no other kernel answers in its place."""
+    from starst3r_tpu_torch.ops import attention
+    q = torch.randn(1, 128, 16, 64, device=dev)
+    before = attention.fused_sdpa.launches
+    with pytest.raises(RuntimeError):
+        attention.fused_sdpa(q, q, q)
+    assert attention.fused_sdpa.launches == before
+
+
+def _head_space(key, x):
+    x = x.double()
+    if key == "depth":
+        return torch.log(x.clamp_min(1e-30))
+    if key.endswith("conf"):
+        return torch.log((x - 1.0).clamp_min(1e-30))
+    if key == "world_points":
+        return torch.sign(x) * torch.log1p(x.abs())
+    return x
+
+
+def test_vggt_1b_on_four_views_against_the_reference(dev):
+    """VGGT-1B at 4 views of 518 x 392 on random weights: the program on
+    the card against the float32 reference (tests/vggt_reference.py, its
+    attention in blocks), both on the program's state dict."""
+    import vggt_reference as ref
+    import starst3r_tpu_torch as stt
+    from starst3r_tpu_torch.ops import attention
+    cfg = stt.VGGTConfig.vggt_1b()
+    model = stt.VGGTModel.init_random(cfg, seed=0, device=dev)
+    imgs = torch.rand(4, 3, 392, 518, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    before = attention.fused_sdpa.launches
+    got = model.infer(list(imgs.cpu().numpy()))
+    assert attention.fused_sdpa.launches - before == 24 + 2 * 24
+    rcfg = dict(patch_size=14, img_size=518, embed_dim=1024, enc_depth=24,
+                num_heads=16, mlp_ratio=4.0, num_register_tokens=4,
+                depth=24, head_layers=[4, 11, 17, 23], dpt_features=256,
+                dpt_out_channels=[256, 512, 1024, 1024], dpt_last_dim=32,
+                frames_chunk_size=8, camera_trunk_depth=4,
+                camera_num_heads=16, camera_iterations=4)
+    with torch.no_grad():
+        want = ref.VGGT(model.state_dict(), rcfg).forward(imgs)
+    keys = ("pose_enc", "depth", "depth_conf", "world_points",
+            "world_points_conf")
+    rms = lambda x: float(x.pow(2).mean().sqrt())
+    hr = {k: _head_space(k, want[k]) for k in keys}
+    scale = {k: rms(hr[k]) for k in keys}
+    med = float(np.median(list(scale.values())))
+    gaps = {k: rms(_head_space(k, got[k]) - hr[k]) / max(scale[k], med)
+            for k in keys}
+    print("vggt-1b 4 views, gaps in head space:", gaps)
+    assert all(np.isfinite(list(gaps.values())))
+    assert float(np.mean(list(gaps.values()))) <= VGGT_NET_TOL, gaps
