@@ -149,16 +149,22 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      (`ga_loss_report`: the kernel in each phase against the losses'
      autograd chain within GA_LOSS_TOL and against its order in PyTorch,
      two launches bit for bit, its device ms beside its bound and the
-     chain's kernels' device ms), and one replayed coarse step on the fused
-     loss and on the chain (`replay_report`: ms by CUDA events over 50
-     replays, device-busy ms, the kernels one replay launches by the
-     profiler's kernel events) and the fused route's five costliest
-     kernels, reported only. Step 2 itself checks that its two GA calls
-     captured 4 steps, replayed 2 x 700 and read the host 2 x (10 + 4)
-     times, and that they called the fused loss as often as the counter
-     can see, once in each of each phase's three warm-up steps and its
-     capture (16), and launched the row-gather backward never. Its
-     seconds are on a `[stages] slice 8:` line;
+     chain's kernels' device ms), the step's kernels (`ga_step_report`:
+     `ga_reparam` and `ga_update` against their order in PyTorch on the
+     card within GA_STEP_IN_ORDER_TOL, bit for bit reported, each one's
+     device ms beside its bound, the parent's autograd step's kernels),
+     and one replayed coarse step on each of STEP_ROUTES (`replay_report`:
+     the step's kernels, the parent's autograd step around the same fused
+     loss, the losses' chain; ms by CUDA events over 50 replays,
+     device-busy ms, the kernels one replay launches by the profiler's
+     kernel events, at most STEP_MAX_KERNELS on the kernels' route) and
+     the kernels' route's five costliest kernels. Step 2 itself checks
+     that its two GA calls captured 4 steps, replayed 2 x 700 and read the
+     host 2 x (10 + 4) times, and that they called the fused loss and the
+     step (`ga_step.ga_step_cuda`) as often as the counters can see, once
+     in each of each phase's three warm-up steps and its capture (16), and
+     launched the row-gather backward never. Its seconds are on a
+     `[stages] slice 8:` line;
  18. `[ga-gather]` (run after step 2, before `[ga-graph]`): the GA's
      row-gather backward kernel against its plain version
      (``index_add_``, summed in float64) on the card, at each of the six
@@ -180,11 +186,12 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory: 10
      cameras, 4,096 core points, 368,640 correspondences, GA 50 + 20 at
      jit_chunk 10): finite poses, the graph route's counts, the fused
-     loss's calls (8: each phase's warm-up steps and capture) and no
-     row-gather backward launch; the GA's seconds, the ATE, the fused loss
-     and one replayed coarse step as `[ga-graph]` reports them, and the
-     same two reports at the recon cells' condensed shapes (six views of
-     224 x 160 and 512 x 384, tests/torch_ga_scene.py::condensed_case).
+     loss's and the step's calls (8 each: each phase's warm-up steps and
+     capture) and no row-gather backward launch; the GA's seconds, the
+     ATE, the fused loss, the step's kernels and one replayed coarse step
+     as `[ga-graph]` reports them, and the same reports at the recon
+     cells' condensed shapes (six views of 224 x 160 and 512 x 384,
+     tests/torch_ga_scene.py::condensed_case).
      Its seconds are on the `[stages] slice 10:` line;
  20. `[res512]` (after step 15, on the same model): the main path on 4:3
      photos at the checkpoint's 512 px: six 640 x 480 PNGs of
@@ -401,6 +408,10 @@ LOSS_CALLS_PER_STEP = 1
 # (tests/test_torch_cuda.py's bound) and against its order in PyTorch
 GA_LOSS_TOL = 1e-4
 GA_LOSS_IN_ORDER_TOL = 1e-6
+# the GA step's kernels against their order in PyTorch on the card
+# (tests/test_torch_cuda.py's bound: libdevice's transcendentals at
+# -fmad=false against PyTorch's)
+GA_STEP_IN_ORDER_TOL = 1e-6
 # the recon cells' condensed shapes (h, w): six views, 30 pairs
 GA_LOSS_SHAPES = ((160, 224), (384, 512))
 # `[ga-gather]`: the kernel against index_add_ summed in float64 (float32
@@ -941,10 +952,12 @@ def bound(n_bytes, n_ops):
 
 def launch_counters():
     """{exported kernel function: the wrapper that counts its launches (the
-    fused loss's calls, two kernels each)}."""
-    from starst3r_tpu_torch.alignment import ga, ga_loss
+    fused loss's calls, two kernels each; the GA step's calls, its
+    `ga_reparam`, the fused loss and `ga_update`)}."""
+    from starst3r_tpu_torch.alignment import ga, ga_loss, ga_step
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
     return {"ga_loss": ga_loss.ga_loss_cuda,
+            "ga_step": ga_step.ga_step_cuda,
             "composite_fwd_packed": comp.composite_packed_cuda,
             "composite_bwd_packed": comp.composite_packed_slots_cuda,
             "composite_fwd": comp.composite_tiles_cuda,
@@ -2652,20 +2665,34 @@ def ga_gather_phase(points, dev):
     return totals, {"ga_gather": time.perf_counter() - t0}
 
 
-def replayed_step(data, mst, cfg, dev, fused=True):
-    """One replayed coarse step of the GA on ``data``: (ms by CUDA events
-    over 50 replays, device-busy ms by torch.profiler or None, {kernel:
-    ms a step}, the kernels one replay launches by the profiler's kernel
-    events, or None). CUDA events around a loop of replays, not
-    `device_ms`: a replay queues hundreds of kernels, so the spin would
-    fill the launch queue. ``fused=False`` captures the step with the
-    losses' autograd chain in place of the fused loss (the route before
-    it), for comparison."""
+# the routes of a GA step on the card that `replay_report` compares: the
+# step's kernels (`ga_step.ga_step_cuda`: ga_reparam, the fused loss,
+# ga_update; the main path), the parent revision's step (autograd and the
+# Python Adam around the same fused loss, whose source this revision did
+# not change, so the parent's route runs in process and `--parent-csrc`
+# adds nothing to it), and the step before the fused loss (autograd through
+# the losses' chain)
+STEP_ROUTES = ("kernels", "autograd + fused loss", "autograd chain")
+# a replayed step of the kernels' route launches ga_reparam, the fused
+# loss's two kernels and ga_update
+STEP_MAX_KERNELS = 6
+
+
+def replayed_step(data, mst, cfg, dev, route=STEP_ROUTES[0]):
+    """One replayed coarse step of the GA on ``data`` by ``route`` (one of
+    STEP_ROUTES): (ms by CUDA events over 50 replays, device-busy ms by
+    torch.profiler or None, {kernel: ms a step}, the kernels one replay
+    launches by the profiler's kernel events, or None). CUDA events around
+    a loop of replays, not `device_ms`: a replay of the autograd routes
+    queues hundreds of kernels, so the spin would fill the launch
+    queue."""
     from starst3r_tpu_torch.alignment import ga
     ph = ga._Phase(ga.init_params(data, device=dev),
                    ga.make_state(data, mst, cfg, device=dev), cfg.niter1,
                    cfg.lr1, cfg.lr_end, cfg.gamma1, 1, cfg)
-    if not fused:
+    if route != STEP_ROUTES[0]:
+        ph.step = ph.autograd_step
+    if route == STEP_ROUTES[2]:
         ph.fused = None
     graph = ga._capture(ph)
     step_ms = cuda_ms(graph.replay, 50)
@@ -2803,20 +2830,115 @@ def ga_loss_report(tag, data, mst, cfg, dev):
 
 
 def replay_report(tag, data, mst, cfg, dev):
-    """One replayed coarse step on the fused loss and on the autograd chain
-    (the route before it): ms a step, device-busy ms and the kernels one
-    replay launches. Returns the fused route's (ms, busy, {kernel: ms})."""
-    fused = replayed_step(data, mst, cfg, dev)
-    plain = replayed_step(data, mst, cfg, dev, fused=False)
-    for name, (step_ms, busy_ms, by_kernel, n) in (("fused loss", fused),
-                                                   ("autograd chain",
-                                                    plain)):
+    """One replayed coarse step by each of STEP_ROUTES: ms a step,
+    device-busy ms and the kernels one replay launches; the kernels'
+    route launches at most STEP_MAX_KERNELS where the profiler counts
+    them. Returns the kernels' route's (ms, busy, {kernel: ms}) and
+    {route: (ms, busy, kernels)}."""
+    routes = {route: replayed_step(data, mst, cfg, dev, route)
+              for route in STEP_ROUTES}
+    for name, (step_ms, busy_ms, by_kernel, n) in routes.items():
         print(f"{tag} a replayed coarse step, {name}: {step_ms:.4f} ms "
               f"(CUDA events over 50 replays); torch.profiler: "
               + (f"{busy_ms:.4f} ms device busy, {len(by_kernel)} kernel "
                  f"names, {n} kernels launched in one replay" if busy_ms
                  else "no device events (not measured)"), flush=True)
-    return fused[:3]
+    n = routes[STEP_ROUTES[0]][3]
+    check(n is None or n <= STEP_MAX_KERNELS, f"{tag} a replayed step "
+          f"launched {n} kernels, want at most {STEP_MAX_KERNELS}")
+    return routes[STEP_ROUTES[0]][:3], {
+        k: (v[0], v[1], v[3]) for k, v in routes.items()}
+
+
+def ga_step_report(tag, data, mst, cfg, dev):
+    """The GA step's two kernels (`ga_step.ga_reparam_cuda`,
+    `ga_update_cuda`) on ``data`` at the GA's start, in each phase: each
+    against its order in PyTorch on the card (fed the same fused loss's
+    output), each one's device ms beside its bound, and the autograd
+    step's kernels (the parent's route: make_K_cam_depth's forward and
+    backward and the Python Adam around the fused loss) by the profiler.
+    Returns {phase: case}."""
+    import torch
+    from starst3r_tpu_torch.alignment import ga, ga_step as gs
+    from starst3r_tpu_torch.alignment.ga_loss import ga_loss_cuda
+    state = ga.make_state(data, mst, cfg, device=dev)
+    out = {}
+    for phase, gamma, lr in ((1, cfg.gamma1, cfg.lr1),
+                             (2, cfg.gamma2, cfg.lr2)):
+        ph = ga._Phase(ga.init_params(data, device=dev), state, cfg.niter1,
+                       lr, cfg.lr_end, gamma, phase, cfg)
+        sd = ph.step_data
+        old = [t.detach().clone() for t in ph.tensors()]
+        got = [t.clone() for t in old]
+        buf = gs.step_buffer(sd)
+        gs.ga_reparam_cuda(got[:6], got[18], buf, sd)
+        loss, grads = ga_loss_cuda(*gs.loss_inputs(buf, sd), ph.fused)
+        fwd = {k: v.clone() for k, v in gs.fwd_views(buf, sd).items()}
+        gs.ga_update_cuda(got, loss, grads, buf, sd)
+        want_fwd = gs.reparam_in_order(old[:6], old[18], sd)
+        want = gs.update_in_order(old, loss, grads, fwd, sd)
+        errs = [scaled_err(fwd[k], w) for k, w in want_fwd.items()]
+        # the moments (the params' first update is +-lr by a gradient's
+        # sign, the root camera's gauge included)
+        errs += [scaled_err(g, w) for g, w in zip(got[6:18], want[6:18])]
+        equal = all(bool(torch.equal(fwd[k], w))
+                    for k, w in want_fwd.items()) and all(
+            bool(torch.equal(g, w)) for g, w in zip(got, want))
+        state_now = [t.clone() for t in old]
+        reparam_ms = device_ms(lambda: gs.ga_reparam_cuda(
+            state_now[:6], state_now[18], buf, sd), reps=50)
+        update_ms = device_ms(lambda: gs.ga_update_cuda(
+            state_now, loss, grads, buf, sd), reps=50)
+
+        def autograd_step():
+            ph.autograd_step()
+
+        plain_ms, _ = profiled_ms(autograd_step, 5)
+        c, s, k = sd.dims
+        leaves = 11 * c + c * (k or s)
+        cam_out = (9 + 16 + 16 + 12 + 24) * c
+        # each byte read once and each written once: reparam reads the
+        # leaves and statics (the lora basis) and writes the cameras, the
+        # depth and the core values; update reads the fused loss's
+        # gradient, the core values, the leaves and moments, and writes
+        # the leaves and moments
+        r_bytes = 4 * (leaves + 8 * c + c * s * k + cam_out + 2 * c * s)
+        u_bytes = 4 * (grads.numel() + c * s + 3 * leaves + 3 * leaves
+                       + (c * s * k if k else 0))
+        r_bound, _ = bound(r_bytes, 0)
+        u_bound, _ = bound(u_bytes, 0)
+        out[phase] = {"reparam_ms": reparam_ms, "update_ms": update_ms,
+                      "reparam_bytes": r_bytes, "update_bytes": u_bytes,
+                      "reparam_bound_ms": r_bound,
+                      "update_bound_ms": u_bound,
+                      "autograd_step_ms": plain_ms,
+                      "in_order_err": max(errs), "in_order_equal": equal,
+                      "dims": sd.dims}
+        print(f"{tag} step kernels, phase {phase} (C, S, k) = {sd.dims}: "
+              f"ga_reparam {reparam_ms:.4f} ms (bound {r_bound:.5f} ms, "
+              f"bytes: {r_bytes} B), ga_update {update_ms:.4f} ms (bound "
+              f"{u_bound:.5f} ms, bytes: {u_bytes} B); the autograd step "
+              f"around the fused loss "
+              + (f"{plain_ms:.4f} ms of kernels" if plain_ms else
+                 "not measured") + f"; against their order in PyTorch "
+              f"{max(errs):.3g} (limit {GA_STEP_IN_ORDER_TOL}), bit for "
+              f"bit {equal}", flush=True)
+        check(max(errs) <= GA_STEP_IN_ORDER_TOL, f"{tag} the step's "
+              f"kernels, phase {phase}, off their order in PyTorch by "
+              f"{max(errs)}")
+    return out
+
+
+def step_row(cases, shapes):
+    """The `kernels` line's case of the GA step's kernels: phase 1 at the
+    main path's first GA call (both kernels' ms and bytes, the autograd
+    step's kernels as the plain version), the rest as they are."""
+    one = cases[1]
+    return {"ms": one["reparam_ms"] + one["update_ms"],
+            "plain_ms": one["autograd_step_ms"],
+            "bytes": one["reparam_bytes"] + one["update_bytes"], "ops": 0,
+            "phase1": one, "phase2": cases[2], "replay": cases["replay"],
+            "at_shapes": shapes}
 
 
 def ga512_phase(dev):
@@ -2825,8 +2947,10 @@ def ga512_phase(dev):
     test_ga_512px_scale_memory's scene and GAConfig) on the card: finite
     poses, the graph route's counts, the row-gather backward's launches
     (each phase's warm-up steps and capture); the GA's seconds, the ATE,
-    and one replayed coarse step's time and kernels. Returns the
-    seconds."""
+    one replayed coarse step's time and kernels by each of STEP_ROUTES,
+    and the step's kernels (`ga_step_report`), here and at the recon cells'
+    condensed shapes. Returns (the seconds, the fused loss's cases, the
+    step's cases)."""
     import torch
     from starst3r_tpu_torch.alignment import ga
     from starst3r_tpu_torch.utils.eval import ate_rmse
@@ -2839,8 +2963,8 @@ def ga512_phase(dev):
     pred = res.cam2w.cpu().numpy()
     secs = time.perf_counter() - t
     after = read_launches()
-    launches, g1 = (after[k] - before[k] for k in ("ga_loss",
-                                                   "gather_rows_bwd"))
+    launches, g1, steps = (after[k] - before[k] for k in (
+        "ga_loss", "gather_rows_bwd", "ga_step"))
     counts = read_ga_counts()
     ate, scale = ate_rmse(pred, gt), traj_scale(gt)
     want = {"captures": 2, "replays": cfg.niter1 + cfg.niter2,
@@ -2856,11 +2980,16 @@ def ga512_phase(dev):
           flush=True)
     check(np.isfinite(pred).all(), "[ga-512] poses not finite")
     check(counts == want, f"[ga-512] counts {counts}, want {want}")
-    check(launches == ga_loss_calls(cfg) and g1 == 0,
-          f"[ga-512] {launches} fused loss calls and {g1} row-gather "
-          f"backward launches, want {ga_loss_calls(cfg)} and 0")
+    check(launches == ga_loss_calls(cfg) and g1 == 0
+          and steps == ga_loss_calls(cfg),
+          f"[ga-512] {launches} fused loss calls, {g1} row-gather "
+          f"backward launches and {steps} GA step calls, want "
+          f"{ga_loss_calls(cfg)}, 0 and {ga_loss_calls(cfg)}")
     ga_loss_report("[ga-512]", data, mst, cfg, dev)
-    _, _, by_kernel = replay_report("[ga-512]", data, mst, cfg, dev)
+    step_shapes = {"512px": ga_step_report("[ga-512]", data, mst, cfg,
+                                           dev)}
+    (_, _, by_kernel), step_shapes["512px"]["replay"] = replay_report(
+        "[ga-512]", data, mst, cfg, dev)
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
         print(f"[ga-512]   {ms:8.4f} ms/step  {name[:100]}", flush=True)
     # the recon cells' condensed shapes: six views, 30 pairs, S
@@ -2871,8 +3000,12 @@ def ga512_phase(dev):
         c_data, c_mst = condensed_case(h, w)
         shapes[f"{w}x{h}"] = ga_loss_report(f"[ga-512] {w}x{h} views:",
                                             c_data, c_mst, cfg, dev)
-        replay_report(f"[ga-512] {w}x{h} views:", c_data, c_mst, cfg, dev)
-    return {"ga_512": secs}, shapes
+        tag = f"[ga-512] {w}x{h} views:"
+        step_shapes[f"{w}x{h}"] = ga_step_report(tag, c_data, c_mst, cfg,
+                                                 dev)
+        step_shapes[f"{w}x{h}"]["replay"] = replay_report(
+            tag, c_data, c_mst, cfg, dev)[1]
+    return {"ga_512": secs}, shapes, step_shapes
 
 
 def parent_rows_bwd(parent_csrc):
@@ -3017,10 +3150,13 @@ def ga_graph_phase(call, dev):
     # at the GA's start (reported, not checked); where the profiler's
     # device-busy time matches it, the step is device-bound
     loss_cases = ga_loss_report("[ga-graph]", data, mst, cfg, dev)
-    _, _, by_kernel = replay_report("[ga-graph]", data, mst, cfg, dev)
+    step_cases = ga_step_report("[ga-graph]", data, mst, cfg, dev)
+    (_, _, by_kernel), step_cases["replay"] = replay_report(
+        "[ga-graph]", data, mst, cfg, dev)
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
         print(f"[ga-graph]   {ms:8.4f} ms/step  {name[:100]}", flush=True)
-    return {"ga_graph": sum(graph_s), "ga_eager": sum(eager_s)}, loss_cases
+    return ({"ga_graph": sum(graph_s), "ga_eager": sum(eager_s)},
+            loss_cases, step_cases)
 
 
 def parallel_phase(stt, model, views, scene, dev, work_dir):
@@ -3887,6 +4023,11 @@ def main():
           f"the GA called the fused loss {render_launches['ga_loss']} times "
           f"and launched gather_rows_bwd "
           f"{render_launches['gather_rows_bwd']} times, want {want} and 0")
+    print(f"[ga] GA step calls (ga_reparam, the fused loss, ga_update) over "
+          f"both: {render_launches['ga_step']} (want {want})", flush=True)
+    check(render_launches["ga_step"] == want, f"the GA took "
+          f"{render_launches['ga_step']} steps where Python sees them, want "
+          f"{want}")
     fwd_cases, render_in = check_composite_kernel(stt, scene, dev)
     from starst3r_tpu_torch.alignment import ga
     data, mst, ga_cfg = ga_calls[0].args[:3]
@@ -3903,12 +4044,12 @@ def main():
         ten["side_by_side"] = time.perf_counter() - t
     del points
     t = time.perf_counter()
-    eight, ga_loss_cases = ga_graph_phase(ga_calls[0], dev)
+    eight, ga_loss_cases, ga_step_cases = ga_graph_phase(ga_calls[0], dev)
     eight["slice8"] = time.perf_counter() - t
     print("[stages] slice 8: " + " ".join(f"{k}={v:.3f}s"
                                           for k, v in eight.items()),
           flush=True)
-    secs512, ga_loss_shapes = ga512_phase(dev)
+    secs512, ga_loss_shapes, ga_step_shapes = ga512_phase(dev)
     ten.update(secs512)
     print("[stages] slice 10: " + " ".join(f"{k}={v:.3f}s"
                                            for k, v in ten.items()),
@@ -4092,6 +4233,12 @@ def main():
                   at_shapes=ga_loss_shapes),
              max(c["max_abs_err"] for c in ga_loss_cases.values()), None,
              render_launches["ga_loss"], par_launches["ga_loss"]),
+            ("ga_step", "ga_step",
+             "none (the JAX step: _make_K_cam_depth, jax.grad, optax's "
+             "Adam in starst3r_tpu/alignment/ga.py)",
+             step_row(ga_step_cases, ga_step_shapes),
+             max(ga_step_cases[p]["in_order_err"] for p in (1, 2)), None,
+             render_launches["ga_step"], par_launches["ga_step"]),
             ("gather_rows_bwd_packed", "gather_rows_bwd",
              "starst3r_tpu/splat/rasterize.py:368", parts["row_sum"],
              parts["row_sum"]["max_abs_err"],

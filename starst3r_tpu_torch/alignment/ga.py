@@ -27,12 +27,16 @@ device, and the NaN freeze is a ``where`` that keeps the previous params,
 moments and loss once a loss is non-finite, so no step reads the host. On
 the CPU the steps run eagerly. On the card the step is captured once per
 phase as a CUDA graph and replayed, the counterpart of the JAX package's
-jitted ``fori_loop`` chunk; a capture that fails raises. On the card the
-losses and their gradient with respect to the reparameterisation's
-outputs are one kernel (`ga_loss.GALoss`, `csrc/ga_loss.cu`: a fixed
-summation order and no atomics, so a step gives the same bits every
-time), whose static inputs each phase builds outside the captured step.
-On the CPU the losses are the autograd chain below (the plain version),
+jitted ``fori_loop`` chunk; a capture that fails raises. On the card a
+step is three hand-written launches and no autograd
+(`ga_step.ga_step_cuda`): the reparameterisation (`csrc/ga_step.cu`), the
+losses and their gradient with respect to its outputs (`csrc/ga_loss.cu`,
+`ga_loss.ga_loss_cuda`), and the reparameterisation's backward with the
+masked Adam step (`csrc/ga_step.cu`); each has a fixed summation order and
+no atomics, so a step gives the same bits every time, and their static
+inputs each phase builds outside the captured step. On the CPU the step is
+autograd through `make_K_cam_depth` and the losses' chain below (the plain
+version), the Adam step written in PyTorch; the losses' chain
 whose six gathers of camera and depth rows (the JAX package's
 `_gather_rows` sites) go through `_gather_rows`, whose backward sums each
 table row's cotangent rows with ``index_add_`` (on the card with
@@ -61,6 +65,8 @@ from ..utils.schedules import cosine_schedule, meta_gamma_loss
 from ..utils.se3 import quat_normalize, quat_to_rotmat, se3_inverse
 from .condense import CondensedData
 from .ga_loss import GALoss, make_loss_data
+from .ga_step import (build_kernels, ga_step_cuda, make_step_data,
+                      step_buffer)
 
 __all__ = ("GAParams", "GAState", "GAResult", "init_params", "make_state",
            "make_K_cam_depth", "run_global_alignment")
@@ -419,9 +425,9 @@ _WARMUP_STEPS = 3
 class _Phase:
     """One phase's device state and its step. The params are leaf tensors
     that stay the same objects for every step (a captured graph reads and
-    writes their storage), and every write into the state is an in-place
-    ``copy_``. `step` advances the state by one step with no host read,
-    as the body of the JAX package's `_optimize_chunk_jit` does."""
+    writes their storage), and every write into the state is in place.
+    `step` advances the state by one step with no host read, as the body
+    of the JAX package's `_optimize_chunk_jit` does."""
 
     def __init__(self, params: GAParams, state: GAState, niter: int,
                  lr_base: float, lr_end: float, gamma: float, phase: int,
@@ -436,12 +442,17 @@ class _Phase:
         self.nu = [torch.zeros_like(p) for p in params]
         dev = params.pps.device
         self.device = dev
-        # on the card the losses and their gradient are one kernel
-        # (`ga_loss.GALoss`), its static inputs built here, outside the
-        # captured step; on the CPU the autograd chain below
-        self.fused = (make_loss_data(state, phase, gamma, cfg.gamma_d,
-                                     cfg.loss_dust3r_w)
-                      if dev.type == "cuda" else None)
+        # on the card the step is three launches (`ga_step.ga_step_cuda`),
+        # their static inputs built here, outside the captured step; on the
+        # CPU the autograd step below with the losses' chain
+        self.fused = self.step_data = self.buf = None
+        if dev.type == "cuda":
+            build_kernels()
+            self.fused = make_loss_data(state, phase, gamma, cfg.gamma_d,
+                                        cfg.loss_dust3r_w)
+            self.step_data = make_step_data(state, phase, niter, lr_base,
+                                            lr_end, cfg)
+            self.buf = step_buffer(self.step_data)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
         self.last_loss = torch.full((), float("inf"), dtype=torch.float32,
@@ -470,6 +481,18 @@ class _Phase:
         return main + cfg.loss_dust3r_w * reg
 
     def step(self):
+        if self.device.type == "cuda":
+            ga_step_cuda(self.tensors(), self.buf, self.step_data,
+                         self.fused)
+        elif self.device.type == "cpu":
+            self.autograd_step()
+        else:
+            raise ValueError(f"no GA step for device {self.device}")
+
+    def autograd_step(self):
+        """The step through autograd and the Python Adam: the CPU's step,
+        and on the card the route before `ga_step_cuda` (with the fused
+        loss), which chip_smoke.py times beside it."""
         cfg = self.cfg
         b1, b2, eps = cfg.adam_b1, cfg.adam_b2, 1e-8
         # the schedules' fraction of the phase done, float32 as in JAX

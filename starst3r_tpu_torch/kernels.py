@@ -4,16 +4,16 @@ Each source is compiled on first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -shared`` into `starst3r_tpu_torch/_build/`,
 or the directory `utils.enable_compilation_cache` chose (the file name
 carries a hash of the source and of the shared headers, so an edited
-source builds anew; `ga_loss.cu` adds ``-fmad=false``) and loaded with
-ctypes. Each exports C functions
-(one named after its file, or ``gather_rows_bwd_split``; the compositing
-sources also a ``_packed`` route) that launch a kernel on the stream
-they are given and return the CUDA error code; `launch` raises on a
-non-zero code. `build` compiles several sources at once, one `nvcc`
-each, all started together. `build` and `library` also take another
-directory of the same sources (another revision of `csrc/`), which
-chip_smoke.py uses to time a parent commit's kernels beside these with
-the same nvcc line.
+source builds anew; `ga_loss.cu` and `ga_step.cu` add ``-fmad=false``)
+and loaded with ctypes. Each exports C functions (one named after its
+file, or ``gather_rows_bwd_split``, or `ga_step.cu`'s ``ga_reparam`` and
+``ga_update``; the compositing sources also a ``_packed`` route) that
+launch a kernel on the stream they are given and return the CUDA error
+code; `launch` raises on a non-zero code. `build` compiles several
+sources at once, one `nvcc` each, all started together. `build` and
+`library` also take another directory of the same sources (another
+revision of `csrc/`), which chip_smoke.py uses to time a parent commit's
+kernels beside these with the same nvcc line.
 """
 
 from __future__ import annotations
@@ -52,11 +52,14 @@ _EXPORTS = {
                         "gather_rows_bwd_split": [_P] * 4 + [_I] * 7 + [_P]},
     "ga_loss": {"ga_loss": [_P] * 10 + [_I] * 8 + [ctypes.c_float] * 5
                 + [_P]},
+    "ga_step": {"ga_reparam": [_P] * 5 + [_I] * 5 + [_P],
+                "ga_update": [_P] * 6 + [_I] * 6 + [ctypes.c_float] * 8
+                + [_P]},
 }
-# nvcc flags of one source beyond the common line: the GA's fused loss
-# rounds every product and sum on its own (no contraction into FMAs), as
-# the PyTorch ops of its plain version round them
-_FLAGS = {"ga_loss": ("-fmad=false",)}
+# nvcc flags of one source beyond the common line: the GA's fused loss and
+# its step round every product and sum on their own (no contraction into
+# FMAs), as the PyTorch ops of their plain versions round them
+_FLAGS = {"ga_loss": ("-fmad=false",), "ga_step": ("-fmad=false",)}
 KERNELS = tuple(_EXPORTS)
 _SOURCE_OF = {fn: name for name, fns in _EXPORTS.items() for fn in fns}
 

@@ -86,6 +86,17 @@ Tolerances:
     the CPU) than twice the float32 chain's distance; two launches, and a
     launch replayed in a CUDA graph, equal bit for bit; one call a GA step
     and no row-gather backward launch;
+  - the GA step's kernels (`csrc/ga_step.cu`: the reparameterisation, its
+    backward with the masked Adam) against their order in PyTorch on the
+    card, fed the same fused loss's output, on the CPU tests' cases (both
+    phases; frozen cameras, shared intrinsics, exp depth, the "mul" depth
+    mode, the lora basis, opt_pp off) and at the recon cells' shapes:
+    within 1e-6 of each output's largest magnitude (libdevice's
+    transcendentals, compiled with -fmad=false, against PyTorch's); two
+    steps, and a step replayed in a CUDA graph, equal bit for bit; a
+    replayed step launching at most 6 kernels; the whole GA on the card
+    against the CPU's with and without lora, frozen cameras, shared
+    intrinsics and the "mul" mode at the lora test's 1e-4;
   - the GA's captured step replayed on the card against the same step run
     eagerly on the card, on a small scene and at the JAX package's 512 px
     operating point: poses in the root frame, K, depth and the phase
@@ -1252,11 +1263,12 @@ def test_ga_graph_route_matches_eager_steps_on_cuda(dev, monkeypatch):
     """On the card each GA phase captures its step once and replays it,
     with one host read per ``jit_chunk`` steps. Against the same step run
     eagerly on the card (the scene of tests/test_torch_ga.py, 15 + 8
-    steps): poses in the root camera's frame, K and depth, each scaled by
-    its largest magnitude, within twice the distance of two eager runs
-    from each other (the backward's index adds use atomics), and never
-    held tighter than 1e-6. The step counter ends at ``niter``: the
-    warm-up steps before the capture did not leak into the phase."""
+    steps; the step's three launches, `ga_step.ga_step_cuda`): poses in
+    the root camera's frame, K and depth, each scaled by its largest
+    magnitude, within twice the distance of two eager runs from each
+    other, and never held tighter than 1e-6. The step counter ends at
+    ``niter``: the warm-up steps before the capture did not leak into the
+    phase."""
     from torch_ga_scene import ga_scene
     from starst3r_tpu_torch.alignment import ga
     data, mst = ga_scene(4)
@@ -1482,29 +1494,227 @@ def test_ga_loss_is_deterministic_and_graph_safe_on_cuda(dev, case, phase):
 
 
 def test_ga_loss_launches_per_step_on_cuda(dev):
-    """A GA step on the card launches the fused loss once and the
-    row-gather backward never; a capture counts its three warm-up steps
-    and the captured step, its replays nothing."""
+    """A GA step on the card calls the fused loss and the step's kernels
+    (`ga_step.ga_step_cuda`) once each and the row-gather backward never;
+    a capture counts its three warm-up steps and the captured step, its
+    replays nothing."""
     from torch_ga_scene import ga_scene
     from starst3r_tpu_torch.alignment import ga
     from starst3r_tpu_torch.alignment import ga_loss as gl
+    from starst3r_tpu_torch.alignment import ga_step as gs
     data, mst = ga_scene(4)
     cfg = stt.GAConfig()
     state = ga.make_state(data, mst, cfg, device=dev)
     counts = lambda: (gl.ga_loss_cuda.launches,
-                      ga.gather_rows_bwd_cuda.launches)
+                      ga.gather_rows_bwd_cuda.launches,
+                      gs.ga_step_cuda.launches)
     for phase in (1, 2):
         ph = ga._Phase(ga.init_params(data, device=dev), state, 20, 0.07,
                        0.0, 1.1, phase, cfg)
         before = counts()
         ph.step()
-        assert counts() == (before[0] + 1, before[1])
+        assert counts() == (before[0] + 1, before[1], before[2] + 1)
         graph = ga._capture(ph)
-        after = (before[0] + 1 + ga._WARMUP_STEPS + 1, before[1])
+        seen = 1 + ga._WARMUP_STEPS + 1
+        after = (before[0] + seen, before[1], before[2] + seen)
         assert counts() == after
         graph.replay()
         torch.cuda.synchronize()
         assert counts() == after and int(ph.count) == 2
+
+
+# the step's kernels (`csrc/ga_step.cu`) against their order in PyTorch on
+# the card (`ga_step.reparam_in_order`, `update_in_order`, fed the same
+# fused loss's output): the same arithmetic, where libdevice's expf, cosf,
+# powf and rsqrtf, compiled with -fmad=false, may round the last bit
+# otherwise than PyTorch's kernels of them, so within 1e-6 of each
+# output's largest magnitude (the params' update from a mid-run state)
+STEP_IN_ORDER_TOL = 1e-6
+STEP_SHAPES = ("ga_scene", "224x160", "512x384")
+
+
+def _step_scene(shape):
+    from torch_ga_scene import condensed_case, ga_scene
+    if shape == "ga_scene":
+        return ga_scene(4)
+    w, h = map(int, shape.split("x"))
+    return condensed_case(h, w)
+
+
+def _step_kernels_against_in_order(ph, data, mid):
+    """Launch `ga_reparam` and `ga_update` on a copy of the phase's state
+    and run their PyTorch order on another: {name: scaled difference},
+    and whether every output is equal bit for bit."""
+    from starst3r_tpu_torch.alignment import ga_step as gs
+    from starst3r_tpu_torch.alignment.ga_loss import ga_loss_cuda
+    old = [t.detach().clone() for t in ph.tensors()]
+    got = [t.clone() for t in old]
+    buf = gs.step_buffer(data)
+    gs.ga_reparam_cuda(got[:6], got[18], buf, data)
+    loss, grads = ga_loss_cuda(*gs.loss_inputs(buf, data), ph.fused)
+    fwd = {k: v.clone() for k, v in gs.fwd_views(buf, data).items()}
+    gs.ga_update_cuda(got, loss, grads, buf, data)
+    torch.cuda.synchronize()
+    want_fwd = gs.reparam_in_order(old[:6], old[18], data)
+    want = gs.update_in_order(old, loss, grads, fwd, data)
+    errs, equal = {}, True
+    for name, w in want_fwd.items():
+        errs[name] = _scaled(fwd[name].cpu(), w.cpu())
+        equal &= bool(torch.equal(fwd[name], w))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < 6 and not mid:
+            continue   # step 1: +-lr by a gradient's sign (the root's gauge)
+        if i < 6:
+            g, w = g - old[i], w - old[i]
+        errs[i] = _scaled(g.cpu(), w.cpu()) if g.is_floating_point() \
+            else float(not torch.equal(g, w))
+        equal &= bool(torch.equal(g, w))
+    return errs, equal
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("case", ["default", "frozen", "shared", "exp_depth",
+                                  "mul", "lora", "lora_exp", "opt_pp_off"])
+def test_ga_step_kernels_match_in_order_on_cuda(dev, case, phase):
+    """The step's two kernels against their order in PyTorch on the card,
+    on tests/test_torch_ga_step.py's cases, from the GA's start (step 1,
+    all log-sizes tied; the outputs, the moments) and from a mid-run
+    state (every output, the params' update too)."""
+    from torch_ga_scene import mid_run, step_phase
+    for perturb, mid in ((False, False), (True, True)):
+        ph, data = step_phase(case, phase, device=dev, perturb=perturb)
+        if mid:
+            mid_run(ph)
+        errs, _ = _step_kernels_against_in_order(ph, data, mid)
+        for name, err in errs.items():
+            assert err <= STEP_IN_ORDER_TOL, (name, err)
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("shape", STEP_SHAPES[1:])
+def test_ga_step_kernels_at_the_recon_shapes_on_cuda(dev, shape, phase):
+    """As above at the recon cells' condensed shapes (six views of
+    224 x 160 and 512 x 384: several depth blocks a camera, a stage-A
+    loop of several turns a thread)."""
+    from torch_ga_scene import mid_run, step_phase
+    ph, data = step_phase("default", phase, device=dev,
+                          scene=_step_scene(shape))
+    mid_run(ph)
+    errs, _ = _step_kernels_against_in_order(ph, data, True)
+    for name, err in errs.items():
+        assert err <= STEP_IN_ORDER_TOL, (name, err)
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("case", ["default", "lora"])
+def test_ga_step_is_deterministic_and_graph_safe_on_cuda(dev, case, phase):
+    """Two steps from the same state, and a step captured in a CUDA graph
+    and replayed from that state, give the same state bit for bit (no
+    atomics; a fixed summation order)."""
+    from torch_ga_scene import mid_run, step_phase
+    from starst3r_tpu_torch.alignment import ga_step as gs
+    ph, data = step_phase(case, phase, device=dev)
+    mid_run(ph)
+    start = [t.detach().clone() for t in ph.tensors()]
+    state = [t.detach() for t in ph.tensors()]
+
+    def restore():
+        for t, s in zip(state, start):
+            t.copy_(s)
+
+    runs = []
+    for _ in range(2):
+        restore()
+        gs.ga_step_cuda(state, ph.buf, data, ph.fused)
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in state])
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gs.ga_step_cuda(state, ph.buf, data, ph.fused)
+    restore()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs.append([t.clone() for t in state])
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+    assert int(runs[0][18]) == int(start[18]) + 1
+
+
+def _replay_kernels(graph):
+    """The kernels one replay of ``graph`` launches, from torch.profiler's
+    kernel events (copies and sets left out); None when the trace holds no
+    device event."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.key_averages()
+              if str(ev.device_type).endswith("CUDA")]
+    if not events:
+        return None
+    return sum(ev.count for ev in events
+               if not ev.key.startswith(("Memcpy", "Memset")))
+
+
+@pytest.mark.parametrize("shape", STEP_SHAPES)
+def test_ga_replayed_step_launches_at_most_six_kernels_on_cuda(dev, shape):
+    """A replayed GA step launches `ga_reparam`, the fused loss's two
+    kernels and `ga_update`: at most 6 kernels (429-453 with autograd
+    and the Python Adam), in both phases."""
+    from torch_ga_scene import step_phase
+    from starst3r_tpu_torch.alignment import ga
+    for phase in (1, 2):
+        ph, _ = step_phase("default", phase, device=dev,
+                           scene=_step_scene(shape))
+        graph = ga._capture(ph)
+        n = _replay_kernels(graph)
+        graph.reset()
+        assert n is not None, "the profiler saw no device event"
+        assert n <= 6, n
+
+
+@pytest.mark.parametrize("case", ["plain", "frozen", "lora_frozen",
+                                  "shared_mul"])
+def test_ga_on_cuda_matches_cpu(dev, case):
+    """The whole GA (15 + 8 steps) on the card, its replayed three-launch
+    step, against the same GA on the CPU (autograd, the losses' chain):
+    the lora test's tolerances (1e-4, poses in the root camera's frame).
+    The frozen camera is the root, which pins the scene's free rigid
+    motion (tests/test_torch_ga_chunk.py). Some other frozen sets make this
+    short GA chaotic: float32 rounding grows past 1e-4 within the 23 steps
+    on any route. On the CPU, the losses' chain and the fused loss under
+    autograd (the card's route before these kernels) part by 3.9e-4 with
+    cameras 1 and 3 frozen, and by 8.8e-4 with the lora basis and cameras
+    0 and 1 frozen, where the float64 GA lands 6.6e-2 away."""
+    from torch_ga_scene import ga_scene, lora_inputs
+    from starst3r_tpu_torch.alignment.ga import run_global_alignment
+    data, mst = ga_scene(4)
+    kw, extra = dict(niter1=15, niter2=8), {}
+    if case in ("frozen", "lora_frozen"):
+        extra["freeze"] = np.array([True, False, False, False])
+    if case == "lora_frozen":
+        basis, coeffs = lora_inputs(data)
+        kw.update(opt_depth=True, lora_depth=True, lora_k=16)
+        extra.update(depth_basis=basis, depth_coeffs=coeffs)
+    if case == "shared_mul":
+        kw.update(shared_intrinsics=True, depth_mode="mul", opt_depth=True)
+    cfg = stt.GAConfig(**kw)
+    res = {str(dv): run_global_alignment(data, mst, cfg, device=dv,
+                                         **extra)[0]
+           for dv in ("cpu", dev)}
+    c, g = res["cpu"], res[str(dev)]
+    root = mst[0]
+    rel = lambda m: (np.linalg.inv(m[root].astype(np.float64))[None] @ m)
+    np.testing.assert_allclose(rel(g.cam2w.cpu().numpy()),
+                               rel(c.cam2w.numpy()), atol=1e-4)
+    np.testing.assert_allclose(g.K.cpu().numpy(), c.K.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(g.depth.cpu().numpy(), c.depth.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(g.loss_coarse, c.loss_coarse, rtol=1e-4)
+    np.testing.assert_allclose(g.loss_fine, c.loss_fine, rtol=1e-4)
 
 
 def test_scene_checkpoint_round_trip_on_cuda(dev, tmp_path):

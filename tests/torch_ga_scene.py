@@ -120,3 +120,103 @@ def condensed_case(h, w, n_views=6, seed=0, subsample=8):
         corr_doff1=f32(rng.uniform(0.9, 1.1, m)),
         corr_doff2=f32(rng.uniform(0.9, 1.1, m)))
     return data, (0, [(i, i + 1) for i in range(c - 1)])
+
+
+# the GA step's cases (tests/test_torch_ga_step.py on the CPU, the kernels'
+# GPU tests): name -> (GAConfig keywords, the frozen cameras, lora basis)
+STEP_CASES = {
+    "default": ({}, None, False),
+    "frozen": ({}, (False, True, False, True), False),
+    "shared": (dict(shared_intrinsics=True), None, False),
+    "exp_depth": (dict(exp_depth=True, opt_depth=True), None, False),
+    "mul": (dict(depth_mode="mul", opt_depth=True), None, False),
+    "lora": (dict(opt_depth=True), None, True),
+    "lora_exp": (dict(opt_depth=True, exp_depth=True), None, True),
+    "opt_pp_off": (dict(opt_pp=False), None, False),
+}
+STEP_NITER = 20
+
+
+def lora_inputs(data, k=16, seed=2):
+    """(basis (C, S, k), coefficients (C, k)) of the scene's core depth
+    (`alignment/spectral.py`, from random colours on the core grid)."""
+    from starst3r_tpu_torch.alignment.spectral import (
+        spectral_projection_of_depthmaps)
+    c, s = data.core_depth.shape
+    side = int(round(np.sqrt(s)))
+    rng = np.random.default_rng(seed)
+    colors = rng.uniform(size=(c, s, 3)).astype(np.float32)
+    coeffs, basis = spectral_projection_of_depthmaps(
+        colors, data.core_depth, (side, s // side), k=k)
+    return np.asarray(basis, np.float32), np.asarray(coeffs, np.float32)
+
+
+def step_phase(case, phase, device="cpu", dtype=None, fused=True,
+               perturb=True, scene=None):
+    """A GA phase (`ga._Phase`) of a STEP_CASES case on ``device`` at a
+    perturbed start (params + 0.05 N(0, 1), seed 0), and its
+    `ga_step.StepData`. ``scene``: (CondensedData, mst), tests/
+    test_torch_ga.py's 4-camera scene by default. On the CPU ``fused``
+    gives the phase the fused loss (`GALoss`), else the losses' chain;
+    ``dtype`` float64 casts the state and params (the chain's step in
+    float64)."""
+    import torch
+    from starst3r_tpu_torch.alignment import ga, ga_loss, ga_step
+    from starst3r_tpu_torch.config import GAConfig
+    kw, freeze, lora = STEP_CASES[case]
+    cfg = GAConfig(**kw)
+    data, mst = scene if scene is not None else ga_scene(4)
+    basis, coeffs = lora_inputs(data) if lora else (None, None)
+    freeze = None if freeze is None else np.array(freeze)
+    state = ga.make_state(data, mst, cfg, freeze, depth_basis=basis,
+                          device=device)
+    params = ga.init_params(data, device=device)
+    if lora:
+        params = params._replace(core_depth=torch.from_numpy(coeffs).to(
+            device))
+    if cfg.exp_depth:
+        params = params._replace(core_depth=torch.log(torch.clamp(
+            params.core_depth, min=1e-4)))
+    if perturb:
+        g = torch.Generator().manual_seed(0)
+        params = ga.GAParams(*[
+            p + 0.05 * torch.randn(p.shape, generator=g).to(device)
+            for p in params])
+    if dtype == torch.float64:
+        state = state._replace(**{
+            k: v.double() for k, v in state._asdict().items()
+            if isinstance(v, torch.Tensor) and v.is_floating_point()})
+        params = ga.GAParams(*[p.double() for p in params])
+    gamma, lr = (cfg.gamma1, cfg.lr1) if phase == 1 else (cfg.gamma2,
+                                                          cfg.lr2)
+    ph = ga._Phase(params, state, STEP_NITER, lr, cfg.lr_end, gamma, phase,
+                   cfg)
+    if fused and ph.fused is None:
+        ph.fused = ga_loss.make_loss_data(state, phase, gamma, cfg.gamma_d,
+                                          cfg.loss_dust3r_w)
+    return ph, ga_step.make_step_data(state, phase, STEP_NITER, lr,
+                                      cfg.lr_end, cfg)
+
+
+MID_COUNT = 7
+
+
+def mid_run(ph, seed=1):
+    """Set the phase's count to MID_COUNT and its moments at each leaf's
+    gradient scale: mu ~ 0.1 N(0, 1) max|g|, nu ~ 0.1 U(0.5, 1.5) max|g|^2
+    (g: the autograd gradient at alpha 0.5), so one Adam step is a smooth
+    function of the gradient everywhere, the root camera's gauge too."""
+    import torch
+    dtype, dev = ph.params[0].dtype, ph.params[0].device
+    grads = torch.autograd.grad(ph.loss(torch.tensor(0.5, dtype=dtype,
+                                                     device=dev)),
+                                ph.params)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        ph.count.fill_(MID_COUNT)
+        for mu, nu, gr in zip(ph.mu, ph.nu, grads):
+            sc = float(gr.abs().max()) or 1.0
+            mu.copy_(torch.randn(mu.shape, generator=g).to(dev, dtype)
+                     * 0.1 * sc)
+            nu.copy_((torch.rand(nu.shape, generator=g).to(dev, dtype)
+                      + 0.5) * 0.1 * sc * sc)
