@@ -152,24 +152,21 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      chain's kernels' device ms), the step's kernels (`ga_step_report`:
      `ga_reparam` and `ga_update` against their order in PyTorch on the
      card within GA_STEP_IN_ORDER_TOL, bit for bit reported, each one's
-     device ms beside its bound, the parent's autograd step's kernels),
-     and one replayed coarse step on each of STEP_ROUTES (`replay_report`:
-     the step's kernels, the parent's autograd step around the same fused
-     loss, the losses' chain; ms by CUDA events over 50 replays,
-     device-busy ms, the kernels one replay launches by the profiler's
-     kernel events, at most STEP_MAX_KERNELS on the kernels' route) and
-     the kernels' route's five costliest kernels. Step 2 itself checks
-     that its two GA calls captured 4 steps, replayed 2 x 700 and read the
-     host 2 x (10 + 4) times, and that they called the fused loss and the
-     step (`ga_step.ga_step_cuda`) as often as the counters can see, once
-     in each of each phase's three warm-up steps and its capture (16), and
-     launched the row-gather backward never. Its seconds are on a
+     device ms beside its bound), and one replayed coarse step
+     (`replay_report`: ms by CUDA events over 50 replays, device-busy ms,
+     the kernels one replay launches by the profiler's kernel events, at
+     most STEP_MAX_KERNELS) and its five costliest kernels. Step 2 itself
+     checks that its two GA calls captured 4 steps, replayed 2 x 700 and
+     read the host 2 x (10 + 4) times, and that they called the fused loss
+     and the step (`ga_step.ga_step_cuda`) as often as the counters can
+     see, once in each of each phase's three warm-up steps and its capture
+     (16), and launched the row-gather backward never. Its seconds are on a
      `[stages] slice 8:` line;
- 18. `[ga-gather]` (run after step 2, before `[ga-graph]`): the GA's
-     row-gather backward kernel against its plain version
-     (``index_add_``, summed in float64) on the card, at each of the six
-     gather sites' shapes on two GAStates: the first add_images call's
-     condensed data and the JAX package's 512 px operating point
+ 18. `[ga-gather]` (run after step 2, before `[ga-graph]`): the
+     row-sum kernel (`ops/row_sum.py`) against its plain version
+     (``index_add_``, summed in float64) on the card, at each of the JAX
+     GA's six gather sites' shapes on two GAStates: the first add_images
+     call's condensed data and the JAX package's 512 px operating point
      (`[ga-512]`'s scene), with their indices' CSR and a seeded
      cotangent: within 1e-5 (1 + max|plain|), equal bit for bit to
      `_gather_rows_bwd_in_order` (the kernel's summation order in
@@ -954,7 +951,8 @@ def launch_counters():
     """{exported kernel function: the wrapper that counts its launches (the
     fused loss's calls, two kernels each; the GA step's calls, its
     `ga_reparam`, the fused loss and `ga_update`)}."""
-    from starst3r_tpu_torch.alignment import ga, ga_loss, ga_step
+    from starst3r_tpu_torch.alignment import ga_loss, ga_step
+    from starst3r_tpu_torch.ops import row_sum
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
     return {"ga_loss": ga_loss.ga_loss_cuda,
             "ga_step": ga_step.ga_step_cuda,
@@ -963,7 +961,7 @@ def launch_counters():
             "composite_fwd": comp.composite_tiles_cuda,
             "composite_bwd": comp.composite_tiles_bwd_cuda,
             "gather_entries": gat.gather_entries_cuda,
-            "gather_rows_bwd": ga.gather_rows_bwd_cuda}
+            "gather_rows_bwd": row_sum.gather_rows_bwd_cuda}
 
 
 def set_launches(value=0):
@@ -2540,18 +2538,19 @@ def ga_loss_calls(cfg):
                for n in (cfg.niter1, cfg.niter2) if n)
 
 
+# each JAX `_gather_rows` site's line in starst3r_tpu/alignment/ga.py
+GATHER_LINES = {"depth": 346, "K": 348, "cam2w": 354, "proj": 385,
+                "pair_cam2w": 405, "pair_pts3d": 411}
+
+
 def gather_sites(state):
-    """The six JAX `_gather_rows` sites on ``state``'s indices: (name, line
-    in starst3r_tpu/alignment/ga.py, table rows R, width D, idx, its
+    """The six JAX `_gather_rows` sites on ``state``'s own indices: (name,
+    line in starst3r_tpu/alignment/ga.py, table rows R, width D, idx, its
     CSR)."""
-    ix = state.gathers
-    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
-    return (("depth", 346, c * s, 1, *ix.depth1),
-            ("K", 348, c, 9, *ix.img1),
-            ("cam2w", 354, c, 16, *ix.img1),
-            ("proj", 385, c, 12, *ix.img1),
-            ("pair_cam2w", 405, c, 16, *ix.pair_img2),
-            ("pair_pts3d", 411, c, s * 3, *ix.pair_img1))
+    from starst3r_tpu_torch.ops.row_sum import _gather_csr
+    from torch_ga_scene import state_sites
+    return tuple((name, GATHER_LINES[name], r, d, idx, _gather_csr(idx, r))
+                 for name, (r, d, idx) in state_sites(state).items())
 
 
 def site_cotangent(m, d, dev, seed=0):
@@ -2577,7 +2576,7 @@ def ga_gather_phase(points, dev):
     the 512 px operating point). Returns the kernels line's case (the main
     path's six sites summed), the 512 px sites' sum and the seconds."""
     import torch
-    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.ops import row_sum
     t0 = time.perf_counter()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     totals = {}
@@ -2586,7 +2585,7 @@ def ga_gather_phase(points, dev):
         for name, line, r, d, idx, csr in gather_sites(state):
             m = idx.numel()
             ct = site_cotangent(m, d, dev)
-            kernel = lambda: ga.gather_rows_bwd_cuda(ct, *csr)
+            kernel = lambda: row_sum.gather_rows_bwd_cuda(ct, *csr)
             got, again = kernel(), kernel()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
@@ -2595,8 +2594,8 @@ def ga_gather_phase(points, dev):
             graph.replay()
             # the plain version summed in float64: float32 index_add_ adds
             # with atomics, as far from the exact sum as the kernel
-            want = ga._gather_rows_bwd_plain(idx, ct.double(), r)
-            in_order = ga._gather_rows_bwd_in_order(ct, *csr)
+            want = row_sum._gather_rows_bwd_plain(idx, ct.double(), r)
+            in_order = row_sum._gather_rows_bwd_in_order(ct, *csr)
             torch.cuda.synchronize()
             err = float((got.double() - want).abs().max())
             tol = GATHER_TOL * (1 + float(want.abs().max()))
@@ -2623,8 +2622,8 @@ def ga_gather_phase(points, dev):
             # the plain version is the library call, zeros + index_add_:
             # one timing fills both fields
             plain_ms = device_ms(
-                lambda: ga._gather_rows_bwd_plain(idx, ct, r), reps=50)
-            plan = ga._gather_plan(m, r, d)
+                lambda: row_sum._gather_rows_bwd_plain(idx, ct, r), reps=50)
+            plan = row_sum._gather_plan(m, r, d)
             gx, gy = plan.grid(r, d)
             case = {
                 "name": name,
@@ -2665,35 +2664,24 @@ def ga_gather_phase(points, dev):
     return totals, {"ga_gather": time.perf_counter() - t0}
 
 
-# the routes of a GA step on the card that `replay_report` compares: the
+# the GA's step on the card, the one route `replay_report` times: the
 # step's kernels (`ga_step.ga_step_cuda`: ga_reparam, the fused loss,
-# ga_update; the main path), the parent revision's step (autograd and the
-# Python Adam around the same fused loss, whose source this revision did
-# not change, so the parent's route runs in process and `--parent-csrc`
-# adds nothing to it), and the step before the fused loss (autograd through
-# the losses' chain)
-STEP_ROUTES = ("kernels", "autograd + fused loss", "autograd chain")
-# a replayed step of the kernels' route launches ga_reparam, the fused
-# loss's two kernels and ga_update
+# ga_update)
+STEP_ROUTES = ("kernels",)
+# a replayed step launches ga_reparam, the fused loss's two kernels and
+# ga_update
 STEP_MAX_KERNELS = 6
 
 
-def replayed_step(data, mst, cfg, dev, route=STEP_ROUTES[0]):
-    """One replayed coarse step of the GA on ``data`` by ``route`` (one of
-    STEP_ROUTES): (ms by CUDA events over 50 replays, device-busy ms by
-    torch.profiler or None, {kernel: ms a step}, the kernels one replay
-    launches by the profiler's kernel events, or None). CUDA events around
-    a loop of replays, not `device_ms`: a replay of the autograd routes
-    queues hundreds of kernels, so the spin would fill the launch
-    queue."""
+def replayed_step(data, mst, cfg, dev):
+    """One replayed coarse step of the GA on ``data``: (ms by CUDA events
+    over 50 replays, device-busy ms by torch.profiler or None, {kernel: ms
+    a step}, the kernels one replay launches by the profiler's kernel
+    events, or None)."""
     from starst3r_tpu_torch.alignment import ga
     ph = ga._Phase(ga.init_params(data, device=dev),
                    ga.make_state(data, mst, cfg, device=dev), cfg.niter1,
                    cfg.lr1, cfg.lr_end, cfg.gamma1, 1, cfg)
-    if route != STEP_ROUTES[0]:
-        ph.step = ph.autograd_step
-    if route == STEP_ROUTES[2]:
-        ph.fused = None
     graph = ga._capture(ph)
     step_ms = cuda_ms(graph.replay, 50)
     busy_ms, by_kernel = profiled_ms(graph.replay, 10)
@@ -2722,16 +2710,15 @@ def replay_kernels(graph, tries=2):
 
 
 def ga_loss_plain(K, cam2w, depth, proj, state, phase, gamma, alpha, cfg):
-    """The losses' autograd chain (`ga._Phase.loss` off the card): the
+    """The losses' autograd chain (`ga._Phase.loss`, the CPU's step): the
     fused loss's plain version."""
     from starst3r_tpu_torch.alignment import ga
-    ix = state.gathers
     if phase == 1:
-        main = ga._loss_3d(K, cam2w, depth, state, gamma, alpha, ix)
+        main = ga._loss_3d(K, cam2w, depth, state, gamma, alpha)
     else:
-        main = ga._loss_2d(K, cam2w, depth, proj, state, gamma, alpha, ix)
+        main = ga._loss_2d(K, cam2w, depth, proj, state, gamma, alpha)
     reg = ga._loss_dust3r(ga._core_pts3d(K, cam2w, depth, state), cam2w,
-                          state, cfg.gamma_d, ix)
+                          state, cfg.gamma_d)
     return main + cfg.loss_dust3r_w * reg
 
 
@@ -2830,12 +2817,11 @@ def ga_loss_report(tag, data, mst, cfg, dev):
 
 
 def replay_report(tag, data, mst, cfg, dev):
-    """One replayed coarse step by each of STEP_ROUTES: ms a step,
-    device-busy ms and the kernels one replay launches; the kernels'
-    route launches at most STEP_MAX_KERNELS where the profiler counts
-    them. Returns the kernels' route's (ms, busy, {kernel: ms}) and
-    {route: (ms, busy, kernels)}."""
-    routes = {route: replayed_step(data, mst, cfg, dev, route)
+    """One replayed coarse step: ms a step, device-busy ms and the kernels
+    one replay launches, at most STEP_MAX_KERNELS where the profiler
+    counts them. Returns (ms, busy, {kernel: ms}) and {route: (ms, busy,
+    kernels)}."""
+    routes = {route: replayed_step(data, mst, cfg, dev)
               for route in STEP_ROUTES}
     for name, (step_ms, busy_ms, by_kernel, n) in routes.items():
         print(f"{tag} a replayed coarse step, {name}: {step_ms:.4f} ms "
@@ -2854,10 +2840,8 @@ def ga_step_report(tag, data, mst, cfg, dev):
     """The GA step's two kernels (`ga_step.ga_reparam_cuda`,
     `ga_update_cuda`) on ``data`` at the GA's start, in each phase: each
     against its order in PyTorch on the card (fed the same fused loss's
-    output), each one's device ms beside its bound, and the autograd
-    step's kernels (the parent's route: make_K_cam_depth's forward and
-    backward and the Python Adam around the fused loss) by the profiler.
-    Returns {phase: case}."""
+    output), and each one's device ms beside its bound. Returns {phase:
+    case}."""
     import torch
     from starst3r_tpu_torch.alignment import ga, ga_step as gs
     from starst3r_tpu_torch.alignment.ga_loss import ga_loss_cuda
@@ -2872,7 +2856,7 @@ def ga_step_report(tag, data, mst, cfg, dev):
         got = [t.clone() for t in old]
         buf = gs.step_buffer(sd)
         gs.ga_reparam_cuda(got[:6], got[18], buf, sd)
-        loss, grads = ga_loss_cuda(*gs.loss_inputs(buf, sd), ph.fused)
+        loss, grads = ga_loss_cuda(*gs.loss_inputs(buf, sd), ph.loss_data)
         fwd = {k: v.clone() for k, v in gs.fwd_views(buf, sd).items()}
         gs.ga_update_cuda(got, loss, grads, buf, sd)
         want_fwd = gs.reparam_in_order(old[:6], old[18], sd)
@@ -2889,11 +2873,6 @@ def ga_step_report(tag, data, mst, cfg, dev):
             state_now[:6], state_now[18], buf, sd), reps=50)
         update_ms = device_ms(lambda: gs.ga_update_cuda(
             state_now, loss, grads, buf, sd), reps=50)
-
-        def autograd_step():
-            ph.autograd_step()
-
-        plain_ms, _ = profiled_ms(autograd_step, 5)
         c, s, k = sd.dims
         leaves = 11 * c + c * (k or s)
         cam_out = (9 + 16 + 16 + 12 + 24) * c
@@ -2911,16 +2890,13 @@ def ga_step_report(tag, data, mst, cfg, dev):
                       "reparam_bytes": r_bytes, "update_bytes": u_bytes,
                       "reparam_bound_ms": r_bound,
                       "update_bound_ms": u_bound,
-                      "autograd_step_ms": plain_ms,
                       "in_order_err": max(errs), "in_order_equal": equal,
                       "dims": sd.dims}
         print(f"{tag} step kernels, phase {phase} (C, S, k) = {sd.dims}: "
               f"ga_reparam {reparam_ms:.4f} ms (bound {r_bound:.5f} ms, "
               f"bytes: {r_bytes} B), ga_update {update_ms:.4f} ms (bound "
-              f"{u_bound:.5f} ms, bytes: {u_bytes} B); the autograd step "
-              f"around the fused loss "
-              + (f"{plain_ms:.4f} ms of kernels" if plain_ms else
-                 "not measured") + f"; against their order in PyTorch "
+              f"{u_bound:.5f} ms, bytes: {u_bytes} B); against their order "
+              f"in PyTorch "
               f"{max(errs):.3g} (limit {GA_STEP_IN_ORDER_TOL}), bit for "
               f"bit {equal}", flush=True)
         check(max(errs) <= GA_STEP_IN_ORDER_TOL, f"{tag} the step's "
@@ -2931,11 +2907,10 @@ def ga_step_report(tag, data, mst, cfg, dev):
 
 def step_row(cases, shapes):
     """The `kernels` line's case of the GA step's kernels: phase 1 at the
-    main path's first GA call (both kernels' ms and bytes, the autograd
-    step's kernels as the plain version), the rest as they are."""
+    main path's first GA call (both kernels' ms and bytes; no plain
+    version runs on the card), the rest as they are."""
     one = cases[1]
-    return {"ms": one["reparam_ms"] + one["update_ms"],
-            "plain_ms": one["autograd_step_ms"],
+    return {"ms": one["reparam_ms"] + one["update_ms"], "plain_ms": None,
             "bytes": one["reparam_bytes"] + one["update_bytes"], "ops": 0,
             "phase1": one, "phase2": cases[2], "replay": cases["replay"],
             "at_shapes": shapes}
@@ -2947,7 +2922,7 @@ def ga512_phase(dev):
     test_ga_512px_scale_memory's scene and GAConfig) on the card: finite
     poses, the graph route's counts, the row-gather backward's launches
     (each phase's warm-up steps and capture); the GA's seconds, the ATE,
-    one replayed coarse step's time and kernels by each of STEP_ROUTES,
+    one replayed coarse step's time and kernels,
     and the step's kernels (`ga_step_report`), here and at the recon cells'
     condensed shapes. Returns (the seconds, the fused loss's cases, the
     step's cases)."""
@@ -3011,8 +2986,8 @@ def ga512_phase(dev):
 def parent_rows_bwd(parent_csrc):
     """The parent revision's row-gather backward (its `gather_rows_bwd`
     export: one block a row, its shape chosen in C) as a stand-in for
-    `ga.gather_rows_bwd_cuda`, counting its own launches; None where the
-    parent's source has no such export."""
+    `row_sum.gather_rows_bwd_cuda`, counting its own launches; None where
+    the parent's source has no such export."""
     import torch
     from starst3r_tpu_torch import kernels
     fn = getattr(kernels.library("gather_rows_bwd", parent_csrc),
@@ -3043,13 +3018,13 @@ def ga_side_by_side(parent_csrc, points, dev):
     longer launches it (the fused loss holds the gathers), so only the
     sites are compared."""
     import torch
-    from starst3r_tpu_torch.alignment import ga
+    from starst3r_tpu_torch.ops import row_sum
     parent = parent_rows_bwd(parent_csrc)
     if parent is None:
         print("[side-by-side] the parent's source has no gather_rows_bwd: "
               "the GA's row gather is not compared", flush=True)
         return
-    routes = {"parent": parent, "new": ga.gather_rows_bwd_cuda}
+    routes = {"parent": parent, "new": row_sum.gather_rows_bwd_cuda}
     turns = ("parent", "new", "new", "parent")
     for point, state in points.items():
         sums = {side: 0.0 for side in routes}
@@ -3145,9 +3120,9 @@ def ga_graph_phase(call, dev):
               f"{err} (limit {tol})")
 
     # the fused loss at this data (checked against the autograd chain);
-    # one replayed coarse step's time, its kernels and its launches, on the
-    # fused loss and on the chain, on a phase captured from the same data
-    # at the GA's start (reported, not checked); where the profiler's
+    # the step's kernels; one replayed coarse step's time, its kernels and
+    # its launches, on a phase captured from the same data at the GA's
+    # start (reported, not checked); where the profiler's
     # device-busy time matches it, the step is device-bound
     loss_cases = ga_loss_report("[ga-graph]", data, mst, cfg, dev)
     step_cases = ga_step_report("[ga-graph]", data, mst, cfg, dev)
@@ -4272,8 +4247,10 @@ def main():
                if "gathers" in case else {}),
             **({key: case[key] for key in ("parts", "plan", "phase2",
                                              "at_shapes") if key in case})})
+        plain_ms = case["plain_ms"]
         print(f"[kernel] {name} ({function}): {case['ms']:.4f} ms, plain "
-              f"{case['plain_ms']:.4f} ms, library "
+              f"{'none' if plain_ms is None else round(plain_ms, 4)} ms, "
+              f"library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}"
               f" ms, bound {bound_ms:.4f} ms ({bound_by}: {case['bytes']} B,"
               f" {case['ops']} ops), bound over every pair walked "

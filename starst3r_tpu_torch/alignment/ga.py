@@ -24,24 +24,21 @@ as fixed leaf tensors, Adam's moments, the step counter, the freeze flag
 and the last finite loss, advanced in place. The LR, the annealing alpha
 and Adam's bias correction are computed from the step counter on the
 device, and the NaN freeze is a ``where`` that keeps the previous params,
-moments and loss once a loss is non-finite, so no step reads the host. On
-the CPU the steps run eagerly. On the card the step is captured once per
-phase as a CUDA graph and replayed, the counterpart of the JAX package's
-jitted ``fori_loop`` chunk; a capture that fails raises. On the card a
+moments and loss once a loss is non-finite, so no step reads the host.
+
+`_Phase.step` has one route a device. On the card the step is captured
+once per phase as a CUDA graph and replayed, the counterpart of the JAX
+package's jitted ``fori_loop`` chunk, and a capture that fails raises; the
 step is three hand-written launches and no autograd
 (`ga_step.ga_step_cuda`): the reparameterisation (`csrc/ga_step.cu`), the
 losses and their gradient with respect to its outputs (`csrc/ga_loss.cu`,
 `ga_loss.ga_loss_cuda`), and the reparameterisation's backward with the
-masked Adam step (`csrc/ga_step.cu`); each has a fixed summation order and
-no atomics, so a step gives the same bits every time, and their static
-inputs each phase builds outside the captured step. On the CPU the step is
-autograd through `make_K_cam_depth` and the losses' chain below (the plain
-version), the Adam step written in PyTorch; the losses' chain
-whose six gathers of camera and depth rows (the JAX package's
-`_gather_rows` sites) go through `_gather_rows`, whose backward sums each
-table row's cotangent rows with ``index_add_`` (on the card with
-`csrc/gather_rows_bwd.cu`, `ops/row_sum.py`). The indices' row order
-(CSR) is built once a GA call, by `make_state`, for both. The
+masked Adam step (`csrc/ga_step.cu`). Each has a fixed summation order and
+no atomics, so a step gives the same bits every time; their static inputs
+each phase builds outside the captured step. On the CPU the steps run
+eagerly: autograd through `make_K_cam_depth` and the losses' chain below
+(the plain version, whose gathers of camera and depth rows are plain
+indexing), then the masked Adam step in PyTorch (`_Phase.update`). The
 correspondences are float32 and the matmuls run at full float32 (no TF32:
 the GA has no convolutions and CUDA matmuls default to full precision).
 """
@@ -54,17 +51,13 @@ import numpy as np
 import torch
 
 from ..config import GAConfig
-# the row sum's helpers: the GA's tests and chip_smoke.py find them here
-from ..ops.row_sum import (_RowsPlan, _gather_csr,  # noqa: F401
-                           _gather_plan, _gather_rows_bwd_in_order,
-                           gather_rows_bwd_cuda)
 from ..utils.checkpoint import tree_prefix_overwrite
 from ..utils.device import resolve_device
 from ..utils.profiling import NULL_SPAN, span
 from ..utils.schedules import cosine_schedule, meta_gamma_loss
 from ..utils.se3 import quat_normalize, quat_to_rotmat, se3_inverse
 from .condense import CondensedData
-from .ga_loss import GALoss, make_loss_data
+from .ga_loss import make_loss_data
 from .ga_step import (build_kernels, ga_step_cuda, make_step_data,
                       step_buffer)
 
@@ -114,9 +107,6 @@ class GAState(NamedTuple):
     # lora_depth: params.core_depth holds (C, k) spectral coefficients and
     # the core depth is basis @ coeffs inside the loss (alignment/spectral)
     depth_basis: Optional[torch.Tensor] = None   # (C, S, k)
-    # the losses' gather indices with their row order (`_GatherIndices`),
-    # built once by make_state for both phases
-    gathers: Optional[Tuple] = None
 
 
 def init_params(data: CondensedData, device="cuda") -> GAParams:
@@ -145,7 +135,7 @@ def make_state(data: CondensedData, mst: Tuple[int, Any], cfg: GAConfig,
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
     m = len(data.corr_idx1)
-    state = GAState(
+    return GAState(
         imsizes=f32(data.imsizes), base_focals=f32(data.base_focals),
         median_depths=f32(data.median_depths), core_pix=f32(data.core_pix),
         corr_img1=i64(data.corr_img1), corr_idx1=i64(data.corr_idx1),
@@ -171,7 +161,6 @@ def make_state(data: CondensedData, mst: Tuple[int, Any], cfg: GAConfig,
         min_focals=f32(cfg.min_focal_factor * diags),
         max_focals=f32(cfg.max_focal_factor * diags),
         depth_basis=None if depth_basis is None else f32(depth_basis))
-    return state._replace(gathers=_gather_indices(state))
 
 
 def make_K_cam_depth(params: GAParams, state: GAState,
@@ -257,81 +246,17 @@ def _core_pts3d(K, cam2w, depth, state: GAState):
             + cam2w[:, None, :3, 3])
 
 
-def _gather_rows_bwd_plain(idx: torch.Tensor, ct: torch.Tensor,
-                           nrows: int) -> torch.Tensor:
-    """The backward kernel's plain version: d[r] = sum of ct[m] over the
-    m with idx[m] == r, (nrows, D). The CPU route and the tests use it."""
-    return ct.new_zeros((nrows,) + tuple(ct.shape[1:])).index_add_(0, idx, ct)
-
-
-class _GatherRows(torch.autograd.Function):
-    """``table[idx]`` for a table (R, D) whose backward sums each row's
-    cotangent rows with the kernel (CUDA tensors) or ``index_add_`` (CPU
-    tensors), the JAX package's `_gather_rows` (its TPU backward is a one-hot
-    contraction, which computes the same sum)."""
-
-    @staticmethod
-    def forward(ctx, table, idx, order, offsets):
-        if table.dim() != 2:
-            raise ValueError(f"the table must be (R, D), got {table.shape}")
-        ctx.save_for_backward(idx, order, offsets)
-        return table[idx]
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, ct):
-        idx, order, offsets = ctx.saved_tensors
-        if ct.is_cuda:
-            d = gather_rows_bwd_cuda(ct.contiguous(), order, offsets)
-        elif ct.device.type == "cpu":
-            d = _gather_rows_bwd_plain(idx, ct, offsets.numel() - 1)
-        else:
-            raise ValueError(f"no row-gather backward for device {ct.device}")
-        return d, None, None, None
-
-
-def _gather_rows(table: torch.Tensor, idx: torch.Tensor,
-                 csr: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """``table[idx]`` (M, D), differentiable in ``table``; ``csr`` is
-    `_gather_csr(idx, R)`."""
-    return _GatherRows.apply(table, idx, *csr)
-
-
-class _GatherIndices(NamedTuple):
-    """The losses' gather indices, each as (idx, its `_gather_csr`): the
-    correspondences' depth rows (img * S + idx over the C * S rows of the
-    flattened core depth), their cameras, and the pairs' cameras."""
-
-    depth1: Tuple
-    depth2: Tuple
-    img1: Tuple
-    img2: Tuple
-    pair_img1: Tuple
-    pair_img2: Tuple
-
-
-def _gather_indices(state: GAState) -> _GatherIndices:
-    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
-    rows = lambda idx, n: (idx, _gather_csr(idx, n))
-    return _GatherIndices(
-        depth1=rows(state.corr_img1 * s + state.corr_idx1, c * s),
-        depth2=rows(state.corr_img2 * s + state.corr_idx2, c * s),
-        img1=rows(state.corr_img1, c), img2=rows(state.corr_img2, c),
-        pair_img1=rows(state.pair_img1, c),
-        pair_img2=rows(state.pair_img2, c))
-
-
-def _endpoint_pts(K, cam2w, depth, cam, point, pix, doff):
+def _endpoint_pts(K, cam2w, depth, img, idx, pix, doff):
     """World position of anchored correspondence endpoints (M, 3): the ray
-    through ``pix`` at depth core_depth[img, idx] * doff. ``cam`` and
-    ``point`` are the endpoints' camera and depth-row gather indices."""
+    through ``pix`` of camera ``img`` at depth core_depth[img, idx] *
+    doff."""
     c, s = depth.shape
-    z = _gather_rows(depth.reshape(c * s, 1), *point)[:, 0] * doff
-    Km = _gather_rows(K.reshape(c, 9), *cam)
+    z = depth.reshape(c * s)[img * s + idx] * doff
+    Km = K.reshape(c, 9)[img]
     x = (pix[:, 0] - Km[:, 2]) / Km[:, 0] * z
     y = (pix[:, 1] - Km[:, 5]) / Km[:, 4] * z
     cam_pts = torch.stack([x, y, z], dim=-1)
-    Tm = _gather_rows(cam2w.reshape(c, 16), *cam).reshape(-1, 4, 4)
+    Tm = cam2w[img]
     return torch.einsum("mij,mj->mi", Tm[:, :3, :3], cam_pts) + Tm[:, :3, 3]
 
 
@@ -339,33 +264,30 @@ def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
-def _loss_3d(K, cam2w, depth, state: GAState, gamma: float, alpha,
-             ix: _GatherIndices):
+def _loss_3d(K, cam2w, depth, state: GAState, gamma: float, alpha):
     """3D-3D correspondence loss over matching-ok, non-frozen pairs
     (reference reconstruct.py:325-353)."""
     ok = state.pair_matching_ok[state.corr_pair]
     both_frozen = state.freeze[state.corr_img1] & state.freeze[state.corr_img2]
     wgt = state.corr_conf * ok * (~both_frozen)
-    p1 = _endpoint_pts(K, cam2w, depth, ix.img1, ix.depth1, state.corr_pix1,
-                       state.corr_doff1)
-    p2 = _endpoint_pts(K, cam2w, depth, ix.img2, ix.depth2, state.corr_pix2,
-                       state.corr_doff2)
+    p1 = _endpoint_pts(K, cam2w, depth, state.corr_img1, state.corr_idx1,
+                       state.corr_pix1, state.corr_doff1)
+    p2 = _endpoint_pts(K, cam2w, depth, state.corr_img2, state.corr_idx2,
+                       state.corr_pix2, state.corr_doff2)
     dist = _norm(p1 - p2 + 1e-12)
     loss = torch.sum(wgt * meta_gamma_loss(dist, gamma, alpha))
     return loss / torch.clamp(torch.sum(wgt), min=1e-8)
 
 
-def _loss_2d(K, cam2w, depth, proj, state: GAState, gamma: float, alpha,
-             ix: _GatherIndices):
+def _loss_2d(K, cam2w, depth, proj, state: GAState, gamma: float, alpha):
     """2D reprojection loss (reference reconstruct.py:355-369): project the
     matched point of image 2 into image 1 through ``proj`` = K @ w2c[:, :3]
     (C, 3, 4)."""
     ok = state.pair_matching_ok[state.corr_pair]
     wgt = state.corr_conf * ok * (~state.freeze[state.corr_img1])
-    p2 = _endpoint_pts(K, cam2w, depth, ix.img2, ix.depth2, state.corr_pix2,
-                       state.corr_doff2)
-    pm = _gather_rows(proj.reshape(-1, 12),
-                      *ix.img1).reshape(-1, 3, 4)      # (M, 3, 4)
+    p2 = _endpoint_pts(K, cam2w, depth, state.corr_img2, state.corr_idx2,
+                       state.corr_pix2, state.corr_doff2)
+    pm = proj[state.corr_img1]                        # (M, 3, 4)
     homo = torch.einsum("mij,mj->mi", pm[:, :, :3], p2) + pm[:, :, 3]
     z = homo[:, 2:3]
     z = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
@@ -375,19 +297,16 @@ def _loss_2d(K, cam2w, depth, proj, state: GAState, gamma: float, alpha,
     return loss / torch.clamp(torch.sum(wgt), min=1e-8)
 
 
-def _loss_dust3r(pts3d, cam2w, state: GAState, gamma: float,
-                 ix: _GatherIndices):
+def _loss_dust3r(pts3d, cam2w, state: GAState, gamma: float):
     """Regression fallback for low-matching pairs
     (reference reconstruct.py:283-323)."""
     bad = ~state.pair_matching_ok
     both_frozen = state.freeze[state.pair_img1] & state.freeze[state.pair_img2]
     pair_w = bad & (~both_frozen)
-    Tp = _gather_rows(cam2w.reshape(-1, 16), *ix.pair_img2).reshape(-1, 4, 4)
+    Tp = cam2w[state.pair_img2]                       # (P, 4, 4)
     tgt = (torch.einsum("pij,psj->psi", Tp[:, :3, :3], state.preds21_pts)
            + Tp[:, None, :3, 3])
-    c, s = pts3d.shape[0], pts3d.shape[1]
-    ours = _gather_rows(pts3d.reshape(c, s * 3),
-                        *ix.pair_img1).reshape(-1, s, 3)  # (P, S, 3)
+    ours = pts3d[state.pair_img1]                     # (P, S, 3)
     dist = _norm(ours - tgt + 1e-12)
     wgt = state.preds21_conf * pair_w[:, None]
     loss = torch.sum(wgt * meta_gamma_loss(dist, gamma, 0.0))
@@ -443,13 +362,12 @@ class _Phase:
         dev = params.pps.device
         self.device = dev
         # on the card the step is three launches (`ga_step.ga_step_cuda`),
-        # their static inputs built here, outside the captured step; on the
-        # CPU the autograd step below with the losses' chain
-        self.fused = self.step_data = self.buf = None
+        # their static inputs built here, outside the captured step
+        self.loss_data = self.step_data = self.buf = None
         if dev.type == "cuda":
             build_kernels()
-            self.fused = make_loss_data(state, phase, gamma, cfg.gamma_d,
-                                        cfg.loss_dust3r_w)
+            self.loss_data = make_loss_data(state, phase, gamma, cfg.gamma_d,
+                                            cfg.loss_dust3r_w)
             self.step_data = make_step_data(state, phase, niter, lr_base,
                                             lr_end, cfg)
             self.buf = step_buffer(self.step_data)
@@ -462,45 +380,44 @@ class _Phase:
         return [*self.params, *self.mu, *self.nu, self.count, self.stopped,
                 self.last_loss]
 
+    def _frac(self):
+        """The schedules' fraction of the phase done, float32 as in JAX."""
+        return self.count.to(torch.float32) / max(self.niter, 1)
+
     def loss(self, alpha):
+        """The phase's loss at the params, through the losses' chain."""
         state, cfg = self.state, self.cfg
         K, w2c, cam2w, depth = make_K_cam_depth(
             self.params, state, cfg.depth_mode, cfg.shared_intrinsics,
             cfg.exp_depth)
-        proj = K @ w2c[:, :3] if self.phase == 2 else None   # (C, 3, 4)
-        if self.fused is not None:
-            return GALoss.apply(K, cam2w, depth, proj, alpha, self.fused)
-        ix = state.gathers
         if self.phase == 1:
-            main = _loss_3d(K, cam2w, depth, state, self.gamma, alpha, ix)
+            main = _loss_3d(K, cam2w, depth, state, self.gamma, alpha)
         else:
-            main = _loss_2d(K, cam2w, depth, proj, state, self.gamma, alpha,
-                            ix)
+            proj = K @ w2c[:, :3]                    # (C, 3, 4)
+            main = _loss_2d(K, cam2w, depth, proj, state, self.gamma, alpha)
         reg = _loss_dust3r(_core_pts3d(K, cam2w, depth, state), cam2w, state,
-                           cfg.gamma_d, ix)
+                           cfg.gamma_d)
         return main + cfg.loss_dust3r_w * reg
 
     def step(self):
+        """One step in place: on CUDA tensors the three launches, on CPU
+        tensors autograd of the chain and `update`."""
         if self.device.type == "cuda":
             ga_step_cuda(self.tensors(), self.buf, self.step_data,
-                         self.fused)
+                         self.loss_data)
         elif self.device.type == "cpu":
-            self.autograd_step()
+            loss = self.loss(1.0 - self._frac())
+            self.update(loss, torch.autograd.grad(loss, self.params))
         else:
             raise ValueError(f"no GA step for device {self.device}")
 
-    def autograd_step(self):
-        """The step through autograd and the Python Adam: the CPU's step,
-        and on the card the route before `ga_step_cuda` (with the fused
-        loss), which chip_smoke.py times beside it."""
+    def update(self, loss, grads):
+        """The masked Adam step from the step's ``loss`` and the gradient
+        of each param leaf, in place, and the NaN freeze."""
         cfg = self.cfg
         b1, b2, eps = cfg.adam_b1, cfg.adam_b2, 1e-8
-        # the schedules' fraction of the phase done, float32 as in JAX
-        frac = self.count.to(torch.float32) / max(self.niter, 1)
-        loss = self.loss(1.0 - frac)
-        grads = torch.autograd.grad(loss, self.params)
         with torch.no_grad():
-            lr = cosine_schedule(frac, self.lr_base, self.lr_end)
+            lr = cosine_schedule(self._frac(), self.lr_base, self.lr_end)
             n = (self.count + 1).to(torch.float32)
             bc1, bc2 = 1.0 - torch.pow(b1, n), 1.0 - torch.pow(b2, n)
             grads = [g * m for g, m in zip(grads, self.mask)]

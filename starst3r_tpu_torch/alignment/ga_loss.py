@@ -1,28 +1,28 @@
 """The GA's correspondence losses and their gradient as one pass on the
-card (`csrc/ga_loss.cu`), for the captured GA step (`alignment/ga.py`).
+card (`csrc/ga_loss.cu`), the middle launch of the captured GA step
+(`alignment/ga_step.py::ga_step_cuda`).
 
 One phase's loss is ``main + loss_dust3r_w * reg``: ``main`` the
 correspondence loss (`ga._loss_3d` in phase 1, `ga._loss_2d` in phase 2)
 and ``reg`` the dust3r fallback (`ga._loss_dust3r` on `ga._core_pts3d`).
-`GALoss` takes the reparameterisation's outputs, K (C, 3, 3), cam2w
+`ga_loss_cuda` takes the reparameterisation's outputs, K (C, 3, 3), cam2w
 (C, 4, 4), the core depth (C, S) and, in phase 2, proj = K @ w2c[:, :3]
-(C, 3, 4), with the annealing alpha as a device scalar. Its forward
-computes the loss and its gradient with respect to those inputs in one
-pass; its backward scales the gradient by the incoming scalar. On the card
-the pass is the kernel (`ga_loss_cuda`, counted in ``.launches``); on the
-CPU `ga_loss_in_order`, the kernel's arithmetic in the kernel's order in
-PyTorch. The GA on the CPU keeps the autograd chain of `alignment/ga.py`
-(the plain version); the card's GA step launches the kernel, or raises.
+(C, 3, 4), with the annealing alpha as a device scalar, and computes the
+loss and its gradient with respect to those inputs in one pass (counted in
+``.launches``). `ga_loss_in_order` is the kernel's arithmetic in the
+kernel's order in PyTorch: the tests' picture of the kernel. The GA on the
+CPU takes the autograd chain of `alignment/ga.py` (the plain version).
 
 What the kernel reads that does not change within a phase is built once,
 when the phase is built (`make_loss_data`): the weights (``corr_conf * ok
 * ~frozen`` for the phase, ``preds21_conf * pair_w``) and their clamped
 sums, computed as the plain chain computes them; the correspondences'
-static data in each side's order, which is the stable order of the depth
-rows that `make_state` builds for the row gathers (``state.gathers.depth1``
-and ``.depth2``), so each camera's correspondences, and each depth row's,
-are consecutive; each camera's first item and first block in that order;
-the pairs by their first and by their second camera.
+static data in each side's order, the stable order of its depth rows
+(``img * S + idx`` over the C * S rows of the core depth, by
+`ops/row_sum.py::_gather_csr`), so each camera's correspondences, and each
+depth row's, are consecutive; each camera's first item and first block in
+that order; the pairs by their first and by their second camera, in the
+same form.
 
 The launch shape (`LossPlan`) comes from (M, S, C) alone: ``ipt``
 correspondences a thread, so that each side has about two blocks a
@@ -40,9 +40,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels import launch
+from ..ops.row_sum import _gather_csr
 
-__all__ = ("GALoss", "LossData", "LossPlan", "ga_loss_cuda",
-           "ga_loss_in_order", "make_loss_data")
+__all__ = ("LossData", "LossPlan", "ga_loss_cuda", "ga_loss_in_order",
+           "make_loss_data")
 
 # the kernel's constants (csrc/ga_loss.cu): threads a block (and core points
 # a fallback block), warps a block, the slots of a camera partial (fx, cx,
@@ -147,10 +148,10 @@ class LossData(NamedTuple):
 def make_loss_data(state, phase: int, gamma: float, gamma_d: float,
                    weight_d: float) -> LossData:
     """The static inputs of one phase's fused loss on ``state`` (a
-    `ga.GAState` with its gathers), on the state's device: the weights and
-    their clamped sums as the plain chain computes them, the
-    correspondences in each side's depth-row order, the block schedule and
-    the pairs' orders. No read to the host."""
+    `ga.GAState`), on the state's device: the weights and their clamped
+    sums as the plain chain computes them, the correspondences in each
+    side's depth-row order, the block schedule and the pairs' orders, each
+    order `_gather_csr` of the state's own index."""
     c, s = state.imsizes.shape[0], state.core_pix.shape[0]
     m, p = state.corr_idx1.numel(), state.pair_img1.numel()
     plan = loss_plan(m, s, c)
@@ -171,16 +172,18 @@ def make_loss_data(state, phase: int, gamma: float, gamma_d: float,
     scal = torch.stack([wsum, one / wsum, cf, cfc, (one * weight_d) / cfc]
                        + [torch.zeros_like(one)] * (_SCALARS - 5))
 
-    ix = state.gathers
-    ids = torch.stack([state.corr_img1, state.corr_img2, ix.depth1[0],
-                       ix.depth2[0]], 1).to(torch.int32)
+    depth1 = state.corr_img1 * s + state.corr_idx1
+    depth2 = state.corr_img2 * s + state.corr_idx2
+    ids = torch.stack([state.corr_img1, state.corr_img2, depth1, depth2],
+                      1).to(torch.int32)
     vals = torch.stack([state.corr_pix1[:, 0], state.corr_pix1[:, 1],
                         state.corr_pix2[:, 0], state.corr_pix2[:, 1],
                         state.corr_doff1, state.corr_doff2, w,
                         torch.zeros_like(w)], 1)
     ints, floats = {}, {}
     rows = torch.arange(c + 1, device=dev) * s
-    for e, (order, off) in ((1, ix.depth1[1]), (2, ix.depth2[1])):
+    for e, depth_rows in ((1, depth1), (2, depth2)):
+        order, off = _gather_csr(depth_rows, c * s)
         order = order.long()
         ints[f"ids{e}"], floats[f"vals{e}"] = ids[order], vals[order]
         coff = off[rows]
@@ -189,7 +192,7 @@ def make_loss_data(state, phase: int, gamma: float, gamma_d: float,
         bstart[1:] = torch.cumsum(nblk, 0)
         ints.update({f"off{e}": off, f"coff{e}": coff, f"bstart{e}": bstart})
     (ints["porder1"], ints["poff1"]), (ints["porder2"], ints["poff2"]) = (
-        ix.pair_img1[1], ix.pair_img2[1])
+        _gather_csr(state.pair_img1, c), _gather_csr(state.pair_img2, c))
     ints["pimg2"] = state.pair_img2
     floats.update(core_pix=state.core_pix, preds=state.preds21_pts, fw=fw,
                   scal=scal)
@@ -495,7 +498,7 @@ def ga_loss_in_order(K: torch.Tensor, cam2w: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function with its arithmetic and summation order, in
     plain PyTorch: (loss, the flat gradient laid out as `_grad_layout`).
-    The CPU route of `GALoss`, and the tests' picture of the kernel."""
+    The tests' picture of the kernel."""
     _check_inputs(K, cam2w, depth, proj, alpha, data)
     c, s, m, p = data.dims
     ii, ff = data.ints(), data.floats()
@@ -571,31 +574,3 @@ def ga_loss_in_order(K: torch.Tensor, cam2w: torch.Tensor,
     loss = loss + data.weight_d * reg
     return loss, torch.cat(flat)
 
-
-class GALoss(torch.autograd.Function):
-    """The phase's loss ``main + loss_dust3r_w * reg`` of (K, cam2w, depth,
-    proj or None, alpha), its gradient computed by the forward in one pass
-    (the kernel on CUDA tensors, `ga_loss_in_order` on CPU tensors) and
-    scaled by the backward."""
-
-    @staticmethod
-    def forward(ctx, K, cam2w, depth, proj, alpha, data: LossData):
-        if K.is_cuda:
-            loss, grads = ga_loss_cuda(K, cam2w, depth, proj, alpha, data)
-        elif K.device.type == "cpu":
-            loss, grads = ga_loss_in_order(K, cam2w, depth, proj, alpha,
-                                           data)
-        else:
-            raise ValueError(f"no fused GA loss for device {K.device}")
-        ctx.save_for_backward(grads)
-        ctx.layout = _grad_layout(data.dims[0], data.dims[1], data.phase)
-        ctx.phase = data.phase
-        return loss
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        (grads,) = ctx.saved_tensors
-        v = _views(grads * g, ctx.layout)
-        return (v["K"], v["cam2w"], v["depth"],
-                v["proj"] if ctx.phase == 2 else None, None, None)

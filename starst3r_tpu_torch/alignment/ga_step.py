@@ -13,12 +13,12 @@ One step of `ga._Phase` on the card is `ga_step_cuda`:
      and its gradient with respect to (K, cam2w, proj, depth);
   3. `ga_update` back-propagates that gradient through the
      reparameterisation to the six leaves and runs, in place, the masked
-     Adam step that `ga._Phase` writes with autograd on the CPU: the cosine
-     LR and the bias corrections from the count, the per-leaf masks, the
-     moments and the update in optax's order, the quaternions
-     renormalised, the NaN freeze (from the first non-finite loss on, the
-     params, moments and loss stay), then the last loss, the stop flag and
-     the count.
+     Adam step that `ga._Phase.update` writes in PyTorch for the CPU's
+     step: the cosine LR and the bias corrections from the count, the
+     per-leaf masks, the moments and the update in optax's order, the
+     quaternions renormalised, the NaN freeze (from the first non-finite
+     loss on, the params, moments and loss stay), then the last loss, the
+     stop flag and the count.
 No autograd runs on the card's step. What the kernels read that does not
 change within a phase (each camera's image size, base focal, median depth,
 focal limits and freeze flag, the lora basis, the MST's edges in
@@ -30,11 +30,11 @@ and the lora basis.
 `ga_step_in_order` is the two kernels' arithmetic and summation order in
 PyTorch around `ga_loss.ga_loss_in_order`: the tests' picture of the
 kernels, as `ga_loss_in_order` is of the fused loss. The GA on the CPU
-keeps the autograd step (the plain version). Every sum is taken in a fixed
-order (each thread its terms in turn, a shuffle tree over each warp, the
-warps in order; the chain's backward in one thread, the edges in reverse),
-with no atomics, so a step gives the same bits every time, on the card as
-in a CUDA graph.
+takes its step through autograd of the losses' chain (the plain version).
+Every sum is taken in a fixed order (each thread its terms in turn, a
+shuffle tree over each warp, the warps in order; the chain's backward in
+one thread, the edges in reverse), with no atomics, so a step gives the
+same bits every time, on the card as in a CUDA graph.
 """
 
 from __future__ import annotations

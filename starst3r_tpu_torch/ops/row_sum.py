@@ -4,12 +4,14 @@ is r, the backward of a row gather. On the card a kernel written for it
 row split over a thread-block cluster, no atomics), so a call gives the
 same bits every time; on the CPU ``index_add_``, the plain version.
 
-Its users: the GA's six gathers (`alignment/ga.py::_gather_rows`), the
-rasterizer's packed backward, which sums each Gaussian's slots of K2's
-per-slot gradient (`splat/composite.py::CompositePacked`, the JAX
-package's ``bw_idx`` backward of `_gather_packed`), the standalone entry
-gather's backward (`splat/gather.py`), and the polish's normal equations
-(`alignment/lm.py`, `alignment/schur.py`, through `index_add_rows`).
+Its users: the rasterizer's packed backward, which sums each Gaussian's
+slots of K2's per-slot gradient (`splat/composite.py::CompositePacked`, the
+JAX package's ``bw_idx`` backward of `_gather_packed`), the standalone
+entry gather's backward (`splat/gather.py`), and the polish's normal
+equations (`alignment/lm.py`, `alignment/schur.py`, through
+`index_add_rows`). The GA's fused loss (`alignment/ga_loss.py::
+make_loss_data`) reads its correspondences and pairs in `_gather_csr`'s
+row order.
 
   - `_gather_csr(idx, R)` / `masked_csr(idx, valid, R)`: the rows' entries
     as the kernel reads them, (order, offsets); the masked form leaves the
@@ -17,6 +19,8 @@ gather's backward (`splat/gather.py`), and the polish's normal equations
     reads;
   - `_gather_plan`: the kernel's launch shape, from (M, R, D) alone;
   - `gather_rows_bwd_cuda`: the launch, counted in ``.launches``;
+  - `_gather_rows_bwd_plain`: the kernel's function by ``index_add_``, the
+    plain version the tests hold it to;
   - `_gather_rows_bwd_in_order`: the kernel's exact summation order in
     plain PyTorch (the bits the card's tests hold the kernel to);
   - `index_add_rows`: ``out.index_add_(0, idx, values)`` for several
@@ -87,6 +91,13 @@ def _gather_plan(entries: int, rows: int, width: int) -> _RowsPlan:
     groups = min(per_row // cluster, most)
     rows_per_block = max(min(_MIN_THREADS // (tile_w * groups), rows), 1)
     return _RowsPlan(vec, tile_w, groups, rows_per_block, cluster)
+
+
+def _gather_rows_bwd_plain(idx: torch.Tensor, ct: torch.Tensor,
+                           nrows: int) -> torch.Tensor:
+    """The kernel's plain version: d[r] = sum of ct[m] over the m with
+    idx[m] == r, (nrows, D), by ``index_add_``."""
+    return ct.new_zeros((nrows,) + tuple(ct.shape[1:])).index_add_(0, idx, ct)
 
 
 def _gather_rows_bwd_in_order(ct: torch.Tensor, order: torch.Tensor,

@@ -66,7 +66,7 @@ Tolerances:
   - the lora GA on the card against the CPU on a planted sphere scene:
     1e-4, tests/test_torch_ga.py's tolerance, poses in the root camera's
     frame (the GA's free rigid motion);
-  - the GA's row-gather backward (`csrc/gather_rows_bwd.cu`) against its
+  - the row-sum kernel (`csrc/gather_rows_bwd.cu`) against its
     plain version ``index_add_`` summed in float64 on the card, at the six
     gather sites' shapes, on a row of 368,640 entries (split over a
     cluster of blocks) and on odd widths: 1e-5 (1 + max|plain|) (float32
@@ -84,8 +84,8 @@ Tolerances:
     same tensors, the loss to 1e-6 relative and each gradient within 1e-4
     of its largest magnitude and no farther from the chain in float64 (on
     the CPU) than twice the float32 chain's distance; two launches, and a
-    launch replayed in a CUDA graph, equal bit for bit; one call a GA step
-    and no row-gather backward launch;
+    launch replayed in a CUDA graph, equal bit for bit; one call a GA
+    step;
   - the GA step's kernels (`csrc/ga_step.cu`: the reparameterisation, its
     backward with the masked Adam) against their order in PyTorch on the
     card, fed the same fused loss's output, on the CPU tests' cases (both
@@ -1129,10 +1129,9 @@ def _rows_inputs(name, dev):
     """One of tests/torch_ga_scene.py's gather cases on the card, with its
     CSR."""
     from torch_ga_scene import gather_case
-    from starst3r_tpu_torch.alignment import ga
     r, idx, ct = gather_case(name)
     idx = torch.from_numpy(idx).to(dev)
-    return r, idx, torch.from_numpy(ct).to(dev), ga._gather_csr(idx, r)
+    return r, idx, torch.from_numpy(ct).to(dev), row_sum._gather_csr(idx, r)
 
 
 def _check_rows(got, idx, ct, csr, r):
@@ -1141,12 +1140,11 @@ def _check_rows(got, idx, ct, csr, r):
     row of 368,640 entries sits ~0.04 from the exact sum, beyond 1e-5 (1 +
     max)), and bit for bit against `_gather_rows_bwd_in_order`, its own
     summation order in PyTorch; empty rows exactly 0."""
-    from starst3r_tpu_torch.alignment import ga
-    want = ga._gather_rows_bwd_plain(idx, ct.double(), r)
+    want = row_sum._gather_rows_bwd_plain(idx, ct.double(), r)
     assert got.shape == want.shape == (r, ct.shape[1])
     assert float((got.double() - want).abs().max()) <= ROWS_TOL * (
         1 + float(want.abs().max()))
-    assert torch.equal(got, ga._gather_rows_bwd_in_order(ct, *csr))
+    assert torch.equal(got, row_sum._gather_rows_bwd_in_order(ct, *csr))
     empty = torch.bincount(idx, minlength=r) == 0
     assert bool((got[empty] == 0).all())
 
@@ -1155,24 +1153,22 @@ def _check_rows(got, idx, ct, csr, r):
                                   "pair_cam2w", "pair_pts3d", "empty_rows",
                                   "one_row", "long_row", "split_short_row"])
 def test_gather_rows_bwd_matches_plain(dev, name):
-    from starst3r_tpu_torch.alignment import ga
     r, idx, ct, csr = _rows_inputs(name, dev)
-    before = ga.gather_rows_bwd_cuda.launches
-    got = ga.gather_rows_bwd_cuda(ct, *csr)
+    before = row_sum.gather_rows_bwd_cuda.launches
+    got = row_sum.gather_rows_bwd_cuda(ct, *csr)
     torch.cuda.synchronize()
-    assert ga.gather_rows_bwd_cuda.launches == before + 1
+    assert row_sum.gather_rows_bwd_cuda.launches == before + 1
     _check_rows(got, idx, ct, csr, r)
     if name in ("long_row", "split_short_row"):
-        assert ga._gather_plan(ct.shape[0], r, ct.shape[1]).cluster > 1
+        assert row_sum._gather_plan(ct.shape[0], r, ct.shape[1]).cluster > 1
 
 
 @pytest.mark.parametrize("name", ["depth", "cam2w", "pair_pts3d",
                                   "long_row"])
 def test_gather_rows_bwd_is_deterministic(dev, name):
-    from starst3r_tpu_torch.alignment import ga
     _, _, ct, csr = _rows_inputs(name, dev)
-    a = ga.gather_rows_bwd_cuda(ct, *csr)
-    b = ga.gather_rows_bwd_cuda(ct, *csr)
+    a = row_sum.gather_rows_bwd_cuda(ct, *csr)
+    b = row_sum.gather_rows_bwd_cuda(ct, *csr)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
 
@@ -1180,12 +1176,11 @@ def test_gather_rows_bwd_is_deterministic(dev, name):
 @pytest.mark.parametrize("name", ["depth", "K", "pair_pts3d", "long_row",
                                   "split_short_row"])
 def test_gather_rows_bwd_in_a_cuda_graph(dev, name):
-    from starst3r_tpu_torch.alignment import ga
     _, _, ct, csr = _rows_inputs(name, dev)
-    eager = ga.gather_rows_bwd_cuda(ct, *csr)
+    eager = row_sum.gather_rows_bwd_cuda(ct, *csr)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = ga.gather_rows_bwd_cuda(ct, *csr)
+        out = row_sum.gather_rows_bwd_cuda(ct, *csr)
     out.zero_()
     graph.replay()
     torch.cuda.synchronize()
@@ -1193,10 +1188,9 @@ def test_gather_rows_bwd_in_a_cuda_graph(dev, name):
 
 
 def test_gather_rows_bwd_no_entries(dev):
-    from starst3r_tpu_torch.alignment import ga
     idx = torch.zeros(0, dtype=torch.int64, device=dev)
-    csr = ga._gather_csr(idx, 5)
-    got = ga.gather_rows_bwd_cuda(torch.zeros((0, 7), device=dev), *csr)
+    csr = row_sum._gather_csr(idx, 5)
+    got = row_sum.gather_rows_bwd_cuda(torch.zeros((0, 7), device=dev), *csr)
     torch.cuda.synchronize()
     assert got.shape == (5, 7) and bool((got == 0).all())
 
@@ -1206,13 +1200,12 @@ def test_gather_rows_bwd_no_entries(dev):
 def test_gather_rows_bwd_width_not_a_multiple_of_32(dev, d, m):
     """Odd widths, in rows short enough for one block and long enough for
     a cluster of blocks; the last two rows empty."""
-    from starst3r_tpu_torch.alignment import ga
     rng = np.random.default_rng(d)
     r = 11
     idx = torch.from_numpy(rng.integers(0, r - 2, m)).to(dev)
     ct = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev)
-    csr = ga._gather_csr(idx, r)
-    got = ga.gather_rows_bwd_cuda(ct, *csr)
+    csr = row_sum._gather_csr(idx, r)
+    got = row_sum.gather_rows_bwd_cuda(ct, *csr)
     torch.cuda.synchronize()
     _check_rows(got, idx, ct, csr, r)
     assert bool((got[r - 2:] == 0).all())
@@ -1221,28 +1214,14 @@ def test_gather_rows_bwd_width_not_a_multiple_of_32(dev, d, m):
 def test_gather_rows_bwd_misaligned_cotangent(dev):
     """A cotangent that does not start on 16 bytes (the kernel reads
     float4s where D is a multiple of 4) is copied first: the same bits."""
-    from starst3r_tpu_torch.alignment import ga
     r, idx, ct, csr = _rows_inputs("cam2w", dev)
     buf = torch.empty(ct.numel() + 1, device=dev)
     shifted = buf[1:].view(ct.shape)
     shifted.copy_(ct)
     assert shifted.data_ptr() % 16 and shifted.is_contiguous()
-    got = ga.gather_rows_bwd_cuda(shifted, *csr)
+    got = row_sum.gather_rows_bwd_cuda(shifted, *csr)
     torch.cuda.synchronize()
-    assert torch.equal(got, ga.gather_rows_bwd_cuda(ct, *csr))
-
-
-def test_gather_rows_autograd_launches_the_kernel(dev):
-    from starst3r_tpu_torch.alignment import ga
-    r, idx, ct, csr = _rows_inputs("cam2w", dev)
-    table = torch.zeros((r, ct.shape[1]), device=dev, requires_grad=True)
-    out = ga._gather_rows(table, idx, csr)
-    assert torch.equal(out, table.detach()[idx])
-    before = ga.gather_rows_bwd_cuda.launches
-    (grad,) = torch.autograd.grad(out, table, ct)
-    torch.cuda.synchronize()
-    assert ga.gather_rows_bwd_cuda.launches == before + 1
-    assert torch.equal(grad, ga.gather_rows_bwd_cuda(ct, *csr))
+    assert torch.equal(got, row_sum.gather_rows_bwd_cuda(ct, *csr))
 
 
 def _eager_phase(params, state, niter, lr_base, lr_end, gamma, phase, cfg):
@@ -1326,9 +1305,8 @@ def test_ga_512px_scale_on_cuda(dev, monkeypatch):
     (tests/test_ga_groundtruth.py::test_ga_512px_scale_memory: 10 cameras,
     S = 4,096 core points, 368,640 anchored correspondences, GA 50 + 20 at
     jit_chunk 10) on the card: finite poses, the fused loss launched once
-    in each of each phase's warm-up steps and its capture and the
-    row-gather backward never (the losses' gathers are inside the fused
-    loss), and the graph route against the eager steps as above."""
+    in each of each phase's warm-up steps and its capture, and the graph
+    route against the eager steps as above."""
     from starst3r_tpu_torch.alignment import ga
     from starst3r_tpu_torch.utils.synthetic import synthetic_ga_scene
     data, mst, _, _ = synthetic_ga_scene(
@@ -1337,12 +1315,9 @@ def test_ga_512px_scale_on_cuda(dev, monkeypatch):
     cfg = stt.GAConfig(niter1=50, niter2=20, jit_chunk=10)
     m = len(data.corr_idx1)
     assert m == 368_640
-    assert ga._gather_plan(m, 10, 16).cluster == 8
-    before = (ga.gather_rows_bwd_cuda.launches, ga_loss_cuda.launches)
+    before = ga_loss_cuda.launches
     graph, _ = ga.run_global_alignment(data, mst, cfg, device=dev)
-    assert (ga.gather_rows_bwd_cuda.launches - before[0],
-            ga_loss_cuda.launches - before[1]) == (
-                0, (ga._WARMUP_STEPS + 1) * 2)
+    assert ga_loss_cuda.launches - before == (ga._WARMUP_STEPS + 1) * 2
     assert np.isfinite(graph.cam2w.cpu().numpy()).all()
     monkeypatch.setattr(ga, "_optimize_phase", _eager_phase)
     eager = [ga.run_global_alignment(data, mst, cfg, device=dev)[0]
@@ -1442,14 +1417,13 @@ def test_ga_loss_matches_the_plain_chain_on_cuda(dev, case, phase):
     def chain(tensors, state, alpha):
         """The chain's loss and its gradients with respect to tensors."""
         leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
-        ix = state.gathers
         if phase == 1:
-            main = ga._loss_3d(*leaves, state, data.gamma, alpha, ix)
+            main = ga._loss_3d(*leaves, state, data.gamma, alpha)
         else:
-            main = ga._loss_2d(*leaves, state, data.gamma, alpha, ix)
+            main = ga._loss_2d(*leaves, state, data.gamma, alpha)
         out = main + cfg.loss_dust3r_w * ga._loss_dust3r(
             ga._core_pts3d(*leaves[:3], state), leaves[1], state,
-            cfg.gamma_d, ix)
+            cfg.gamma_d)
         return float(out.detach()), torch.autograd.grad(out, leaves)
 
     names = ("K", "cam2w", "depth", "proj")[:3 + (phase == 2)]
@@ -1495,9 +1469,8 @@ def test_ga_loss_is_deterministic_and_graph_safe_on_cuda(dev, case, phase):
 
 def test_ga_loss_launches_per_step_on_cuda(dev):
     """A GA step on the card calls the fused loss and the step's kernels
-    (`ga_step.ga_step_cuda`) once each and the row-gather backward never;
-    a capture counts its three warm-up steps and the captured step, its
-    replays nothing."""
+    (`ga_step.ga_step_cuda`) once each; a capture counts its three warm-up
+    steps and the captured step, its replays nothing."""
     from torch_ga_scene import ga_scene
     from starst3r_tpu_torch.alignment import ga
     from starst3r_tpu_torch.alignment import ga_loss as gl
@@ -1505,18 +1478,16 @@ def test_ga_loss_launches_per_step_on_cuda(dev):
     data, mst = ga_scene(4)
     cfg = stt.GAConfig()
     state = ga.make_state(data, mst, cfg, device=dev)
-    counts = lambda: (gl.ga_loss_cuda.launches,
-                      ga.gather_rows_bwd_cuda.launches,
-                      gs.ga_step_cuda.launches)
+    counts = lambda: (gl.ga_loss_cuda.launches, gs.ga_step_cuda.launches)
     for phase in (1, 2):
         ph = ga._Phase(ga.init_params(data, device=dev), state, 20, 0.07,
                        0.0, 1.1, phase, cfg)
         before = counts()
         ph.step()
-        assert counts() == (before[0] + 1, before[1], before[2] + 1)
+        assert counts() == (before[0] + 1, before[1] + 1)
         graph = ga._capture(ph)
         seen = 1 + ga._WARMUP_STEPS + 1
-        after = (before[0] + seen, before[1], before[2] + seen)
+        after = (before[0] + seen, before[1] + seen)
         assert counts() == after
         graph.replay()
         torch.cuda.synchronize()
@@ -1551,7 +1522,7 @@ def _step_kernels_against_in_order(ph, data, mid):
     got = [t.clone() for t in old]
     buf = gs.step_buffer(data)
     gs.ga_reparam_cuda(got[:6], got[18], buf, data)
-    loss, grads = ga_loss_cuda(*gs.loss_inputs(buf, data), ph.fused)
+    loss, grads = ga_loss_cuda(*gs.loss_inputs(buf, data), ph.loss_data)
     fwd = {k: v.clone() for k, v in gs.fwd_views(buf, data).items()}
     gs.ga_update_cuda(got, loss, grads, buf, data)
     torch.cuda.synchronize()
@@ -1582,7 +1553,7 @@ def test_ga_step_kernels_match_in_order_on_cuda(dev, case, phase):
     state (every output, the params' update too)."""
     from torch_ga_scene import mid_run, step_phase
     for perturb, mid in ((False, False), (True, True)):
-        ph, data = step_phase(case, phase, device=dev, perturb=perturb)
+        ph, data, _ = step_phase(case, phase, device=dev, perturb=perturb)
         if mid:
             mid_run(ph)
         errs, _ = _step_kernels_against_in_order(ph, data, mid)
@@ -1597,7 +1568,7 @@ def test_ga_step_kernels_at_the_recon_shapes_on_cuda(dev, shape, phase):
     224 x 160 and 512 x 384: several depth blocks a camera, a stage-A
     loop of several turns a thread)."""
     from torch_ga_scene import mid_run, step_phase
-    ph, data = step_phase("default", phase, device=dev,
+    ph, data, _ = step_phase("default", phase, device=dev,
                           scene=_step_scene(shape))
     mid_run(ph)
     errs, _ = _step_kernels_against_in_order(ph, data, True)
@@ -1613,7 +1584,7 @@ def test_ga_step_is_deterministic_and_graph_safe_on_cuda(dev, case, phase):
     atomics; a fixed summation order)."""
     from torch_ga_scene import mid_run, step_phase
     from starst3r_tpu_torch.alignment import ga_step as gs
-    ph, data = step_phase(case, phase, device=dev)
+    ph, data, _ = step_phase(case, phase, device=dev)
     mid_run(ph)
     start = [t.detach().clone() for t in ph.tensors()]
     state = [t.detach() for t in ph.tensors()]
@@ -1625,13 +1596,13 @@ def test_ga_step_is_deterministic_and_graph_safe_on_cuda(dev, case, phase):
     runs = []
     for _ in range(2):
         restore()
-        gs.ga_step_cuda(state, ph.buf, data, ph.fused)
+        gs.ga_step_cuda(state, ph.buf, data, ph.loss_data)
         torch.cuda.synchronize()
         runs.append([t.clone() for t in state])
     restore()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        gs.ga_step_cuda(state, ph.buf, data, ph.fused)
+        gs.ga_step_cuda(state, ph.buf, data, ph.loss_data)
     restore()
     graph.replay()
     torch.cuda.synchronize()
@@ -1666,7 +1637,7 @@ def test_ga_replayed_step_launches_at_most_six_kernels_on_cuda(dev, shape):
     from torch_ga_scene import step_phase
     from starst3r_tpu_torch.alignment import ga
     for phase in (1, 2):
-        ph, _ = step_phase("default", phase, device=dev,
+        ph, _, _ = step_phase("default", phase, device=dev,
                            scene=_step_scene(shape))
         graph = ga._capture(ph)
         n = _replay_kernels(graph)

@@ -1,10 +1,12 @@
-"""The GA's row gather with its own backward (`alignment/ga.py::
-_gather_rows`) against the JAX package's (`starst3r_tpu/alignment/ga.py::
-_gather_rows`, a jax.custom_vjp), on the CPU.
+"""The GA's row gathers on the CPU: the row-sum kernel's plain version
+(`ops/row_sum.py::_gather_rows_bwd_plain`) against the JAX package's
+gather backward (`starst3r_tpu/alignment/ga.py::_gather_rows`, a
+jax.custom_vjp), the rows' order that the fused loss reads, and the
+gradient of the losses' chain, whose gathers are plain indexing.
 
-The port's backward is a CUDA kernel on the card (tests/test_torch_cuda.py
-holds it to the plain version there); on the CPU it is the plain version,
-``zeros((R, D)).index_add_(0, idx, ct)``, tested here:
+The kernel (`csrc/gather_rows_bwd.cu`) runs only on the card
+(tests/test_torch_cuda.py holds it to the plain version there); its plain
+version is ``zeros((R, D)).index_add_(0, idx, ct)``, tested here:
 
   (a) against `jax.vjp` of the JAX `_gather_rows` (its CPU route, a
       scatter-add) and against the arithmetic of its TPU route, the one-hot
@@ -16,15 +18,16 @@ holds it to the plain version there); on the CPU it is the plain version,
       entries all fall in one row. Tolerance
       1e-5 (1 + max|ref|): float32 sums of up to thousands of terms in
       another order;
-  (b) the forward equal to ``table[idx]`` and to the JAX forward, bit for
-      bit;
-  (c) `torch.autograd.gradcheck` of the Function in float64;
-  (d) the CSR helper: a stable argsort and the cumulative counts, and
-      make_state's CSRs of the six sites;
-  (e) one GA step of each phase on tests/torch_ga_scene.py's scene through
-      `_gather_rows` and through plain indexing: the same loss, and
-      gradients within 1e-6 of each parameter's largest magnitude (or
-      absolute, where that is below 1).
+  (b) the CSR helper `_gather_csr`: a stable argsort and the cumulative
+      counts;
+  (c) the fused loss's static orders (`ga_loss.make_loss_data`): each
+      side's correspondences by their depth rows and the pairs by each of
+      their cameras, each `_gather_csr` of the state's own index, each
+      row's entries in their order;
+  (d) `torch.autograd.gradcheck` in float64 of the losses' chain
+      (`ga._loss_3d`, `ga._loss_2d`, `ga._loss_dust3r` on
+      `ga._core_pts3d`) with respect to K, cam2w, the core depth and proj,
+      on a 3-camera scene.
 """
 
 import numpy as np
@@ -38,7 +41,9 @@ import jax.numpy as jnp
 from starst3r_tpu.alignment import ga as jga
 
 from starst3r_tpu_torch.alignment import ga
+from starst3r_tpu_torch.alignment import ga_loss as gl
 from starst3r_tpu_torch.config import GAConfig
+from starst3r_tpu_torch.ops import row_sum
 from torch_ga_scene import GATHER_SITES, ga_scene, gather_case
 
 TOL = 1e-5
@@ -65,8 +70,8 @@ def _one_hot_route(idx, ct, r, monkeypatch):
 def test_plain_backward_matches_jax(case, monkeypatch):
     r, idx, ct = (gather_case(case) if isinstance(case, str)
                   else gather_case(*case))
-    got = ga._gather_rows_bwd_plain(torch.from_numpy(idx),
-                                    torch.from_numpy(ct), r).numpy()
+    got = row_sum._gather_rows_bwd_plain(torch.from_numpy(idx),
+                                         torch.from_numpy(ct), r).numpy()
     table = jnp.zeros((r, ct.shape[1]), jnp.float32)
     _, vjp = jax.vjp(lambda t: jga._gather_rows(t, jnp.asarray(idx,
                                                                jnp.int32)),
@@ -83,29 +88,6 @@ def test_plain_backward_matches_jax(case, monkeypatch):
         assert empty.sum() == r - 1
 
 
-@pytest.mark.parametrize("name", GATHER_SITES)
-def test_forward_is_indexing(name):
-    r, idx, ct = gather_case(name, seed=1)
-    table = np.random.default_rng(1).normal(
-        size=(r, ct.shape[1])).astype(np.float32)
-    t_idx = torch.from_numpy(idx)
-    got = ga._gather_rows(torch.from_numpy(table), t_idx,
-                          ga._gather_csr(t_idx, r))
-    assert torch.equal(got, torch.from_numpy(table)[t_idx])
-    want = jga._gather_rows(jnp.asarray(table), jnp.asarray(idx, jnp.int32))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-@pytest.mark.parametrize("d", [1, 5])
-def test_gradcheck(d):
-    rng = np.random.default_rng(2)
-    idx = torch.from_numpy(np.array([0, 3, 3, 1, 6, 3, 0, 6, 6, 6, 1, 4]))
-    csr = ga._gather_csr(idx, 7)        # rows 2 and 5 hold no entries
-    table = torch.from_numpy(rng.normal(size=(7, d))).requires_grad_(True)
-    assert torch.autograd.gradcheck(lambda t: ga._gather_rows(t, idx, csr),
-                                    (table,))
-
-
 @pytest.mark.parametrize("case", ["random", "empty_rows", "one_row",
                                   "no_entries"])
 def test_csr(case):
@@ -115,7 +97,7 @@ def test_csr(case):
            "empty_rows": rng.integers(5, 20, 300),
            "one_row": np.full(200, 7),
            "no_entries": np.zeros(0, np.int64)}[case]
-    order, offsets = ga._gather_csr(torch.from_numpy(idx), r)
+    order, offsets = row_sum._gather_csr(torch.from_numpy(idx), r)
     assert order.dtype == offsets.dtype == torch.int32
     np.testing.assert_array_equal(order.numpy(),
                                   np.argsort(idx, kind="stable"))
@@ -128,66 +110,83 @@ def test_csr(case):
         np.testing.assert_array_equal(ks, np.flatnonzero(idx == row))
 
 
-def test_make_state_builds_each_gathers_csr():
-    """make_state builds the six sites' row order once for both phases,
-    from the state's own indices (depth rows img * S + idx)."""
-    data, mst = ga_scene(4)
-    state = ga.make_state(data, mst, GAConfig(), device="cpu")
-    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
-    want = {"depth1": (state.corr_img1 * s + state.corr_idx1, c * s),
-            "depth2": (state.corr_img2 * s + state.corr_idx2, c * s),
-            "img1": (state.corr_img1, c), "img2": (state.corr_img2, c),
-            "pair_img1": (state.pair_img1, c),
-            "pair_img2": (state.pair_img2, c)}
-    assert set(state.gathers._fields) == set(want)
-    for name, (idx, r) in want.items():
-        got_idx, got_csr = getattr(state.gathers, name)
-        assert torch.equal(got_idx, idx)
-        for a, b in zip(got_csr, ga._gather_csr(idx, r)):
-            assert torch.equal(a, b)
-
-
 def test_csr_refuses_an_index_past_the_table():
     with pytest.raises(ValueError, match="past the table"):
-        ga._gather_csr(torch.tensor([0, 3, 9]), 5)
+        row_sum._gather_csr(torch.tensor([0, 3, 9]), 5)
 
 
-def test_backward_refuses_other_devices():
-    """Only a CPU tensor takes the plain version; the kernel's wrapper
-    takes only CUDA tensors."""
-    idx = torch.tensor([0, 2, 2])
-    csr = ga._gather_csr(idx, 3)
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        ga.gather_rows_bwd_cuda(torch.ones((3, 2)), *csr)
-    meta = lambda t: t.to("meta")
-    table = torch.ones((3, 2), device="meta", requires_grad=True)
-    out = ga._gather_rows(table, meta(idx), tuple(map(meta, csr)))
-    with pytest.raises(ValueError, match="no row-gather backward"):
-        out.sum().backward()
+def _state(n_cams=4):
+    data, mst = ga_scene(n_cams)
+    return ga.make_state(data, mst, GAConfig(), device="cpu")
 
 
-def _indexing(table, idx, csr):
-    return table[idx]
+@pytest.mark.parametrize("order", ["depth1", "depth2", "pair_img1",
+                                   "pair_img2"])
+def test_loss_data_orders_each_side_by_its_rows(order):
+    """Each of the fused loss's orders and offsets is `_gather_csr` of the
+    state's own index (the depth rows img * S + idx over the C * S rows of
+    the core depth; the pairs' cameras), and each row's entries keep their
+    order in the index."""
+    state = _state()
+    ii = gl.make_loss_data(state, 1, 1.5, 1.5, 0.01).ints()
+    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
+    if order.startswith("depth"):
+        e = order[-1]
+        img, at = getattr(state, f"corr_img{e}"), getattr(state,
+                                                          f"corr_idx{e}")
+        idx, r = img * s + at, c * s
+        got_off = ii[f"off{e}"]
+        ids = torch.stack([state.corr_img1, state.corr_img2,
+                           state.corr_img1 * s + state.corr_idx1,
+                           state.corr_img2 * s + state.corr_idx2], 1)
+        csr_order, csr_off = row_sum._gather_csr(idx, r)
+        assert torch.equal(ii[f"ids{e}"].long(), ids[csr_order.long()])
+        got = ii[f"ids{e}"].long().numpy()
+        for row in np.flatnonzero(np.bincount(idx.numpy(), minlength=r)):
+            np.testing.assert_array_equal(
+                got[got_off[row]:got_off[row + 1]],
+                ids.numpy()[np.flatnonzero(idx.numpy() == row)])
+    else:
+        e = order[-1]
+        idx, r = getattr(state, order), c
+        got_off, got_order = ii[f"poff{e}"], ii[f"porder{e}"]
+        csr_order, csr_off = row_sum._gather_csr(idx, r)
+        assert torch.equal(got_order, csr_order)
+        for row in range(r):
+            np.testing.assert_array_equal(
+                got_order[got_off[row]:got_off[row + 1]].numpy(),
+                np.flatnonzero(idx.numpy() == row))
+    assert torch.equal(got_off, csr_off)
+    assert got_off.dtype == torch.int32 and int(got_off[-1]) == idx.numel()
 
 
-@pytest.mark.parametrize("phase", [1, 2])
-def test_ga_step_matches_plain_indexing(phase, monkeypatch):
-    data, mst = ga_scene(4)
-    cfg = GAConfig(niter1=15, niter2=8)
-    state = ga.make_state(data, mst, cfg, device="cpu")
-    launches = ga.gather_rows_bwd_cuda.launches
-
-    def loss_and_grads():
-        ph = ga._Phase(ga.init_params(data, device="cpu"), state, 15, 0.07,
-                       1e-6, 1.5, phase, cfg)
-        loss = ph.loss(torch.tensor(0.5))
-        return loss, torch.autograd.grad(loss, ph.params)
-
-    loss, grads = loss_and_grads()
-    monkeypatch.setattr(ga, "_gather_rows", _indexing)
-    want_loss, want_grads = loss_and_grads()
-    assert torch.equal(loss, want_loss)
-    for g, w in zip(grads, want_grads):
-        torch.testing.assert_close(
-            g, w, rtol=0, atol=1e-6 * max(float(w.abs().max()), 1.0))
-    assert ga.gather_rows_bwd_cuda.launches == launches
+@pytest.mark.parametrize("loss", ["_loss_3d", "_loss_2d", "_loss_dust3r"])
+def test_chain_gradcheck(loss):
+    """The losses' chain in float64, its gathers plain indexing: autograd's
+    gradient with respect to K, cam2w, the core depth and (phase 2) proj
+    against finite differences, on the 3-camera scene at a perturbed
+    start."""
+    state = _state(3)
+    state = state._replace(**{
+        k: v.double() for k, v in state._asdict().items()
+        if isinstance(v, torch.Tensor) and v.is_floating_point()})
+    data, _ = ga_scene(3)
+    g = torch.Generator().manual_seed(0)
+    params = ga.GAParams(*[
+        p.double() + 0.05 * torch.randn(p.shape, generator=g).double()
+        for p in ga.init_params(data, device="cpu")])
+    K, w2c, cam2w, depth = [t.detach() for t in ga.make_K_cam_depth(
+        params, state)]
+    alpha = torch.tensor(0.7, dtype=torch.float64)
+    fn = {"_loss_3d": lambda K, cam2w, depth: ga._loss_3d(
+              K, cam2w, depth, state, 1.5, alpha),
+          "_loss_2d": lambda K, cam2w, depth, proj: ga._loss_2d(
+              K, cam2w, depth, proj, state, 1.5, alpha),
+          "_loss_dust3r": lambda K, cam2w, depth: ga._loss_dust3r(
+              ga._core_pts3d(K, cam2w, depth, state), cam2w, state, 1.5)
+          }[loss]
+    inputs = [K, cam2w, depth] + ([K @ w2c[:, :3]] if loss == "_loss_2d"
+                                  else [])
+    inputs = [t.clone().requires_grad_(True) for t in inputs]
+    assert float(fn(*inputs).detach()) > 0
+    assert torch.autograd.gradcheck(fn, inputs)

@@ -1,11 +1,11 @@
-"""The row-gather backward's launch shape and summation order on the CPU,
-and the port's `_gather_rows` gradient against the JAX package's, at the
-GA's gather shapes of three operating points.
+"""The row-sum kernel's launch shape and summation order on the CPU, and
+the gradient of plain indexing against the JAX package's `_gather_rows`,
+at the GA's gather shapes of three operating points.
 
 The kernel (`csrc/gather_rows_bwd.cu`) runs only on the card; what
 surrounds it is Python tested here:
 
-  (a) `alignment/ga.py::_gather_plan`, the launch shape the host picks
+  (a) `ops/row_sum.py::_gather_plan`, the launch shape the host picks
       from (M, R, D): within the kernel's limits (at most 1,024 threads a
       block, 32 threads across a tile, a power-of-two number of groups, a
       cluster of 1, 2, 4 or 8 blocks, at most 65,535 column tiles, a vector
@@ -14,25 +14,27 @@ surrounds it is Python tested here:
       each rank's share of its row), every (entry, column) summed by
       exactly one thread, inside its own row, and every output element
       written by exactly one thread;
-  (b) the port's `_gather_rows` gradient (its CPU route, ``index_add_``)
-      against `jax.vjp` of the JAX `_gather_rows` (its CPU route, a
-      scatter-add), and `_gather_rows_bwd_in_order`, the kernel's exact
-      summation order in PyTorch (the card's tests hold the kernel to it
-      bit for bit), against the float64 sum. Tolerance 1e-5 (1 +
-      max|ref|): float32 sums of up to tens of thousands of terms in
-      another order. (Both CPU routes add a row's entries one after
-      another: on the long row of 368,640 entries they agree with each
-      other bit for bit and sit 0.043 from the float64 sum, where the
-      kernel's order, a tree over short runs, sits 0.001 from it.)
+  (b) the gradient of ``table[idx]`` (the GA's chain on the CPU gathers
+      by plain indexing) against `jax.vjp` of the JAX `_gather_rows` (its
+      CPU route, a scatter-add), and `_gather_rows_bwd_in_order`, the
+      kernel's exact summation order in PyTorch (the card's tests hold the
+      kernel to it bit for bit), against the float64 sum. Tolerance 1e-5
+      (1 + max|ref|): float32 sums of up to tens of thousands of terms in
+      another order. (``index_add_`` and the JAX scatter-add both add a
+      row's entries one after another: on the long row of 368,640 entries
+      they agree bit for bit and sit 0.043 from the float64 sum, where the
+      kernel's order, a tree over short runs, sits 0.001 from it.
+      Autograd's backward of the indexing adds in an order of its own.)
 
 The operating points: the main path's first GA (C = 4 cameras, S = 784
 core points, M = 9,408 correspondences, P = 12 pairs, random indices of
 those shapes), the turntable's GA state (examples/turntable_torch.py: 8
 cameras, 128 px, subsample 2) and the 512 px state of
 tests/test_ga_groundtruth.py::test_ga_512px_scale_memory (10 cameras, S =
-4,096, M = 368,640), both built by `make_state` from `utils.synthetic`;
-and the edge cases of tests/torch_ga_scene.py (a long row, a split row
-with an empty share, empty rows, one row, no entries).
+4,096, M = 368,640), both built by `make_state` from `utils.synthetic`,
+each site's index the state's own (tests/torch_ga_scene.py's
+`state_sites`); and the edge cases of tests/torch_ga_scene.py (a long
+row, a split row with an empty share, empty rows, one row, no entries).
 """
 
 import numpy as np
@@ -47,9 +49,10 @@ from starst3r_tpu.alignment import ga as jga
 
 from starst3r_tpu_torch.alignment import ga
 from starst3r_tpu_torch.config import GAConfig
+from starst3r_tpu_torch.ops import row_sum
 from starst3r_tpu_torch.utils.synthetic import (synthetic_ga_scene,
                                                 synthetic_image_scene)
-from torch_ga_scene import GATHER_SITES, gather_case
+from torch_ga_scene import GATHER_SITES, gather_case, state_sites
 
 TOL = 1e-5
 POINTS = ("main", "turntable", "512px")
@@ -57,16 +60,6 @@ EDGES = ("long_row", "split_short_row", "empty_rows", "one_row",
          "no_entries")
 CASES = [(p, n) for p in POINTS for n in GATHER_SITES] + [
     ("edge", n) for n in EDGES]
-
-
-def _state_sites(state):
-    """{site: (R, D, idx)} of a GAState's six gathers."""
-    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
-    ix = state.gathers
-    return {"depth": (c * s, 1, ix.depth1[0]), "K": (c, 9, ix.img1[0]),
-            "cam2w": (c, 16, ix.img1[0]), "proj": (c, 12, ix.img1[0]),
-            "pair_cam2w": (c, 16, ix.pair_img2[0]),
-            "pair_pts3d": (c, 3 * s, ix.pair_img1[0])}
 
 
 @pytest.fixture(scope="module")
@@ -77,8 +70,8 @@ def states():
     big = synthetic_ga_scene(n_cams=10, hw=512, focal=720.0, subsample=8,
                              anchored=True, orbit=True, sph_r=1.2,
                              spread=0.2)
-    return {name: _state_sites(ga.make_state(data, mst, GAConfig(),
-                                             device="cpu"))
+    return {name: state_sites(ga.make_state(data, mst, GAConfig(),
+                                            device="cpu"))
             for name, (data, mst) in (("turntable", tt[:2]),
                                       ("512px", big[:2]))}
 
@@ -125,7 +118,7 @@ def _mirror_threads(plan, rows, width):
 def test_plan_covers_every_entry_once(case, states):
     r, idx, ct = _case(*case, states)
     m, width = ct.shape
-    plan = ga._gather_plan(m, r, width)
+    plan = row_sum._gather_plan(m, r, width)
     gx, gy = plan.grid(r, width)
     assert 1 <= plan.threads <= 1024 and 1 <= plan.tile_w <= 32
     assert plan.groups & (plan.groups - 1) == 0
@@ -133,7 +126,7 @@ def test_plan_covers_every_entry_once(case, states):
     assert width % plan.vec == 0 and plan.vec in (1, 4)
     assert gy <= 65535 and gx < 2 ** 31
 
-    offsets = ga._gather_csr(idx, r)[1].numpy().astype(np.int64)
+    offsets = row_sum._gather_csr(idx, r)[1].numpy().astype(np.int64)
     cols = width // plan.vec
     row, rank, g, col, live = _mirror_threads(plan, r, width)
     row, rank, g, col = (a[live] for a in (row, rank, g, col))
@@ -168,18 +161,18 @@ def test_gradient_and_kernel_order_match_jax(case, states):
     want = np.asarray(vjp(jnp.asarray(ct.numpy()))[0])
     tol = TOL * (1 + np.abs(want).max(initial=0.0))
 
-    csr = ga._gather_csr(idx, r)
+    csr = row_sum._gather_csr(idx, r)
     leaf = torch.zeros((r, ct.shape[1]), requires_grad=True)
-    (grad,) = torch.autograd.grad(ga._gather_rows(leaf, idx, csr), leaf, ct)
+    (grad,) = torch.autograd.grad(leaf[idx], leaf, ct)
     assert grad.shape == want.shape == (r, ct.shape[1])
     np.testing.assert_allclose(grad.numpy(), want, rtol=0, atol=tol)
-    exact = ga._gather_rows_bwd_plain(idx, ct.double(), r).numpy()
-    in_order = ga._gather_rows_bwd_in_order(ct, *csr)
+    exact = row_sum._gather_rows_bwd_plain(idx, ct.double(), r).numpy()
+    in_order = row_sum._gather_rows_bwd_in_order(ct, *csr)
     assert in_order.dtype == torch.float32 and in_order.shape == want.shape
     np.testing.assert_allclose(in_order.numpy(), exact, rtol=0,
                                atol=TOL * (1 + np.abs(exact).max(initial=0)))
     empty = np.bincount(idx.numpy(), minlength=r) == 0
     assert (in_order.numpy()[empty] == 0).all()
     if case[1] == "split_short_row":
-        plan = ga._gather_plan(ct.shape[0], r, ct.shape[1])
+        plan = row_sum._gather_plan(ct.shape[0], r, ct.shape[1])
         assert plan.cluster > 3        # the 3-entry row leaves a rank empty

@@ -1,9 +1,12 @@
 """The GA step's two kernels in PyTorch (`alignment/ga_step.py`) on the
 CPU: `reparam_in_order` and `update_in_order`, the kernels' arithmetic and
 summation order around the fused loss's (`ga_step_in_order`), against the
-step the GA takes with autograd (`ga.make_K_cam_depth`, the fused loss's
-`GALoss`, the Python Adam of `ga._Phase`), on tests/test_torch_ga.py's
-planted sphere scene at a perturbed start.
+same step taken with autograd (`ga.make_K_cam_depth`, the vector-Jacobian
+product with `ga_loss_in_order`'s gradient, the masked Adam of
+`ga._Phase.update`: tests/torch_ga_scene.py's `in_order_loss_step`), on
+tests/test_torch_ga.py's planted sphere scene at a perturbed start; and
+`ga._Phase.step`, which takes CPU tensors through the losses' chain and
+refuses any device but the CPU and the card.
 
 Cases: both phases; frozen cameras; shared intrinsics; exp depth; the
 "mul" depth mode; the lora basis (with and without exp depth); opt_pp off
@@ -30,8 +33,8 @@ gradient, its square) are held to their bound, and not the params.
 
 import pytest
 import torch
-from torch_ga_scene import (MID_COUNT, STEP_CASES, STEP_NITER, mid_run,
-                            step_phase)
+from torch_ga_scene import (MID_COUNT, STEP_CASES, STEP_NITER,
+                            in_order_loss_step, mid_run, step_phase)
 from torch_threads import one_torch_thread  # noqa: F401
 
 from starst3r_tpu_torch.alignment import ga
@@ -49,9 +52,10 @@ def _state(ph):
     return [t.detach().clone() for t in ph.tensors()]
 
 
-def _autograd_step(ph):
-    """The phase's autograd step from its state: the new state."""
-    ph.step()
+def _reference_step(ph, loss_data):
+    """The phase's step through autograd around the fused loss's order in
+    PyTorch, from its state: the new state."""
+    in_order_loss_step(ph, loss_data)
     return _state(ph)
 
 
@@ -85,16 +89,17 @@ def _check_outputs(fwd, ph, cfg_kw):
 def test_in_order_step_matches_the_autograd_step(case, phase):
     """One step from a mid-run state: the outputs, each leaf's update, mu
     and nu against the autograd step, and against the float64 step."""
-    ph, data = step_phase(case, phase)
+    ph, data, loss_data = step_phase(case, phase)
     mid_run(ph)
     old = _state(ph)
-    new, fwd, _, _ = gs.ga_step_in_order(old, data, ph.fused)
+    new, fwd, _, _ = gs.ga_step_in_order(old, data, loss_data)
     _check_outputs(fwd, ph, case)
-    want = _autograd_step(ph)
-    ph64, _ = step_phase(case, phase, dtype=torch.float64, fused=False)
+    want = _reference_step(ph, loss_data)
+    ph64, _, _ = step_phase(case, phase, dtype=torch.float64)
     mid_run(ph64)
     old64 = _state(ph64)
-    ref = _moves(_autograd_step(ph64), old64)
+    ph64.step()
+    ref = _moves(_state(ph64), old64)
     got, plain = _moves(new, old), _moves(want, old)
     for i, (name, g, p, r) in enumerate(zip(LEAF_NAMES, got, plain, ref)):
         tol = STEP_TOL if i < 6 else MOMENT_TOL
@@ -112,12 +117,12 @@ def test_first_step_ties_and_masks(case, phase):
     """Step 1 from the GA's start: every log-size is 0, so all cameras tie
     for the smallest size. The masked gradient (mu) and its square (nu)
     against the autograd step's; the masked leaves' moments stay 0."""
-    ph, data = step_phase(case, phase, perturb=False)
+    ph, data, loss_data = step_phase(case, phase, perturb=False)
     assert bool((ph.params.log_sizes == 0).all())
     old = _state(ph)
-    new, fwd, _, _ = gs.ga_step_in_order(old, data, ph.fused)
+    new, fwd, _, _ = gs.ga_step_in_order(old, data, loss_data)
     _check_outputs(fwd, ph, case)
-    want = _autograd_step(ph)
+    want = _reference_step(ph, loss_data)
     for i in range(6, 18):
         assert _scaled(new[i], want[i]) <= MOMENT_TOL, LEAF_NAMES[i]
         if not bool(want[i].any()):
@@ -131,7 +136,7 @@ def test_first_step_ties_and_masks(case, phase):
 def test_non_finite_loss_freezes_the_state(phase):
     """A non-finite loss, or a phase stopped before, keeps the params, the
     moments and the last loss; the count advances and the flag is set."""
-    ph, data = step_phase("default", phase)
+    ph, data, loss_data = step_phase("default", phase)
     mid_run(ph)
     old = _state(ph)
     fwd = gs.reparam_in_order(old[:6], old[18], data)
@@ -139,7 +144,7 @@ def test_non_finite_loss_freezes_the_state(phase):
     loss, grads = gl.ga_loss_in_order(
         fwd["K"].view(c, 3, 3), fwd["cam2w"].view(c, 4, 4), fwd["depth"],
         fwd["proj"].view(c, 3, 4) if phase == 2 else None,
-        fwd["alpha"].view(()), ph.fused)
+        fwd["alpha"].view(()), loss_data)
     for bad in (float("nan"), float("inf")):
         new = gs.update_in_order(old, torch.tensor(bad), grads, fwd, data)
         assert all(torch.equal(a, b) for a, b in zip(new[:18], old[:18]))
@@ -156,7 +161,7 @@ def test_non_finite_loss_freezes_the_state(phase):
 def test_alpha_and_lr_follow_the_count():
     """alpha = 1 - count / niter as the phase computes it, at every count
     of the phase."""
-    ph, data = step_phase("default", 1)
+    ph, data, _ = step_phase("default", 1)
     for count in range(STEP_NITER):
         fwd = gs.reparam_in_order(list(ph.params), torch.tensor(count), data)
         frac = torch.tensor(count).to(torch.float32) / STEP_NITER
@@ -167,7 +172,7 @@ def test_step_data_layout_and_checks():
     """The statics and the edges as the kernels read them; a state of the
     wrong shape or dtype is refused; a CPU tensor is refused by the card's
     step."""
-    ph, data = step_phase("lora", 2)
+    ph, data, loss_data = step_phase("lora", 2)
     c, s, k = data.dims
     assert (c, s, k) == (4, 64, 16)
     st = data.statics()
@@ -190,4 +195,21 @@ def test_step_data_layout_and_checks():
         gs._check_state(tensors[:18] + [tensors[18].int()] + tensors[19:],
                         data)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        gs.ga_step_cuda(tensors, buf, data, ph.fused)
+        gs.ga_step_cuda(tensors, buf, data, loss_data)
+
+
+def test_step_refuses_other_devices():
+    """`_Phase.step` takes CUDA tensors through the step's kernels and CPU
+    tensors through the losses' chain; a phase on any other device
+    raises."""
+    ph, _, _ = step_phase("default", 1)
+    meta = lambda t: t.to("meta")
+    state = ph.state._replace(**{
+        k: meta(v) for k, v in ph.state._asdict().items()
+        if isinstance(v, torch.Tensor)})
+    on_meta = ga._Phase(ga.GAParams(*map(meta, ph.params)), state,
+                        STEP_NITER, ph.lr_base, ph.lr_end, ph.gamma, 1,
+                        ph.cfg)
+    assert on_meta.device.type == "meta" and on_meta.loss_data is None
+    with pytest.raises(ValueError, match="no GA step for device meta"):
+        on_meta.step()

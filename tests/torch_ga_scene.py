@@ -6,9 +6,13 @@ The planted-pose sphere scene (anchored endpoints, 4 cameras, 64 px, an
 8 x 8 core grid), with two pairs marked as failed matches so the dust3r
 fallback loss is live, a noisy fallback target and scaled confidences.
 
-Also the shapes of the GA's six row gathers on the main path, and rows
-long and short enough for each of the kernel's launch shapes
-(`gather_case`), for the row-gather backward's CPU and GPU tests.
+Also the shapes of the JAX GA's six row gathers on the main path, and
+rows long and short enough for each of the kernel's launch shapes
+(`gather_case`), and the six gathers' indices on a GAState
+(`state_sites`), for the row-sum kernel's CPU and GPU tests; the GA
+step's cases (`step_phase`, `mid_run`), and the fused loss's order in
+PyTorch under autograd (`in_order_grads`, `in_order_loss_step`) as the
+reference the step's tests hold the kernels' order to.
 """
 
 import numpy as np
@@ -71,6 +75,20 @@ def gather_case(name, c=6, seed=0, m=GATHER_M, s=GATHER_S):
     }[name]
     ct = (3.0 * rng.normal(size=(len(idx), d))).astype(np.float32)
     return r, idx.astype(np.int64), ct
+
+
+def state_sites(state):
+    """{site: (R, D, idx)} of the JAX GA's six `_gather_rows` sites on a
+    GAState's own indices: the correspondences' depth rows img * S + idx
+    over the C * S rows of the core depth, their first cameras (K, cam2w,
+    proj), and the pairs' cameras (cam2w by the second, the core points
+    by the first)."""
+    c, s = state.imsizes.shape[0], state.core_pix.shape[0]
+    img1 = state.corr_img1
+    return {"depth": (c * s, 1, img1 * s + state.corr_idx1),
+            "K": (c, 9, img1), "cam2w": (c, 16, img1),
+            "proj": (c, 12, img1), "pair_cam2w": (c, 16, state.pair_img2),
+            "pair_pts3d": (c, 3 * s, state.pair_img1)}
 
 
 def condensed_case(h, w, n_views=6, seed=0, subsample=8):
@@ -151,15 +169,14 @@ def lora_inputs(data, k=16, seed=2):
     return np.asarray(basis, np.float32), np.asarray(coeffs, np.float32)
 
 
-def step_phase(case, phase, device="cpu", dtype=None, fused=True,
-               perturb=True, scene=None):
+def step_phase(case, phase, device="cpu", dtype=None, perturb=True,
+               scene=None):
     """A GA phase (`ga._Phase`) of a STEP_CASES case on ``device`` at a
-    perturbed start (params + 0.05 N(0, 1), seed 0), and its
-    `ga_step.StepData`. ``scene``: (CondensedData, mst), tests/
-    test_torch_ga.py's 4-camera scene by default. On the CPU ``fused``
-    gives the phase the fused loss (`GALoss`), else the losses' chain;
-    ``dtype`` float64 casts the state and params (the chain's step in
-    float64)."""
+    perturbed start (params + 0.05 N(0, 1), seed 0), its
+    `ga_step.StepData` and its fused loss's `ga_loss.LossData` (the
+    phase's own on the card). ``scene``: (CondensedData, mst), tests/
+    test_torch_ga.py's 4-camera scene by default. ``dtype`` float64 casts
+    the state and params (the chain's step in float64)."""
     import torch
     from starst3r_tpu_torch.alignment import ga, ga_loss, ga_step
     from starst3r_tpu_torch.config import GAConfig
@@ -182,20 +199,58 @@ def step_phase(case, phase, device="cpu", dtype=None, fused=True,
         params = ga.GAParams(*[
             p + 0.05 * torch.randn(p.shape, generator=g).to(device)
             for p in params])
+    gamma, lr = (cfg.gamma1, cfg.lr1) if phase == 1 else (cfg.gamma2,
+                                                          cfg.lr2)
+    # the card's phase builds its own; the CPU's from the float32 state
+    loss_data = None if state.corr_conf.is_cuda else ga_loss.make_loss_data(
+        state, phase, gamma, cfg.gamma_d, cfg.loss_dust3r_w)
     if dtype == torch.float64:
         state = state._replace(**{
             k: v.double() for k, v in state._asdict().items()
             if isinstance(v, torch.Tensor) and v.is_floating_point()})
         params = ga.GAParams(*[p.double() for p in params])
-    gamma, lr = (cfg.gamma1, cfg.lr1) if phase == 1 else (cfg.gamma2,
-                                                          cfg.lr2)
     ph = ga._Phase(params, state, STEP_NITER, lr, cfg.lr_end, gamma, phase,
                    cfg)
-    if fused and ph.fused is None:
-        ph.fused = ga_loss.make_loss_data(state, phase, gamma, cfg.gamma_d,
-                                          cfg.loss_dust3r_w)
-    return ph, ga_step.make_step_data(state, phase, STEP_NITER, lr,
-                                      cfg.lr_end, cfg)
+    step_data = ga_step.make_step_data(state, phase, STEP_NITER, lr,
+                                       cfg.lr_end, cfg)
+    return ph, step_data, ph.loss_data if loss_data is None else loss_data
+
+
+def in_order_grads(inputs, wrt, alpha, loss_data):
+    """`ga_loss.ga_loss_in_order`'s loss at ``inputs`` (K, cam2w, depth,
+    and proj or None, computed from ``wrt`` under autograd) and its
+    gradient with respect to each of ``wrt`` (None where one is unused):
+    the vector-Jacobian product of ``inputs`` with the fused loss's
+    gradient views."""
+    import torch
+    from starst3r_tpu_torch.alignment import ga_loss
+    c, s = loss_data.dims[:2]
+    loss, flat = ga_loss.ga_loss_in_order(
+        *[None if t is None else t.detach() for t in inputs], alpha,
+        loss_data)
+    views = ga_loss._views(flat, ga_loss._grad_layout(c, s,
+                                                      loss_data.phase))
+    pairs = [(t, views[name]) for t, name in zip(
+        inputs, ("K", "cam2w", "depth", "proj")) if t is not None]
+    return loss, torch.autograd.grad([t for t, _ in pairs], wrt,
+                                     [v for _, v in pairs],
+                                     allow_unused=True)
+
+
+def in_order_loss_step(ph, loss_data):
+    """One step of ``ph`` with the fused loss's order in PyTorch in place
+    of the losses' chain: the reparameterisation (and proj in phase 2)
+    under autograd, `in_order_grads` to the params, then the phase's
+    masked Adam step (`ga._Phase.update`)."""
+    from starst3r_tpu_torch.alignment import ga
+    cfg = ph.cfg
+    K, w2c, cam2w, depth = ga.make_K_cam_depth(
+        ph.params, ph.state, cfg.depth_mode, cfg.shared_intrinsics,
+        cfg.exp_depth)
+    proj = K @ w2c[:, :3] if ph.phase == 2 else None
+    loss, grads = in_order_grads((K, cam2w, depth, proj), ph.params,
+                                 1.0 - ph._frac(), loss_data)
+    ph.update(loss, grads)
 
 
 MID_COUNT = 7
