@@ -17,7 +17,10 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      add_images(2 more) (warm start and pair cache, GA 500 + 200
      iterations), init_3dgs, render_3dgs_original and an 8-view
      render_3dgs along the path from the first to the last camera, with
-     every kernel's launch count set to 0 just before and read just after;
+     every kernel's launch count set to 0 just before and read just after
+     (MASt3R's attention kernel launched enc_depth + 4 dec_depth times
+     for each of the forwards add_images ran, counted at
+     `Mast3rModel.infer_pair_batch`, and never elsewhere);
   3. holds the forward compositing kernel, on both of its routes (the
      rasterizer's packed route, which gathers each entry's row as it stages
      it, and the entries route on the standalone gather's output), against
@@ -98,7 +101,8 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      224 --incremental-batch 4 --gs-iters 50`, `train-gs --iters 50`,
      `render-path --steps 8` and `export-ply`, with the launch counts set
      to 0 just before and read just after each (the kernels launched
-     where a subcommand renders or trains; the images loaded through the
+     where a subcommand renders or trains, the attention kernel's as in
+     step 2 for each subcommand; the images loaded through the
      native C++ route; every output file written; the PLY's points the
      scene's dense points; 8 finite, non-uniform frames); then
      `python -m starst3r_tpu_torch info` (naming the card) and a
@@ -206,7 +210,8 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      the pool and as gsplat's rule says, no non-finite value out of the
      packed backward, K1 and K2 launched, and the fused loss called 16
      times where the counter sees it and the row-gather backward never
-     during the GA (as on the main path).
+     during the GA, and the attention kernel's launches (as on the main
+     path).
      Then the packed forward on the renders' inputs against its plain
      version (within ATOL) and equal to the entries route bit for bit;
      the packed backward on the trained scene against its plain version
@@ -252,6 +257,26 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      of 64, bfloat16; `device_ms`) with its TFLOP/s and its share of the
      forward (x 24), and the stages' seconds on a `[stages] vggt:` line.
 
+ 23. `[rope-attn]` (after `[model]`; on its own: `python -c "import
+     chip_smoke; chip_smoke.attention_phase()"`): MASt3R's attention kernel
+     (`csrc/rope_attention.cu`, `ops/attention.py::rope_attention`) at
+     the recon cells' calls (ATTN_CASES: the encoder's self-attention and
+     the decoder's self- and cross-attention at 512 x 384 and 224 x 160,
+     q, k, v as the blocks' projections lay them out, the decoder's cross
+     case with the key side's table from another grid): held to float64
+     attention on the same rotated bfloat16 q and k (apply_rope_2d on the
+     card, which the kernel's rotation equals bit for bit), no farther from
+     it than twice the plain version (`apply_rope_2d` then `sdpa`, which
+     rounds the scores to bfloat16) plus 1e-3 of its largest magnitude, and
+     finite; its ms (`device_ms`) beside its bound (the larger of 4 B H Tq
+     Tk D operations at 989 TFLOP/s and its bytes at 3.35 TB/s), the plain
+     version's and `library_ms` (`apply_rope_2d`'s rotation, then
+     PyTorch's `F.scaled_dot_product_attention`, timed as a yardstick
+     only). Then the large network at 512 x 384 and 224 x 160, 8 pairs a
+     forward: the kernel's launches in one forward (enc_depth + 4
+     dec_depth, 72) and the encoder's and the decoder's ms (CUDA events).
+     The kernel's row on the `kernels` line takes its launches from step 2.
+
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
 boxes, each entry's box, and the pairs that pass the culls
@@ -281,6 +306,7 @@ last line. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -437,6 +463,19 @@ REPEAT_RES_STEPS = 20
 # the packed K2 before its gradient was summed by the row sum: float
 # atomic adds into a zero-filled (C*N, 9) table, the fill included, as an
 # earlier revision measured it on an NVIDIA H100 80GB HBM3 at 700 W on
+# MASt3R's attention calls in the recon cells: (name, B, (grid h, grid w),
+# heads, self or cross); B is 8 pairs' 16 images in the encoder, 8 in each
+# decoder stream; heads of 64
+ATTN_CASES = (("512 encoder", 16, (24, 32), 16, "self"),
+              ("512 decoder self", 8, (24, 32), 12, "self"),
+              ("512 decoder cross", 8, (24, 32), 12, "cross"),
+              ("224 encoder", 16, (10, 14), 16, "self"),
+              ("224 decoder self", 8, (10, 14), 12, "self"),
+              ("224 decoder cross", 8, (10, 14), 12, "cross"))
+PEAK_BF16 = 989e12
+# the kernel against float64 attention on the same rotated inputs: no
+# farther than twice the plain version plus this share of the largest value
+ATTN_SLACK = 1e-3
 # these scenes (ms): the figures the new route's parts are printed beside
 K2_ATOMIC_MS = {"224 px": 0.1873, "512 x 384": 0.5196}
 POLISH = {
@@ -950,12 +989,14 @@ def bound(n_bytes, n_ops):
 def launch_counters():
     """{exported kernel function: the wrapper that counts its launches (the
     fused loss's calls, two kernels each; the GA step's calls, its
-    `ga_reparam`, the fused loss and `ga_update`)}."""
+    `ga_reparam`, the fused loss and `ga_update`; MASt3R's attention's
+    calls, CPU ones too)}."""
     from starst3r_tpu_torch.alignment import ga_loss, ga_step
-    from starst3r_tpu_torch.ops import row_sum
+    from starst3r_tpu_torch.ops import attention, row_sum
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
     return {"ga_loss": ga_loss.ga_loss_cuda,
             "ga_step": ga_step.ga_step_cuda,
+            "rope_attention": attention.rope_attention,
             "composite_fwd_packed": comp.composite_packed_cuda,
             "composite_bwd_packed": comp.composite_packed_slots_cuda,
             "composite_fwd": comp.composite_tiles_cuda,
@@ -979,6 +1020,36 @@ def set_launches(value=0):
 def read_launches():
     return {name: wrapper.launches
             for name, wrapper in launch_counters().items()}
+
+
+@contextlib.contextmanager
+def counted_forwards():
+    """MASt3R's network forwards inside the block: yields a list that gets
+    one entry (the batch) for each `Mast3rModel.infer_pair_batch` call."""
+    from starst3r_tpu_torch.models.mast3r import Mast3rModel
+    calls, infer = [], Mast3rModel.infer_pair_batch
+
+    def counted(self, img1, img2):
+        calls.append(img1.shape[0])
+        return infer(self, img1, img2)
+
+    Mast3rModel.infer_pair_batch = counted
+    try:
+        yield calls
+    finally:
+        Mast3rModel.infer_pair_batch = infer
+
+
+def check_attention_launches(launches, forwards, cfg, where):
+    """Every forward in ``forwards`` launched MASt3R's attention kernel
+    once a block (enc_depth + 4 dec_depth), and nothing else did."""
+    want = (cfg.enc_depth + 4 * cfg.dec_depth) * len(forwards)
+    print(f"[{where}] attention kernel launches {launches['rope_attention']}"
+          f" over {len(forwards)} forwards of {forwards} pairs (want {want})",
+          flush=True)
+    check(launches["rope_attention"] == want, f"[{where}] the attention "
+          f"kernel launched {launches['rope_attention']} times over "
+          f"{len(forwards)} forwards, want {want}")
 
 
 def read_nonfinite():
@@ -1845,13 +1916,14 @@ def write_view_pngs(views, imgdir):
 
 def cli_run(cli, args):
     """One in-process CLI call with every launch count set to 0 just
-    before it. Returns (rc, seconds, launches)."""
+    before it. Returns (rc, seconds, launches, the network's forwards)."""
     import torch
     set_launches(0)
     t = time.perf_counter()
-    rc = cli.main(args)
+    with counted_forwards() as forwards:
+        rc = cli.main(args)
     torch.cuda.synchronize()
-    return rc, time.perf_counter() - t, read_launches()
+    return rc, time.perf_counter() - t, read_launches(), forwards
 
 
 def trace_device_events(trace_dir, label):
@@ -1906,9 +1978,10 @@ def cli_phase(stt, views, model_npz, work_dir):
             "export-ply": ["export-ply", "--scene", ckpt, "--out",
                            os.path.join(root, "gaussians.ply")],
         }
-        secs, launches = {}, {}
+        secs, launches, forwards = {}, {}, {}
         for name, args in runs.items():
-            rc, secs[name], launches[name] = cli_run(cli, args)
+            rc, secs[name], launches[name], forwards[name] = cli_run(cli,
+                                                                     args)
             print(f"[cli] {name}: rc {rc}, {secs[name]:.3f} s, launches "
                   f"{launches[name]}", flush=True)
             check(rc == 0, f"cli {name} exited {rc}")
@@ -1950,6 +2023,9 @@ def cli_phase(stt, views, model_npz, work_dir):
     for name, got in launches.items():
         check(got["gather_entries"] == 0,
               f"cli {name} launched the standalone gather")
+        check_attention_launches(got, forwards[name],
+                                 stt.ModelConfig.large(), f"cli {name}")
+    check(len(forwards["reconstruct"]) > 0, "cli reconstruct ran no forward")
 
     # `python -m starst3r_tpu_torch`: info, and a traced reconstruct
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3571,11 +3647,14 @@ def res512_phase(stt, model, dev, work_dir, record=None):
           f"[res512] load_images gave {[im.shape for im in imgs]}")
 
     set_launches(0)
-    with recorded_calls(reconstruct_mod) as ga_calls:
+    with recorded_calls(reconstruct_mod) as ga_calls, \
+            counted_forwards() as forwards:
         scene, orig, novel, secs, peak = drive_main_path(
             stt, model, imgs, dev, N_NOVEL,
             os.path.join(work_dir, "res512_pairs"))
     path_launches = read_launches()
+    check_attention_launches(path_launches, forwards, model.cfg, "res512")
+    check(len(forwards) > 0, "[res512] add_images ran no forward")
     secs, peak = dict(load_secs, **secs), dict(load_peak, **peak)
     if record:
         save_ga_calls(ga_calls, record)
@@ -3879,6 +3958,120 @@ def vggt_phase(dev=None):
     return secs
 
 
+def attention_phase(dev=None, model=None):
+    """`[rope-attn]` (module docstring, item 23). Returns the kernel's row
+    of the `kernels` line."""
+    import torch
+    import torch.nn.functional as F
+    import starst3r_tpu_torch as stt
+    from starst3r_tpu_torch.models import vit
+    from starst3r_tpu_torch.ops import attention
+    from starst3r_tpu_torch.ops.rope import rope_2d_freqs, rope_rotate
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from torch_attention_cases import attention_f64, attention_inputs
+    dev = dev or torch.device("cuda", 0)
+
+    def library(q, k, v, rope_q, rope_k):
+        q, k = rope_rotate(q, *rope_q), rope_rotate(k, *rope_k)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2)).transpose(1, 2)
+
+    cases = {}
+    for n, (name, b, grid, heads, kind) in enumerate(ATTN_CASES):
+        args = attention_inputs(dev, b, grid, heads, 64, kind,
+                                torch.bfloat16, seed=n)
+        q, k, v, rope_q, rope_k = args
+        t = q.shape[1]
+        before = attention.rope_attention.launches
+        got = attention.rope_attention(*args)
+        check(attention.rope_attention.launches == before + 1,
+              f"[rope-attn] {name}: the call did not count")
+        plain = attention._rope_attention_plain(*args)
+        want = attention_f64(*args)
+        scale = float(want.abs().max())
+        err = float((got.double() - want).abs().max())
+        err_plain = float((plain.double() - want).abs().max())
+        check(got.shape == q.shape and got.dtype == torch.bfloat16
+              and got.is_contiguous(), f"[rope-attn] {name}: output layout")
+        check(bool(torch.isfinite(got).all()),
+              f"[rope-attn] {name}: non-finite output")
+        check(err <= 2.0 * err_plain + ATTN_SLACK * scale,
+              f"[rope-attn] {name}: {err} from float64, the plain version "
+              f"{err_plain} (scale {scale})")
+        flops = 4.0 * b * heads * t * t * 64
+        n_bytes = (4 * b * t * heads * 64 * 2
+                   + (1 if kind == "self" else 2) * 2 * t * 64 * 4)
+        bound_ms = max(flops / PEAK_BF16, n_bytes / PEAK_BYTES) * 1e3
+        ms = device_ms(lambda: attention.rope_attention(*args), 20)
+        plain_ms = device_ms(lambda: attention._rope_attention_plain(*args),
+                             5)
+        library_ms = device_ms(lambda: library(*args), 20)
+        cases[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, err=err, err_plain=err_plain,
+                           scale=scale, flops=flops, bytes=n_bytes)
+        print(f"[rope-attn] {name} (B {b}, T {t}, H {heads}, D 64, {kind}): "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.4f} ms ({bound_ms / ms:.1%}), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; max gap to "
+              f"float64 {err:.3e}, the plain version's {err_plain:.3e} "
+              f"(largest value {scale:.3f})", flush=True)
+        del args, q, k, v, got, plain, want
+
+    if model is None:
+        model = stt.Mast3rModel.init_random(stt.ModelConfig.large(), seed=0,
+                                            device=dev)
+    cfg, net = model.cfg, model.net
+    for hw in ((384, 512), (160, 224)):
+        gen = torch.Generator(device=dev).manual_seed(hw[1])
+        imgs = torch.rand(16, *hw, 3, device=dev, generator=gen) * 2 - 1
+        pos = vit.patch_positions(hw[0] // 16, hw[1] // 16, dev)[None]
+        rope_enc = rope_2d_freqs(pos, cfg.enc_dim // cfg.enc_heads)
+        rope_dec = rope_2d_freqs(pos, cfg.dec_dim // cfg.dec_heads)
+        ctx = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
+        with torch.inference_mode():
+            with ctx():
+                feats = net.encode(imgs, rope_enc)
+            f1, f2 = feats[:8], feats[8:]
+
+            def encode():
+                with ctx():
+                    net.encode(imgs, rope_enc)
+
+            def decode():
+                with ctx():
+                    net.decode(f1, f2, rope_dec)
+
+            before = attention.rope_attention.launches
+            model.infer_pair_batch(imgs[:8], imgs[8:])
+            launched = attention.rope_attention.launches - before
+            fwd = dict(launches=launched, encoder_ms=cuda_ms(encode, 3),
+                       decoder_ms=cuda_ms(decode, 3))
+        want = cfg.enc_depth + 4 * cfg.dec_depth
+        check(launched == want, f"[rope-attn] a forward launched the kernel "
+              f"{launched} times, want {want}")
+        print(f"[rope-attn] large network at {hw[1]} x {hw[0]}, 8 pairs a "
+              f"forward: encoder {fwd['encoder_ms']:.3f} ms, decoder "
+              f"{fwd['decoder_ms']:.3f} ms (CUDA events), {launched} kernel "
+              f"launches", flush=True)
+        cases[f"forward {hw[1]}"] = fwd
+        del imgs, feats, f1, f2
+    torch.cuda.empty_cache()
+    main_case = cases[ATTN_CASES[0][0]]
+    return {"name": "rope_attention", "route": "cuda",
+            "source": "starst3r_tpu_torch/csrc/rope_attention.cu",
+            "replaces": "none (the JAX package leaves attention to XLA: "
+            "starst3r_tpu/ops/attention.py, ops/rope.py)",
+            "max_abs_err": max(c["err"] for c in cases.values()
+                               if "err" in c),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "library_ms": main_case["library_ms"],
+            "bound_ms": main_case["bound_ms"], "bound_by": "operations",
+            "cases": cases}
+
+
 def main():
     import argparse
     import torch
@@ -3939,6 +4132,9 @@ def main():
     print(f"[model] ModelConfig.large(): {n_params} parameters, dtype "
           f"{model.cfg.dtype}, init {time.perf_counter() - t:.2f} s",
           flush=True)
+    t = time.perf_counter()
+    attention_row = attention_phase(dev, model)
+    print(f"[stages] rope-attn: {time.perf_counter() - t:.3f}s", flush=True)
 
     # the pair cache and the checkpoints; removed at the end (and, after a
     # failed check, when the interpreter exits)
@@ -3951,11 +4147,15 @@ def main():
     from torch_slice_inputs import recorded_calls
     set_launches(0)
     set_ga_counts(0)
-    with recorded_calls(reconstruct_mod) as ga_calls:
+    with recorded_calls(reconstruct_mod) as ga_calls, \
+            counted_forwards() as forwards:
         scene, orig, novel, secs, _ = drive_main_path(stt, model, views, dev,
                                                       N_NOVEL, cache_dir)
     ga_counts = read_ga_counts()
     render_launches = read_launches()
+    check_attention_launches(render_launches, forwards, model.cfg,
+                             "launches")
+    check(len(forwards) > 0, "add_images ran no forward")
     print("[stages] " + " ".join(f"{k}={v:.3f}s" for k, v in secs.items()),
           flush=True)
     n_gauss = int(scene.gs_state.n_alive)
@@ -4267,6 +4467,11 @@ def main():
                   f"{pairs['warp_walk_mean']:.1f} entries on average, the "
                   f"longest walk {pairs['warp_walk_max']} (the most entries "
                   f"a tile walks: {pairs['entries_max']})", flush=True)
+    # the attention kernel's launches are the main path's (its forwards in
+    # add_images), and the sharded training's, which runs no forward
+    kernels_line.append(dict(
+        attention_row, launches=render_launches["rope_attention"],
+        launches_parallel=par_launches["rope_attention"]))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

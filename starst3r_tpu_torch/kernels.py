@@ -55,6 +55,8 @@ _EXPORTS = {
     "ga_step": {"ga_reparam": [_P] * 5 + [_I] * 5 + [_P],
                 "ga_update": [_P] * 6 + [_I] * 6 + [ctypes.c_float] * 8
                 + [_P]},
+    "rope_attention": {"rope_attention": [_P] * 8 + [_I] * 6
+                       + [ctypes.c_int64] * 9 + [ctypes.c_float, _P]},
 }
 # nvcc flags of one source beyond the common line: the GA's fused loss and
 # its step round every product and sum on their own (no contraction into

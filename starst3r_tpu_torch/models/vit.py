@@ -26,8 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import sdpa
-from ..ops.rope import apply_rope_2d, rope_2d_freqs
+from ..ops.attention import rope_attention
+from ..ops.rope import rope_2d_freqs
 
 __all__ = ("PatchEmbed", "Mlp", "Attention", "CrossAttention",
            "EncoderBlock", "DecoderBlock", "Encoder", "InterleavedDecoder",
@@ -79,9 +79,8 @@ class Attention(nn.Module):
         b, t, _ = x.shape
         qkv = self.qkv(x).reshape(b, t, 3, self.heads, self.head_dim)
         q, k, v = qkv.unbind(2)
-        if rope is not None:
-            q, k = apply_rope_2d(q, k, *rope)
-        return self.proj(sdpa(q, k, v).reshape(b, t, -1))
+        return self.proj(rope_attention(q, k, v, rope, rope)
+                         .reshape(b, t, -1))
 
 
 class CrossAttention(nn.Module):
@@ -101,10 +100,8 @@ class CrossAttention(nn.Module):
         q = self.projq(x).reshape(b, tq, self.heads, hd)
         k = self.projk(y).reshape(b, -1, self.heads, hd)
         v = self.projv(y).reshape(b, -1, self.heads, hd)
-        if rope_q is not None:
-            q, _ = apply_rope_2d(q, q, *rope_q)
-            k, _ = apply_rope_2d(k, k, *rope_k)
-        return self.proj(sdpa(q, k, v).reshape(b, tq, -1))
+        return self.proj(rope_attention(q, k, v, rope_q, rope_k)
+                         .reshape(b, tq, -1))
 
 
 class EncoderBlock(nn.Module):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ("rope_2d_freqs", "apply_rope_2d")
+__all__ = ("rope_2d_freqs", "apply_rope_2d", "rope_rotate")
 
 
 def rope_2d_freqs(positions: torch.Tensor, head_dim: int,
@@ -35,11 +35,15 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-b, a, -d, c], dim=-1)
 
 
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """One tensor's rotation: x (..., T, H, D) with cos/sin (..., T, D)
+    broadcast over heads, in x's dtype."""
+    out = x * cos[..., :, None, :] + _rotate_half(x) * sin[..., :, None, :]
+    return out.to(x.dtype)
+
+
 def apply_rope_2d(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor):
     """q, k: (..., T, H, D) with cos/sin (..., T, D) broadcast over heads."""
-    cos_b = cos[..., :, None, :]
-    sin_b = sin[..., :, None, :]
-    q_out = q * cos_b + _rotate_half(q) * sin_b
-    k_out = k * cos_b + _rotate_half(k) * sin_b
-    return q_out.to(q.dtype), k_out.to(k.dtype)
+    return rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)

@@ -115,7 +115,17 @@ Tolerances:
   - the JAX spellings on the card: `rasterize(..., impl="auto")` equal to
     the default call with K1 launched (the JAX backends raise),
     `native.build(force=True)` building the library anew, and a kernel
-    built under `utils.enable_compilation_cache`'s directory.
+    built under `utils.enable_compilation_cache`'s directory;
+  - MASt3R's attention kernel (`csrc/rope_attention.cu`) against float64
+    attention on q and k rotated by `apply_rope_2d` (which the kernel's
+    rotation equals bit for bit) and v: in bfloat16 within
+    FUSED_ATTN_TOL of the largest magnitude (its output rounds by 2^-9 of
+    a value, and P rounds to bfloat16 as the PV product's operand) and no
+    farther than twice the plain version (`apply_rope_2d` then `sdpa`,
+    which rounds the scores to bfloat16 before the softmax) plus 1e-3 of
+    the largest magnitude; in float32 within ROPE_ATTN_F32_TOL of the
+    largest magnitude (float32 sums in another order, exp2f's ulps), the
+    rect test's network bound.
 """
 
 import numpy as np
@@ -128,6 +138,7 @@ from starst3r_tpu_torch.ops import row_sum
 from starst3r_tpu_torch.splat import composite as comp
 from starst3r_tpu_torch.splat import gather as gat
 from starst3r_tpu_torch.splat import train as train_mod
+from torch_attention_cases import attention_f64, attention_inputs
 from starst3r_tpu_torch.splat.rasterize import (_project_and_bin,
                                                 bin_gaussians, rasterize,
                                                 tile_entries)
@@ -2241,6 +2252,99 @@ def _head_space(key, x):
     if key == "world_points":
         return torch.sign(x) * torch.log1p(x.abs())
     return x
+
+
+# the float32 kernel against float64 attention: float32 sums in another
+# order and exp2f's ulps, well inside the rect test's 2e-5 on the network
+ROPE_ATTN_F32_TOL = 2e-5
+
+
+@pytest.mark.parametrize("b, grid, heads, kind, grid_k", [
+    (16, (24, 32), 16, "self", None),    # the encoder at 512 x 384
+    (8, (24, 32), 12, "self", None),     # the decoder at 512 x 384
+    (8, (24, 32), 12, "cross", None),
+    (16, (10, 14), 16, "self", None),    # 224 x 160: 140 keys, ragged
+    (8, (10, 14), 12, "cross", None),
+    (4, (10, 14), 12, "cross", (7, 9)),  # 140 queries, 63 keys
+    (2, (5, 20), 4, "none", None),       # no rotation
+])
+def test_rope_attention_matches_the_plain_version(dev, b, grid, heads, kind,
+                                                  grid_k):
+    from starst3r_tpu_torch.ops import attention
+    args = attention_inputs(dev, b, grid, heads, 64, kind, torch.bfloat16,
+                            seed=b + heads, grid_k=grid_k)
+    before = attention.rope_attention.launches
+    got = attention.rope_attention(*args)
+    assert attention.rope_attention.launches == before + 1
+    q = args[0]
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous() and bool(torch.isfinite(got).all())
+    want = attention_f64(*args)
+    plain = attention._rope_attention_plain(*args).double()
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max())
+    err_plain = float((plain - want).abs().max())
+    assert err <= FUSED_ATTN_TOL * scale, (err, err_plain, scale)
+    assert err <= 2.0 * err_plain + 1e-3 * scale, (err, err_plain, scale)
+
+
+@pytest.mark.parametrize("d", [24, 32, 64])
+@pytest.mark.parametrize("grid, kind", [((4, 6), "self"), ((7, 10), "cross"),
+                                        ((3, 3), "self")])
+def test_rope_attention_in_float32(dev, d, grid, kind):
+    """The `tiny` preset's head sizes (24, 32) and a bfloat16 preset's (64)
+    run in float32: 24, 70 (three tiles of 32, the last ragged) and 9
+    keys."""
+    from starst3r_tpu_torch.ops import attention
+    args = attention_inputs(dev, 3, grid, 2, d, kind, torch.float32,
+                            seed=d)
+    got = attention.rope_attention(*args)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    want = attention_f64(*args)
+    scale = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) \
+        <= ROPE_ATTN_F32_TOL * scale
+
+
+def test_rope_attention_raises_on_what_it_has_no_kernel_for(dev):
+    """A head size or dtype with no instantiation, tables with a batch,
+    keys of another head count, and inputs that want a gradient raise
+    ValueError on the card, launching nothing."""
+    from starst3r_tpu_torch.ops import attention
+    q, k, v, rq, rk = attention_inputs(dev, 2, (4, 4), 2, 64, "self",
+                                       torch.bfloat16, seed=0)
+    before = attention.rope_attention.launches
+    bad = [
+        attention_inputs(dev, 2, (4, 4), 2, 32, "self", torch.bfloat16,
+                         seed=0),
+        attention_inputs(dev, 2, (4, 4), 2, 64, "self", torch.float16,
+                         seed=0),
+        attention_inputs(dev, 2, (4, 4), 2, 48, "self", torch.float32,
+                         seed=0),
+        (q, k, v, tuple(t.expand(2, -1, -1) for t in rq), rk),
+        (q, k[:, :, :1], v[:, :, :1], rq, rk),
+        (q.float().requires_grad_(), k.float(), v.float(), rq, rk),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            attention.rope_attention(*args)
+    assert attention.rope_attention.launches == before
+
+
+def test_mast3r_forward_launches_the_attention_kernel(dev):
+    """The tiny model's forward on the card: one kernel launch a block's
+    attention (enc_depth + 4 dec_depth), none of the flash route's."""
+    from starst3r_tpu_torch.ops import attention
+    cfg = stt.ModelConfig.tiny()
+    model = stt.Mast3rModel.init_random(cfg, seed=0, device=dev)
+    img = torch.rand(2, 64, 96, 3, device=dev) * 2 - 1
+    before = attention.rope_attention.launches
+    flash = attention.fused_sdpa.launches
+    out = model.infer_pair_batch(img, img.flip(0))
+    assert (attention.rope_attention.launches - before
+            == cfg.enc_depth + 4 * cfg.dec_depth)
+    assert attention.fused_sdpa.launches == flash
+    assert all(bool(torch.isfinite(x).all()) for x in out.values())
 
 
 def test_vggt_1b_on_four_views_against_the_reference(dev):

@@ -9,6 +9,7 @@ those of tests/test_torch_parity.py (float32 on the CPU, TF32 off).
 import numpy as np
 import pytest
 import torch
+from torch_attention_cases import attention_inputs
 from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
@@ -147,3 +148,42 @@ def test_large_preset_has_checkpoint_layout():
     ref = synthetic_state_dict(st.ModelConfig.large(), zeros=True)
     for k, v in sd.items():
         assert tuple(v.shape) == ref[k].shape, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_rope_attention_plain_is_rope_then_sdpa(kind, dtype):
+    """On the CPU `rope_attention` is `apply_rope_2d` on q and on k, each
+    with its own table, then `sdpa`, bit for bit, at 140 tokens (224 x 160),
+    and counts the call."""
+    from starst3r_tpu_torch.ops.attention import rope_attention, sdpa
+    q, k, v, rope_q, rope_k = attention_inputs("cpu", 2, (10, 14), 3, 16,
+                                               kind, dtype, seed=7)
+    rq, _ = trope.apply_rope_2d(q, q, *rope_q)
+    rk, _ = trope.apply_rope_2d(k, k, *rope_k)
+    want = sdpa(rq, rk, v)
+    before = rope_attention.launches
+    got = rope_attention(q, k, v, rope_q, rope_k)
+    assert rope_attention.launches == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_full_depth_forward_counts_rope_attention_launches():
+    """A forward at the large preset's depths (24 encoder blocks, 12 + 12
+    decoder blocks; the tiny widths) makes one `rope_attention` call a
+    block's attention, enc_depth + 4 dec_depth = 72, and none of the flash
+    route's."""
+    import dataclasses
+    from starst3r_tpu_torch.ops import attention
+    large = stt.ModelConfig.large()
+    cfg = dataclasses.replace(stt.ModelConfig.tiny(),
+                              enc_depth=large.enc_depth,
+                              dec_depth=large.dec_depth)
+    model = stt.Mast3rModel.init_random(cfg, seed=0, device="cpu")
+    img = torch.rand(1, H, W, 3) * 2 - 1
+    before = attention.rope_attention.launches
+    flash = attention.fused_sdpa.launches
+    model.infer_pair_batch(img, img.flip(2))
+    assert attention.rope_attention.launches - before == 72
+    assert attention.fused_sdpa.launches == flash
