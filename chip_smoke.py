@@ -275,7 +275,24 @@ PATH or under /usr/local/cuda) and PyTorch built for CUDA. It
      only). Then the large network at 512 x 384 and 224 x 160, 8 pairs a
      forward: the kernel's launches in one forward (enc_depth + 4
      dec_depth, 72) and the encoder's and the decoder's ms (CUDA events).
-     The kernel's row on the `kernels` line takes its launches from step 2.
+     Each MASt3R call also times q and k rotated once then the kernel
+     with no tables (`once_ms`), the route calls from ROTATE_ONCE_KEYS
+     keys take, and checks that it does not take it. Then Fast3R's fusion
+     call (FUSION_CASE: 64 views' 49,152 tokens, 16 heads; q at
+     FUSION_Q_GAIN): the rotation kernel (`rope_rotate`,
+     `ops/attention.py::rope_rotate_qk`) bit for bit
+     `ops/rope.py::rope_rotate` of q and k, its ms beside its bound (its
+     bytes at 3.35 TB/s) and the plain rotation's; `rope_attention` one
+     rotation and one attention launch, bit for bit the kernel with its
+     tables, within FUSION_TOL of the largest value of float32 attention
+     (a head at a time, blocks of queries), while the kernel on unrotated
+     q and k must land outside it; its ms rotated once, with its tables,
+     and the kernel alone. Then Fast3R ViT-L/512 at FAST3R_VIEWS views,
+     its counts zeroed before one forward: enc_depth + dec_depth (48)
+     attention launches and dec_depth (24) rotations. The kernels' rows
+     on the `kernels` line take their launches from step 2 (the rotation's
+     0; its Fast3R count is `launches_fast3r`); the attention's row holds
+     the fusion call under `cases`.
 
 Each kernel's bound counts the work the run's data needs: for the
 compositing kernels the (pixel, entry) pairs inside the entries' cull
@@ -473,6 +490,16 @@ ATTN_CASES = (("512 encoder", 16, (24, 32), 16, "self"),
               ("224 decoder self", 8, (10, 14), 12, "self"),
               ("224 decoder cross", 8, (10, 14), 12, "cross"))
 PEAK_BF16 = 989e12
+# Fast3R's fusion call at 64 views of 512 x 384: (views, heads), and the
+# views of the Fast3R forward whose launches `[rope-attn]` counts
+FUSION_CASE = (64, 16)
+FAST3R_VIEWS = 8
+# the fusion call against float32 attention: within this share of the
+# largest value (tests/test_torch_cuda.py's FUSED_ATTN_TOL), and q at
+# this gain over unit variance, so that attention over 49,152 keys is
+# far from uniform and a call that skips the rotation lands far outside
+FUSION_TOL = 8e-3
+FUSION_Q_GAIN = 4.0
 # the kernel against float64 attention on the same rotated inputs: no
 # farther than twice the plain version plus this share of the largest value
 ATTN_SLACK = 1e-3
@@ -990,13 +1017,14 @@ def launch_counters():
     """{exported kernel function: the wrapper that counts its launches (the
     fused loss's calls, two kernels each; the GA step's calls, its
     `ga_reparam`, the fused loss and `ga_update`; MASt3R's attention's
-    calls, CPU ones too)}."""
+    calls and its long calls' rotations, CPU ones too)}."""
     from starst3r_tpu_torch.alignment import ga_loss, ga_step
     from starst3r_tpu_torch.ops import attention, row_sum
     from starst3r_tpu_torch.splat import composite as comp, gather as gat
     return {"ga_loss": ga_loss.ga_loss_cuda,
             "ga_step": ga_step.ga_step_cuda,
             "rope_attention": attention.rope_attention,
+            "rope_rotate": attention.rope_rotate_qk,
             "composite_fwd_packed": comp.composite_packed_cuda,
             "composite_bwd_packed": comp.composite_packed_slots_cuda,
             "composite_fwd": comp.composite_tiles_cuda,
@@ -1042,7 +1070,8 @@ def counted_forwards():
 
 def check_attention_launches(launches, forwards, cfg, where):
     """Every forward in ``forwards`` launched MASt3R's attention kernel
-    once a block (enc_depth + 4 dec_depth), and nothing else did."""
+    once a block (enc_depth + 4 dec_depth), nothing else did, and none
+    launched the rotation kernel."""
     want = (cfg.enc_depth + 4 * cfg.dec_depth) * len(forwards)
     print(f"[{where}] attention kernel launches {launches['rope_attention']}"
           f" over {len(forwards)} forwards of {forwards} pairs (want {want})",
@@ -1050,6 +1079,8 @@ def check_attention_launches(launches, forwards, cfg, where):
     check(launches["rope_attention"] == want, f"[{where}] the attention "
           f"kernel launched {launches['rope_attention']} times over "
           f"{len(forwards)} forwards, want {want}")
+    check(launches["rope_rotate"] == 0, f"[{where}] MASt3R's forwards "
+          f"launched the rotation kernel {launches['rope_rotate']} times")
 
 
 def read_nonfinite():
@@ -3959,8 +3990,8 @@ def vggt_phase(dev=None):
 
 
 def attention_phase(dev=None, model=None):
-    """`[rope-attn]` (module docstring, item 23). Returns the kernel's row
-    of the `kernels` line."""
+    """`[rope-attn]` (module docstring, item 23). Returns the rotation
+    kernel's and the attention kernel's rows of the `kernels` line."""
     import torch
     import torch.nn.functional as F
     import starst3r_tpu_torch as stt
@@ -3978,6 +4009,10 @@ def attention_phase(dev=None, model=None):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2)).transpose(1, 2)
+
+    def rotated_once(q, k, v, rope_q, rope_k):
+        q, k = attention.rope_rotate_qk(q, k, rope_q, rope_k)
+        return attention._rope_attention_cuda(q, k, v, None, None)
 
     cases = {}
     for n, (name, b, grid, heads, kind) in enumerate(ATTN_CASES):
@@ -4005,16 +4040,21 @@ def attention_phase(dev=None, model=None):
         n_bytes = (4 * b * t * heads * 64 * 2
                    + (1 if kind == "self" else 2) * 2 * t * 64 * 4)
         bound_ms = max(flops / PEAK_BF16, n_bytes / PEAK_BYTES) * 1e3
+        check(t < attention.ROTATE_ONCE_KEYS, f"[rope-attn] {name}: "
+              f"{t} keys take the rotate-once route")
         ms = device_ms(lambda: attention.rope_attention(*args), 20)
+        once_ms = device_ms(lambda: rotated_once(*args), 20)
         plain_ms = device_ms(lambda: attention._rope_attention_plain(*args),
                              5)
         library_ms = device_ms(lambda: library(*args), 20)
-        cases[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, err=err, err_plain=err_plain,
-                           scale=scale, flops=flops, bytes=n_bytes)
+        cases[name] = dict(ms=ms, once_ms=once_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           err=err, err_plain=err_plain, scale=scale,
+                           flops=flops, bytes=n_bytes)
         print(f"[rope-attn] {name} (B {b}, T {t}, H {heads}, D 64, {kind}): "
               f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
-              f"{bound_ms:.4f} ms ({bound_ms / ms:.1%}), plain "
+              f"{bound_ms:.4f} ms ({bound_ms / ms:.1%}), rotated once "
+              f"{once_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; max gap to "
               f"float64 {err:.3e}, the plain version's {err_plain:.3e} "
               f"(largest value {scale:.3f})", flush=True)
@@ -4059,8 +4099,10 @@ def attention_phase(dev=None, model=None):
         cases[f"forward {hw[1]}"] = fwd
         del imgs, feats, f1, f2
     torch.cuda.empty_cache()
+    fusion, rotate_row = fusion_attention(dev, rotated_once)
+    cases["fusion"] = fusion
     main_case = cases[ATTN_CASES[0][0]]
-    return {"name": "rope_attention", "route": "cuda",
+    return rotate_row, {"name": "rope_attention", "route": "cuda",
             "source": "starst3r_tpu_torch/csrc/rope_attention.cu",
             "replaces": "none (the JAX package leaves attention to XLA: "
             "starst3r_tpu/ops/attention.py, ops/rope.py)",
@@ -4070,6 +4112,133 @@ def attention_phase(dev=None, model=None):
             "library_ms": main_case["library_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": "operations",
             "cases": cases}
+
+
+def fusion_attention(dev, rotated_once):
+    """`[rope-attn]`'s Fast3R part (module docstring, item 23). Returns
+    (the fusion call's case, the rotation kernel's row of the `kernels`
+    line)."""
+    import numpy as np
+    import torch
+    import starst3r_tpu_torch as stt
+    from starst3r_tpu_torch.models import vit
+    from starst3r_tpu_torch.ops import attention
+    from starst3r_tpu_torch.ops.rope import rope_2d_freqs, rope_rotate
+    views, heads = FUSION_CASE
+    t = views * 768
+    gen = torch.Generator(device=dev).manual_seed(views)
+    qkv = torch.randn(1, t, 3, heads, 64, device=dev, generator=gen)
+    qkv[:, :, 0] *= FUSION_Q_GAIN
+    q, k, v = qkv.to(torch.bfloat16).unbind(2)
+    del qkv
+    rope = rope_2d_freqs(vit.patch_positions(24, 32, dev).repeat(views, 1)
+                         [None], 64)
+    check(t >= attention.ROTATE_ONCE_KEYS, f"[rope-attn] the fusion call's "
+          f"{t} keys do not take the rotate-once route")
+    qr, kr = attention.rope_rotate_qk(q, k, rope, rope)
+    check(torch.equal(qr, rope_rotate(q, *rope))
+          and torch.equal(kr, rope_rotate(k, *rope)), "[rope-attn] fusion: "
+          "the rotation kernel is not the plain rotation bit for bit")
+    # q and k read and written in bfloat16, the cos and sin rows once (q's
+    # and k's tables are the same rows in a fusion call): 427.8 MB, as
+    # benchmark/benchlib/fast3r_work.py::rotate_bytes counts a call
+    rot_bytes = 4 * t * heads * 64 * 2 + 2 * t * 64 * 4
+    rot_bound_ms = rot_bytes / PEAK_BYTES * 1e3
+    rot_ms = device_ms(lambda: attention.rope_rotate_qk(q, k, rope, rope),
+                       20)
+    rot_plain_ms = device_ms(lambda: (rope_rotate(q, *rope),
+                                      rope_rotate(k, *rope)), 5)
+    counts = (attention.rope_rotate_qk.launches,
+              attention.rope_attention.launches)
+    got = attention.rope_attention(q, k, v, rope, rope)
+    check((attention.rope_rotate_qk.launches - counts[0],
+           attention.rope_attention.launches - counts[1]) == (1, 1),
+          "[rope-attn] fusion: the call is not one rotation and one "
+          "attention launch")
+    check(torch.equal(got, attention._rope_attention_cuda(q, k, v, rope,
+                                                          rope)),
+          "[rope-attn] fusion: rotated once differs from the tables route")
+    # the yardstick's control: the kernel on q and k left unrotated
+    skipped = attention._rope_attention_cuda(q, k, v, None, None)
+    err = err_skip = scale = 0.0
+    for h in range(heads):
+        kh, vh = kr[0, :, h].float(), v[0, :, h].float()
+        for r0 in range(0, t, 4096):
+            want = torch.softmax(qr[0, r0:r0 + 4096, h].float() @ kh.T
+                                 * 0.125, dim=-1) @ vh
+            err = max(err, float((got[0, r0:r0 + 4096, h].float() - want)
+                                 .abs().max()))
+            err_skip = max(err_skip, float(
+                (skipped[0, r0:r0 + 4096, h].float() - want).abs().max()))
+            scale = max(scale, float(want.abs().max()))
+    del skipped, want
+    check(err <= FUSION_TOL * scale, f"[rope-attn] fusion: {err} from "
+          f"float32 attention (largest value {scale})")
+    check(err_skip > FUSION_TOL * scale, f"[rope-attn] fusion: the kernel "
+          f"on unrotated q and k is within {FUSION_TOL} of the largest "
+          f"value ({err_skip} of {scale}): the comparison cannot tell")
+    once_ms = device_ms(lambda: attention.rope_attention(q, k, v, rope,
+                                                         rope), 3)
+    tables_ms = device_ms(lambda: attention._rope_attention_cuda(
+        q, k, v, rope, rope), 3)
+    kernel_ms = device_ms(lambda: attention._rope_attention_cuda(
+        qr, kr, v, None, None), 3)
+    flops = 4.0 * heads * t * t * 64
+    fusion = dict(once_ms=once_ms, tables_ms=tables_ms, ms=kernel_ms,
+                  err=err, err_unrotated=err_skip, scale=scale, flops=flops,
+                  bound_ms=flops / PEAK_BF16 * 1e3)
+    print(f"[rope-attn] fusion (B 1, T {t}, H {heads}, D 64): rotated once "
+          f"{once_ms:.4f} ms (the kernel alone {kernel_ms:.4f} ms, "
+          f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+          f"{fusion['bound_ms'] / kernel_ms:.1%} of its bound), the kernel "
+          f"with its tables {tables_ms:.4f} ms; max gap to float32 "
+          f"{err:.3e}, unrotated {err_skip:.3e} (largest value "
+          f"{scale:.4f}, tolerance {FUSION_TOL * scale:.3e})", flush=True)
+    print(f"[rope-attn] rotation (B 1, T {t}, H {heads}, D 64): "
+          f"{rot_ms:.4f} ms, bound {rot_bound_ms:.4f} ms "
+          f"({rot_bound_ms / rot_ms:.1%}; {rot_bytes} B), plain "
+          f"{rot_plain_ms:.4f} ms; bit for bit the plain rotation",
+          flush=True)
+    del q, k, v, qr, kr, got, rope
+    torch.cuda.empty_cache()
+
+    cfg = stt.Fast3RConfig.fast3r_vitl_512()
+    model = stt.Fast3RModel.init_random(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    imgs = [rng.uniform(-1, 1, (3, 384, 512)).astype(np.float32)
+            for _ in range(FAST3R_VIEWS)]
+    check(FAST3R_VIEWS * 768 >= attention.ROTATE_ONCE_KEYS,
+          "[rope-attn] the Fast3R forward's fusion calls are too short to "
+          "rotate once")
+    model.infer(imgs)
+    torch.cuda.synchronize()
+    set_launches(0)
+    model.infer(imgs)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    want = (cfg.dec_depth, cfg.enc_depth * -(-FAST3R_VIEWS // cfg.enc_chunk)
+            + cfg.dec_depth)
+    fwd_ms = cuda_ms(lambda: model.infer(imgs), 2)
+    print(f"[rope-attn] Fast3R ViT-L/512 at {FAST3R_VIEWS} views: "
+          f"{launched['rope_rotate']} rotations and "
+          f"{launched['rope_attention']} attention launches a forward (want "
+          f"{want[0]} and {want[1]}), {fwd_ms:.2f} ms a forward (CUDA "
+          f"events)", flush=True)
+    check((launched["rope_rotate"], launched["rope_attention"]) == want,
+          f"[rope-attn] a Fast3R forward launched {launched['rope_rotate']} "
+          f"rotations and {launched['rope_attention']} attentions, want "
+          f"{want}")
+    fusion.update(fast3r_forward_ms=fwd_ms, fast3r_views=FAST3R_VIEWS)
+    del model
+    torch.cuda.empty_cache()
+    return fusion, {
+        "name": "rope_rotate", "route": "cuda", "function": "rope_rotate",
+        "source": "starst3r_tpu_torch/csrc/rope_attention.cu",
+        "replaces": "none (the JAX package leaves the rotation to XLA: "
+        "starst3r_tpu/ops/rope.py apply_rope_2d)",
+        "max_abs_err": 0.0, "ms": rot_ms, "plain_ms": rot_plain_ms,
+        "library_ms": None, "bound_ms": rot_bound_ms, "bound_by": "bytes",
+        "bytes": rot_bytes, "launches_fast3r": launched["rope_rotate"]}
 
 
 def main():
@@ -4133,7 +4302,7 @@ def main():
           f"{model.cfg.dtype}, init {time.perf_counter() - t:.2f} s",
           flush=True)
     t = time.perf_counter()
-    attention_row = attention_phase(dev, model)
+    rotate_row, attention_row = attention_phase(dev, model)
     print(f"[stages] rope-attn: {time.perf_counter() - t:.3f}s", flush=True)
 
     # the pair cache and the checkpoints; removed at the end (and, after a
@@ -4472,6 +4641,11 @@ def main():
     kernels_line.append(dict(
         attention_row, launches=render_launches["rope_attention"],
         launches_parallel=par_launches["rope_attention"]))
+    # the rotation's: MASt3R's main path and sharded training launch none;
+    # a Fast3R forward's (`[rope-attn]`) are under launches_fast3r
+    kernels_line.append(dict(
+        rotate_row, launches=render_launches["rope_rotate"],
+        launches_parallel=par_launches["rope_rotate"]))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ from .version import __version__
 
 from .config import (
     Config, ImageConfig, ModelConfig, MatchingConfig, GAConfig, SplatConfig,
-    SceneConfig, MeshConfig, VGGTConfig, default_config, model_preset,
+    SceneConfig, MeshConfig, VGGTConfig, Fast3RConfig, default_config,
+    model_preset,
 )
 from .imaging import (
     make_pair_indices, make_sliding_window_pairs, process_image, load_image,
@@ -28,7 +29,7 @@ from .utils import (interp_se3, interp_se3_path, se3_inverse, se3_apply,
                     restore_pytree)
 from .ops import ssim, psnr
 from . import models
-from .models import Mast3rModel, VGGTModel
+from .models import Fast3RModel, Mast3rModel, VGGTModel
 from .reconstruct import reconstruct_scene
 from .scene import Scene
 from . import splat as gs  # reference-compat: `starster.gs`

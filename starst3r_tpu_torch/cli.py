@@ -49,15 +49,16 @@ def _build_parser() -> argparse.ArgumentParser:
     rec.add_argument("--imgdir", required=True)
     rec.add_argument("--out", required=True)
     rec.add_argument("--res", type=int, default=None,
-                     help="longest-edge resolution (reference default 224); "
-                     "with a VGGT preset the width (default 518)")
+                     help="longest-edge resolution (reference default 224; "
+                     "512 with a Fast3R preset); with a VGGT preset the "
+                     "width (default 518)")
     rec.add_argument("--preset", default="tiny",
                      choices=["tiny", "small", "base", "large", "vggt_1b",
-                              "vggt_tiny"],
+                              "vggt_tiny", "fast3r_vitl_512", "fast3r_tiny"],
                      help="the network: MASt3R's presets, or VGGT-1B "
-                     "(vggt_1b; vggt_tiny for the CPU), which "
-                     "reconstructs all images in one forward with no "
-                     "pairs and no global alignment (the --ga-*, "
+                     "(vggt_1b; vggt_tiny for the CPU) or Fast3R ViT-L/512 "
+                     "(fast3r_vitl_512; fast3r_tiny for the CPU), which reconstruct all images in one forward "
+                     "with no pairs and no global alignment (the --ga-*, "
                      "--pair-graph, --refine-* and depth flags do not "
                      "apply)")
     rec.add_argument("--model", default=None,
@@ -166,12 +167,14 @@ def _cmd_reconstruct(args, device) -> int:
         print(f"error: need >= 2 images in {args.imgdir}", file=sys.stderr)
         return 2
     vggt = args.preset.startswith("vggt")
+    fast3r = args.preset.startswith("fast3r")
     if vggt:
         route = "pil"
         imgs = stt.load_images(paths, size=args.res or 518, mode="crop")
     else:
         route = image_route()
-        imgs = stt.load_images(paths, size=args.res or 224, impl=route)
+        res = args.res or (512 if fast3r else 224)
+        imgs = stt.load_images(paths, size=res, impl=route)
     logger.log("load_images", impl=route, n_images=len(imgs),
                shape=list(imgs[0].shape))
 
@@ -195,12 +198,13 @@ def _cmd_reconstruct(args, device) -> int:
         opt_depth=bool(args.opt_depth or args.lora_depth))
     cfg = dataclasses.replace(cfg, ga=ga)
 
-    if vggt:
+    if vggt or fast3r:
         if args.model:
-            print("error: --model loads MASt3R checkpoints; a VGGT preset "
-                  "runs on random weights", file=sys.stderr)
+            print("error: --model loads MASt3R checkpoints; a VGGT or "
+                  "Fast3R preset runs on random weights", file=sys.stderr)
             return 2
-        model = stt.VGGTModel.init_random(cfg.model, device=device)
+        cls = stt.VGGTModel if vggt else stt.Fast3RModel
+        model = cls.init_random(cfg.model, device=device)
     elif args.model:
         model = stt.Mast3rModel.from_pretrained(args.model, device=device)
     else:

@@ -165,13 +165,64 @@ class VGGTConfig:
             camera_depth=2, camera_heads=2, dtype="float32")
 
 
+@dataclass(frozen=True)
+class Fast3RConfig:
+    """Fast3R (Yang et al., CVPR 2025, arXiv:2501.13928; facebookresearch/
+    fast3r, `Fast3R_ViT_Large_512`): DUSt3R's trunk made N-view, all views
+    of a scene in one forward (`models/fast3r.py`).
+
+    CroCo's ViT encoder embeds each view on its own; a linear map and an
+    image-index embedding then feed ``dec_depth`` fusion blocks that attend
+    over every token of every view at once, with 2D RoPE on each token's
+    own patch; two DPT heads read [encoder output, fusion blocks depth/2,
+    3 depth/4, the normed last] and give each view's points in its own
+    camera frame (local) and in view 0's (global), with confidences."""
+
+    name: str = "fast3r_vitl_512"
+    patch_size: int = 16
+    enc_depth: int = 24
+    enc_dim: int = 1024
+    enc_heads: int = 16
+    dec_depth: int = 24             # fusion blocks
+    dec_dim: int = 1024
+    dec_heads: int = 16
+    mlp_ratio: float = 4.0
+    rope_base: float = 100.0
+    pointmap_mode: str = "exp"
+    dpt_feature_dim: int = 256
+    dpt_layer_dims: Tuple[int, int, int, int] = (96, 192, 384, 768)
+    dpt_last_dim: int = 128
+    enc_chunk: int = 16             # views a call of the encoder
+    heads_chunk: int = 8            # views a pass of the DPT heads
+    # the encoder's and fusion's autocast dtype; the DPT heads run under it
+    # too, their last convolution in float32, as MASt3R's do in the port
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def fast3r_vitl_512() -> "Fast3RConfig":
+        """The published Fast3R ViT-L/512 widths."""
+        return Fast3RConfig()
+
+    @staticmethod
+    def tiny() -> "Fast3RConfig":
+        """Random-init CPU-testable Fast3R, float32."""
+        return Fast3RConfig(
+            name="fast3r_tiny", enc_depth=2, enc_dim=64, enc_heads=2,
+            dec_depth=2, dec_dim=48, dec_heads=2, dpt_feature_dim=32,
+            dpt_layer_dims=(8, 12, 16, 24), dpt_last_dim=16, enc_chunk=2,
+            heads_chunk=2, dtype="float32")
+
+
 _MODEL_PRESETS = {"tiny": ModelConfig.tiny, "small": ModelConfig.small,
                   "base": ModelConfig.base, "large": ModelConfig.large,
-                  "vggt_1b": VGGTConfig.vggt_1b, "vggt_tiny": VGGTConfig.tiny}
+                  "vggt_1b": VGGTConfig.vggt_1b, "vggt_tiny": VGGTConfig.tiny,
+                  "fast3r_vitl_512": Fast3RConfig.fast3r_vitl_512,
+                  "fast3r_tiny": Fast3RConfig.tiny}
 
 
 def model_preset(name: str):
-    """The `ModelConfig` (MASt3R) or `VGGTConfig` of a preset name."""
+    """The `ModelConfig` (MASt3R), `VGGTConfig` or `Fast3RConfig` of a
+    preset name."""
     return _MODEL_PRESETS[name]()
 
 

@@ -7,7 +7,8 @@ carries a hash of the source and of the shared headers, so an edited
 source builds anew; `ga_loss.cu` and `ga_step.cu` add ``-fmad=false``)
 and loaded with ctypes. Each exports C functions (one named after its
 file, or ``gather_rows_bwd_split``, or `ga_step.cu`'s ``ga_reparam`` and
-``ga_update``; the compositing sources also a ``_packed`` route) that
+``ga_update``; the compositing sources also a ``_packed`` route,
+`rope_attention.cu` also ``rope_rotate``) that
 launch a kernel on the stream they are given and return the CUDA error
 code; `launch` raises on a non-zero code. `build` compiles several
 sources at once, one `nvcc` each, all started together. `build` and
@@ -56,7 +57,9 @@ _EXPORTS = {
                 "ga_update": [_P] * 6 + [_I] * 6 + [ctypes.c_float] * 8
                 + [_P]},
     "rope_attention": {"rope_attention": [_P] * 8 + [_I] * 6
-                       + [ctypes.c_int64] * 9 + [ctypes.c_float, _P]},
+                       + [ctypes.c_int64] * 9 + [ctypes.c_float, _P],
+                       "rope_rotate": [_P] * 8 + [_I] * 5
+                       + [ctypes.c_int64] * 6 + [_P]},
 }
 # nvcc flags of one source beyond the common line: the GA's fused loss and
 # its step round every product and sum on their own (no contraction into

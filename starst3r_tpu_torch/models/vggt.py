@@ -478,3 +478,13 @@ class VGGTModel:
         imgs = torch.stack([torch.as_tensor(np.asarray(im, np.float32))
                             for im in images]).to(self.device)
         return self.net(imgs)
+
+    @torch.inference_mode()
+    def infer_scene(self, images: Sequence):
+        """One forward and the cameras of its pose encodings -> (cam2w
+        (S, 4, 4), K (S, 3, 3), depth (S, H, W), its confidence (S, H, W))
+        on the model's device."""
+        out = self.infer(images)
+        h, w = out["depth"].shape[1:3]
+        cam2w, K = pose_encoding_to_cameras(out["pose_enc"], h, w)
+        return cam2w, K, out["depth"][..., 0], out["depth_conf"]

@@ -14,9 +14,11 @@ ranks in the last bits (the GA itself is repeatable bit for bit on the
 card: it adds no atomics); the polish then reduces its correspondence or
 track shards over the mesh.
 
-A `models.vggt.VGGTModel` takes the feed-forward path instead: one forward
-over all views gives each view's camera (from its pose encoding) and
-depth with its confidence; no pairs, no pair cache, no alignment. The
+A feed-forward model, `models.vggt.VGGTModel` or `models.fast3r.
+Fast3RModel`, takes the feed-forward path instead: one forward over all
+views gives each view's camera (VGGT's from its pose encoding, Fast3R's
+from its local and global pointmaps) and depth with its confidence
+(`infer_scene`); no pairs, no pair cache, no alignment. The
 `Reconstruction` then holds that depth and an empty GA state, and
 `get_dense_pts3d` unprojects it through the same `_dense_unproject`.
 
@@ -46,8 +48,9 @@ from .alignment.spectral import spectral_projection_of_depthmaps
 from .config import Config, GAConfig, default_config
 from .imaging import make_pair_indices, make_sliding_window_pairs
 from .io.cache import PairCache, content_key
+from .models.fast3r import Fast3RModel
 from .models.mast3r import _OUT_KEYS, Mast3rModel, PairPrediction
-from .models.vggt import VGGTModel, pose_encoding_to_cameras
+from .models.vggt import VGGTModel
 from .ops.matching import (PairMatches, match_pair, refine_matches,
                            subsample_grid_indices)
 from .utils.device import resolve_device
@@ -62,10 +65,10 @@ __all__ = ("Reconstruction", "reconstruct_scene")
 class Reconstruction:
     """Result container (SparseGA analog, reference reconstruct.py:113).
 
-    A feed-forward answer (VGGT) has no alignment: ``core_depth`` is (C, 0),
-    ``views`` empty, ``subsample`` 0, ``ga_params`` None and ``losses``
-    (nan, nan); its dense depth and confidence are ``depth`` and
-    ``depth_conf``, which are None after an alignment."""
+    A feed-forward answer (VGGT, Fast3R) has no alignment: ``core_depth``
+    is (C, 0), ``views`` empty, ``subsample`` 0, ``ga_params`` None and
+    ``losses`` (nan, nan); its dense depth and confidence are ``depth``
+    and ``depth_conf``, which are None after an alignment."""
 
     imgs: List[np.ndarray]          # (H, W, 3) float in [0, 1]
     cam2w: np.ndarray               # (C, 4, 4)
@@ -86,7 +89,9 @@ class Reconstruction:
     def get_dense_pts3d(self, clean_depth: bool = True):
         """Per-camera dense world points: (pts list of (H*W, 3), depths list
         of (H*W,), confs list of (H*W,)), as the reference's
-        scene.get_dense_pts3d(clean_depth=True) (scene.py:148)."""
+        scene.get_dense_pts3d(clean_depth=True) (scene.py:148). The
+        span ``recon/dense`` covers a feed-forward answer's unprojection
+        (and clean-up), not an alignment's."""
         h, w = self.imgs[0].shape[:2]
         c = len(self.imgs)
         dev = self.device
@@ -157,7 +162,7 @@ def _dense_unproject(dense_depth, K, cam2w, conf, h: int, w: int,
 
 
 def reconstruct_scene(
-    model: Union[Mast3rModel, VGGTModel],
+    model: Union[Mast3rModel, VGGTModel, Fast3RModel],
     imgs: Sequence[np.ndarray],
     filelist: Optional[Sequence[str]] = None,
     device="cuda",
@@ -177,11 +182,12 @@ def reconstruct_scene(
     the JAX package (the reference's signature has it; the pair cache is
     keyed by content).
 
-    With a `VGGTModel`, imgs are (3, H, W) in [0, 1] (`load_images` with
-    ``mode="crop"``) and one forward answers (module docstring); it
-    returns (rec, None), and ``optim_params``, ``freeze`` and ``mesh`` raise
-    ValueError there, as it has no alignment to warm-start, freeze or
-    split."""
+    With a feed-forward model one forward answers (module docstring):
+    imgs are (3, H, W) in [0, 1] for a `VGGTModel` (`load_images` with
+    ``mode="crop"``), in [-1, 1] for a `Fast3RModel` (`load_images` as for
+    MASt3R). It returns (rec, None), and ``optim_params``, ``freeze`` and
+    ``mesh`` raise ValueError there, as it has no alignment to
+    warm-start, freeze or split."""
     del filelist
     cfg = config or default_config()
     dev = resolve_device(device)
@@ -193,7 +199,7 @@ def reconstruct_scene(
         raise ValueError("need at least two images")
     imgs = [np.asarray(im, np.float32) for im in imgs]
     h, w = imgs[0].shape[-2:]
-    if isinstance(model, VGGTModel):
+    if isinstance(model, (VGGTModel, Fast3RModel)):
         if optim_params is not None or freeze is not None or \
                 mesh is not None:
             raise ValueError("a feed-forward reconstruction takes no "
@@ -312,19 +318,25 @@ def reconstruct_scene(
     return rec, params
 
 
-def _feed_forward(model: VGGTModel, imgs: List[np.ndarray], timer: Timer,
+def _feed_forward(model: Union[VGGTModel, Fast3RModel],
+                  imgs: List[np.ndarray], timer: Timer,
                   logger: Optional[MetricsLogger]) -> Reconstruction:
-    """One VGGT forward over all views -> cameras and dense depth."""
-    n, (h, w) = len(imgs), imgs[0].shape[-2:]
+    """One forward over all views -> cameras and dense depth
+    (``model.infer_scene``)."""
+    n = len(imgs)
     with timer("inference"), trace_if("inference"):
-        out = model.infer(imgs)
-        cam2w, K = pose_encoding_to_cameras(out["pose_enc"], h, w)
-        cam2w, K, depth, conf = (x.cpu().numpy() for x in (
-            cam2w, K, out["depth"][..., 0], out["depth_conf"]))
+        cam2w, K, depth, conf = (x.cpu().numpy()
+                                 for x in model.infer_scene(imgs))
     if logger is not None:
         logger.log("reconstruct", n_images=n, **timer.summary())
+    # VGGT's images are in [0, 1], Fast3R's in [-1, 1] as MASt3R's
+    if isinstance(model, Fast3RModel):
+        display = [np.clip(im.transpose(1, 2, 0) * 0.5 + 0.5, 0, 1)
+                   for im in imgs]
+    else:
+        display = [np.clip(im.transpose(1, 2, 0), 0, 1) for im in imgs]
     return Reconstruction(
-        imgs=[np.clip(im.transpose(1, 2, 0), 0, 1) for im in imgs],
+        imgs=display,
         cam2w=cam2w, intrinsics=K, core_depth=np.zeros((n, 0), np.float32),
         views=[], subsample=0, ga_params=None,
         losses=(float("nan"), float("nan")), device=model.device,

@@ -9,8 +9,9 @@ the JAX package's file format.
 `add_images` re-runs reconstruction over ALL images, warm-starting the GA
 from the previous `optim_params`, then replaces poses and points wholesale;
 the content-addressed pair cache skips pairs already inferred. With a
-`VGGTModel` it runs one feed-forward reconstruction over all images (no GA
-to warm-start; the images in [0, 1], `load_images(..., mode="crop")`).
+feed-forward model it runs one forward over all images (no GA to
+warm-start): a `VGGTModel` on images in [0, 1] (`load_images(...,
+mode="crop")`), a `Fast3RModel` on images in [-1, 1] as MASt3R's.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from .alignment.ga import GAParams
 from .config import Config, default_config
+from .models.fast3r import Fast3RModel
 from .models.mast3r import Mast3rModel
 from .models.vggt import VGGTModel
 from .reconstruct import Reconstruction, reconstruct_scene
@@ -76,12 +78,12 @@ class Scene:
             raise RuntimeError("No c2w matrix available.")
         return se3_inverse(torch.as_tensor(self.c2w)).numpy()
 
-    def add_images(self, model: Union[Mast3rModel, VGGTModel],
+    def add_images(self, model: Union[Mast3rModel, VGGTModel, Fast3RModel],
                    imgs: List[np.ndarray], conf_thres: float = 1.5,
                    pair_graph: str = "complete"):
-        """Add processed (3, H, W) images, in [-1, 1] for MASt3R and in
-        [0, 1] for VGGT, and solve poses and dense points (reference
-        scene.py:97-155)."""
+        """Add processed (3, H, W) images, in [-1, 1] for MASt3R and
+        Fast3R and in [0, 1] for VGGT, and solve poses and dense points
+        (reference scene.py:97-155)."""
         self.raw_imgs.extend([np.asarray(im, np.float32) for im in imgs])
         self._reconstruct(model, conf_thres, pair_graph, freeze=None)
 
@@ -104,7 +106,8 @@ class Scene:
         self._reconstruct(model, conf_thres, pair_graph, freeze=freeze)
         return np.asarray(self.c2w[-1])
 
-    def _reconstruct(self, model: Union[Mast3rModel, VGGTModel],
+    def _reconstruct(self, model: Union[Mast3rModel, VGGTModel,
+                                        Fast3RModel],
                      conf_thres: float,
                      pair_graph: str, freeze: Optional[np.ndarray]):
         """Reconstruct over all images, warm-started, and replace poses,

@@ -1,14 +1,16 @@
 """Pinhole camera math on torch tensors (port of
 `starst3r_tpu/utils/camera.py`): intrinsics, the pixel grid, projection,
-unprojection and the focal estimate from a pointmap. The functions take
-leading batch dimensions and work on the device of their inputs."""
+unprojection, the focal estimate from a pointmap, and the rigid motion
+between two point sets. The functions take leading batch dimensions and
+work on the device of their inputs."""
 
 from __future__ import annotations
 
 import torch
 
 __all__ = ("make_intrinsics", "pixel_grid", "unproject_depth",
-           "project_points", "reproj2d", "estimate_focal_from_pointmap")
+           "project_points", "reproj2d", "least_squares_focal",
+           "estimate_focal_from_pointmap", "rigid_procrustes")
 
 
 def make_intrinsics(focal, pp, dtype=torch.float32, device=None):
@@ -37,9 +39,11 @@ def pixel_grid(h: int, w: int, dtype=torch.float32, device=None):
     return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
 
 
-def estimate_focal_from_pointmap(pts3d, pp, conf=None, eps: float = 1e-8):
-    """Confidence-weighted least-squares focal from a camera-frame pointmap
-    (H, W, 3) and principal point (2,): u - cx = f * X / Z per pixel."""
+def least_squares_focal(pts3d, pp, conf=None, eps: float = 1e-8):
+    """The confidence-weighted least-squares quotient of
+    `estimate_focal_from_pointmap` before its clamp, signed: sum w (u - c)
+    . (X, Y) / Z over sum w |(X, Y) / Z|^2 for a camera-frame pointmap
+    (H, W, 3) and principal point (2,)."""
     h, w = pts3d.shape[:2]
     pix = pixel_grid(h, w, device=pts3d.device).reshape(h, w, 2)
     du = pix - pp
@@ -49,8 +53,37 @@ def estimate_focal_from_pointmap(pts3d, pp, conf=None, eps: float = 1e-8):
     num = torch.sum(du * ratio, dim=-1)
     den = torch.sum(ratio * ratio, dim=-1)
     wgt = conf if conf is not None else torch.ones_like(num)
-    f = torch.sum(wgt * num) / torch.clamp(torch.sum(wgt * den), min=eps)
-    return torch.clamp(f, min=eps)
+    return torch.sum(wgt * num) / torch.clamp(torch.sum(wgt * den), min=eps)
+
+
+def estimate_focal_from_pointmap(pts3d, pp, conf=None, eps: float = 1e-8):
+    """Confidence-weighted least-squares focal from a camera-frame pointmap
+    (H, W, 3) and principal point (2,): u - cx = f * X / Z per pixel
+    (`least_squares_focal`), at least ``eps``."""
+    return torch.clamp(least_squares_focal(pts3d, pp, conf, eps), min=eps)
+
+
+def rigid_procrustes(src, dst, weight, eps: float = 1e-12):
+    """The weighted rigid motion (R, t) that takes ``src`` onto ``dst``:
+    argmin sum_n w_n |R src_n + t - dst_n|^2 over rotations R, by Kabsch's
+    SVD of the weighted cross-covariance with the determinant's sign
+    corrected (no reflection). src, dst (..., N, 3), weight (..., N) ->
+    R (..., 3, 3), t (..., 3); every leading index solved at once."""
+    w = weight[..., None]
+    total = torch.clamp(torch.sum(w, dim=-2), min=eps)       # (..., 1)
+    mu_s = torch.sum(w * src, dim=-2) / total
+    mu_d = torch.sum(w * dst, dim=-2) / total
+    cov = torch.einsum("...ni,...nj->...ij", w * (src - mu_s[..., None, :]),
+                       dst - mu_d[..., None, :])
+    u, _, vh = torch.linalg.svd(cov)
+    v = vh.transpose(-1, -2)
+    sign = torch.sign(torch.linalg.det(v @ u.transpose(-1, -2)))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    fix = torch.ones(sign.shape + (3,), dtype=src.dtype, device=src.device)
+    fix[..., 2] = sign
+    rot = (v * fix[..., None, :]) @ u.transpose(-1, -2)
+    trans = mu_d - torch.einsum("...ij,...j->...i", rot, mu_s)
+    return rot, trans
 
 
 def unproject_depth(depth, K, c2w=None, pix=None):

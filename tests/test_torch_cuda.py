@@ -125,7 +125,13 @@ Tolerances:
     which rounds the scores to bfloat16 before the softmax) plus 1e-3 of
     the largest magnitude; in float32 within ROPE_ATTN_F32_TOL of the
     largest magnitude (float32 sums in another order, exp2f's ulps), the
-    rect test's network bound.
+    rect test's network bound;
+  - Fast3R's route: the rotation kernel (`rope_rotate`) bit for bit the
+    plain rotation, the attention kernel on q and k rotated once bit for
+    bit the kernel rotating them as they load, a fusion call over 64
+    views' 49,152 tokens within FUSED_ATTN_TOL of float32 attention, and
+    Fast3R ViT-L/512 on 4 views against the float32 reference
+    (benchmark/reference/fast3r.py) within its cell's `net_gap` limit.
 """
 
 import numpy as np
@@ -2380,3 +2386,128 @@ def test_vggt_1b_on_four_views_against_the_reference(dev):
     print("vggt-1b 4 views, gaps in head space:", gaps)
     assert all(np.isfinite(list(gaps.values())))
     assert float(np.mean(list(gaps.values()))) <= VGGT_NET_TOL, gaps
+
+
+# -- Fast3R: q and k rotated once, the attention kernel over a scene ------
+
+def _fusion_inputs(dev, views, heads=16, seed=0):
+    """A fusion call's (q, k, v, rope) as `FusionAttention` makes them:
+    ``views`` x 768 tokens of 512 x 384 views, q, k, v unbound from one
+    (1, T, 3, H, 64) bfloat16 `qkv`, each token's table row its own
+    patch's."""
+    from starst3r_tpu_torch.models.vit import patch_positions
+    from starst3r_tpu_torch.ops.rope import rope_2d_freqs
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = views * 768
+    q, k, v = torch.randn(1, t, 3, heads, 64, device=dev, generator=gen
+                          ).to(torch.bfloat16).unbind(2)
+    pos = patch_positions(24, 32, dev).repeat(views, 1)[None]
+    return q, k, v, rope_2d_freqs(pos, 64)
+
+
+@pytest.mark.parametrize("kind", ["self", "cross", "fusion"])
+def test_rope_rotate_is_the_plain_rotation_bit_for_bit(dev, kind):
+    """The rotation kernel against `ops/rope.py::rope_rotate` of q and of
+    k: equal bit for bit, on strided `qkv` views, on projections with
+    their own key table, and at a fusion call's 4 x 768 tokens."""
+    from starst3r_tpu_torch.ops import attention
+    from starst3r_tpu_torch.ops.rope import rope_rotate
+    if kind == "fusion":
+        q, k, _, rope = _fusion_inputs(dev, 4)
+        rope_q = rope_k = rope
+    else:
+        q, k, _, rope_q, rope_k = attention_inputs(
+            dev, 3, (10, 14), 12, 64, kind, torch.bfloat16, seed=4,
+            grid_k=(7, 9) if kind == "cross" else None)
+    before = attention.rope_rotate_qk.launches
+    qr, kr = attention.rope_rotate_qk(q, k, rope_q, rope_k)
+    assert attention.rope_rotate_qk.launches == before + 1
+    assert qr.is_contiguous() and kr.is_contiguous()
+    assert torch.equal(qr, rope_rotate(q, *rope_q))
+    assert torch.equal(kr, rope_rotate(k, *rope_k))
+
+
+def test_rotating_once_equals_the_tables_route_bit_for_bit(dev):
+    """A call of `ROTATE_ONCE_KEYS` keys, which `rope_attention` rotates
+    once, equals the attention kernel rotating q and k as they load: the
+    same rotation, then the same kernel."""
+    from starst3r_tpu_torch.ops import attention
+    views = -(-attention.ROTATE_ONCE_KEYS // 768)
+    q, k, v, rope = _fusion_inputs(dev, views, seed=1)
+    before = attention.rope_rotate_qk.launches
+    once = attention.rope_attention(q, k, v, rope, rope)
+    assert attention.rope_rotate_qk.launches == before + 1
+    assert torch.equal(once, attention._rope_attention_cuda(q, k, v, rope,
+                                                            rope))
+
+
+def test_the_rotation_raises_on_what_it_has_no_kernel_for(dev):
+    from starst3r_tpu_torch.ops import attention
+    q, k, v, rq, rk = attention_inputs(dev, 2, (4, 4), 2, 32, "self",
+                                       torch.bfloat16, seed=0)
+    before = attention.rope_rotate_qk.launches
+    with pytest.raises(ValueError):
+        attention.rope_rotate_qk(q, k, rq, rk)
+    with pytest.raises(ValueError):
+        attention.rope_rotate_qk(q.float(), k.float(), rq, rk)
+    assert attention.rope_rotate_qk.launches == before
+
+
+def test_rope_attention_over_a_64_view_scene(dev):
+    """A fusion call at (1, 49152, 16, 64), which `rope_attention` rotates
+    once and then attends over with no tables:
+    within FUSED_ATTN_TOL of the largest magnitude of float32 attention
+    (one head, blocks of queries) on the same rotated bfloat16 q and k."""
+    from starst3r_tpu_torch.ops import attention
+    q, k, v, rope = _fusion_inputs(dev, 64, seed=2)
+    got = attention.rope_attention(q, k, v, rope, rope)
+    qr, kr = attention.rope_rotate_qk(q, k, rope, rope)
+    err, scale = 0.0, 0.0
+    for h in range(q.shape[2]):
+        kh, vh = kr[0, :, h].float(), v[0, :, h].float()
+        for r0 in range(0, q.shape[1], 8192):
+            s = qr[0, r0:r0 + 8192, h].float() @ kh.T
+            want = torch.softmax(s * 0.125, dim=-1) @ vh
+            err = max(err, float((got[0, r0:r0 + 8192, h].float() - want)
+                                 .abs().max()))
+            scale = max(scale, float(want.abs().max()))
+    assert err <= FUSED_ATTN_TOL * scale, (err, scale)
+
+
+def test_fast3r_vitl_512_on_four_views_against_the_reference(dev):
+    """Fast3R ViT-L/512 at 4 views of 512 x 384 on random weights: the
+    program on the card (bfloat16) against the float32 reference
+    (benchmark/reference/fast3r.py), both on the program's state dict, by
+    the benchmark's `net_gap` measure within the cell's limit; 24
+    rotations and 48 attention launches a forward."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]
+                           / "benchmark"))
+    from benchlib.kinds.ffrecon import OUT_KEYS, output_gaps
+    from reference import fast3r as rf
+    from starst3r_tpu_torch.ops import attention
+    import json
+    cfg = stt.Fast3RConfig.fast3r_vitl_512()
+    model = stt.Fast3RModel.init_random(cfg, seed=0, device=dev)
+    imgs = torch.rand(4, 3, 384, 512, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    imgs = imgs * 2 - 1
+    rot, att = attention.rope_rotate_qk.launches, \
+        attention.rope_attention.launches
+    got = model.infer(list(imgs.cpu().numpy()))
+    assert 4 * 768 >= attention.ROTATE_ONCE_KEYS
+    assert attention.rope_rotate_qk.launches - rot == 24
+    assert attention.rope_attention.launches - att == 48
+    with open(Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+              / "fast3r-vitl-512.json") as f:
+        rcfg = json.load(f)
+    with torch.no_grad():
+        want = rf.Fast3R(model.state_dict(), rcfg).forward(imgs)
+    gaps = output_gaps({k: got[k].cpu().numpy() for k in OUT_KEYS},
+                       {k: want[k].cpu().numpy() for k in OUT_KEYS})
+    with open(Path(__file__).resolve().parents[1] / "benchmark" / "checks"
+              / "fast3r512-recon64.json") as f:
+        limit = json.load(f)["limits"]["net_gap"]
+    print("fast3r 4 views, gaps in head space:", gaps)
+    assert float(np.mean(list(gaps.values()))) <= limit, gaps
